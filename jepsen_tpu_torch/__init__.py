@@ -9,9 +9,11 @@ are its own copies.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (see `_platform`).
 
-This slice covers the offline linearizability check of a history on the
-dense reachable-set engine (`checker.wgl.analysis_gpu`), whose closure
-round is the hand-written Hopper kernel `csrc/closure_round.cu`.
+Ported so far: the offline linearizability check of a history
+(`checker.wgl.analysis_gpu`) on both engine families, the dense
+reachable-set table, whose closure round is the hand-written Hopper
+kernel `csrc/closure_round.cu`, and the sort frontier, whose hash dedup
+is the hand-written Hopper kernel `csrc/dedup.cu`.
 """
 
 __version__ = "0.1.0"

@@ -9,10 +9,10 @@ own copy, and a mismatch raises `CorruptDeviceResult`.
   * **Staged-buffer digests.** A position-weighted wrap-around int32
     digest of the step buffer: `digest_host` over the numpy original,
     `digest_device` over the tensor the kernels read.
-  * **Carry digests.** `carry_digest_host` recomputes the dense
-    kernel's on-device carry digest (`wgl.DenseKernel.digest`) from a
-    fetched carry; `verify_carry` also checks att == 0 and count ==
-    popcount(table).
+  * **Carry digests.** `carry_digest_host` recomputes an engine's
+    on-device carry digest (`wgl.DenseKernel.digest`,
+    `wgl.SortKernel.digest`) from a fetched carry; `verify_carry` also
+    checks att == 0 and count == the live population.
 
 Both sides do the arithmetic in int64 and reduce mod 2^32 explicitly,
 so the digests agree bit for bit with the JAX package's, which computes
@@ -62,7 +62,7 @@ def digest_host(arr: np.ndarray) -> int:
     return _to_i32(int((flat * _weights64(flat.size)).sum()))
 
 
-def _wrap_i32(h: torch.Tensor) -> torch.Tensor:
+def wrap_i32(h: torch.Tensor) -> torch.Tensor:
     """An int64 tensor holding a value in [0, 2^32) as signed int32."""
     h = h & _MASK
     return (h - ((h >> 31) & 1) * (1 << 32)).to(torch.int32)
@@ -83,7 +83,7 @@ def digest_device(x: torch.Tensor) -> torch.Tensor:
     flat = _as_i64(x).reshape(-1)
     w = torch.arange(flat.numel(), dtype=torch.int64,
                      device=flat.device) % _W_PERIOD + 1
-    return _wrap_i32(((flat * w) & _MASK).sum())
+    return wrap_i32(((flat * w) & _MASK).sum())
 
 
 def verify_steps(site: str, fetched_digest, expected: int) -> None:
@@ -97,7 +97,7 @@ def verify_steps(site: str, fetched_digest, expected: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Carry digests (host mirrors of wgl.DenseKernel.digest)
+# Carry digests (host mirrors of the engines' digest)
 # ---------------------------------------------------------------------------
 
 # per-component mixing primes: position i's component multiplies
@@ -144,14 +144,15 @@ def carry_digest_device(carry) -> torch.Tensor:
         term = (s * (p & 0xFFFF) + (((s * (p >> 16)) & 0xFFFF) << 16)) \
             & _MASK
         h = term if h is None else h ^ term
-    return _wrap_i32(h)
+    return wrap_i32(h)
 
 
 def verify_carry(site: str, fetched_digest, carry_host,
                  att_index: int = -3) -> None:
     """Check a fetched carry against its device-computed digest plus
     the structural invariants the host can see: digest parity, att == 0
-    and count == popcount of the dense table."""
+    and count == the live population (the dense table's popcount, or
+    the sort frontier's sum of valid flags)."""
     got = int(fetched_digest)
     want = carry_digest_host(carry_host)
     if got != want:
@@ -162,9 +163,13 @@ def verify_carry(site: str, fetched_digest, carry_host,
     if att != 0:
         raise CorruptDeviceResult(
             site, f"in-kernel attestation accumulator = {att} — a "
-                  f"table invariant failed on device")
+                  f"frontier/table invariant or dedup digest failed on "
+                  f"device")
     count = int(np.asarray(carry_host[-2]))
-    pop = int(np.asarray(carry_host[1]).sum())
+    live = np.asarray(carry_host[1])     # table (dense) / masks (sort)
+    if live.dtype != np.bool_:
+        live = np.asarray(carry_host[3])  # the sort frontier's valid
+    pop = int(live.sum())
     if count != pop:
         raise CorruptDeviceResult(
             site, f"carry count {count} != live population {pop}")

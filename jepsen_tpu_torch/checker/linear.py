@@ -228,21 +228,18 @@ class Linearizable(Checker):
     """Linearizability checker (reference checker.clj:185-216). Algorithms:
 
       'host'  — pure-Python JIT-linearization (any model)
-      'gpu'   — the port's dense engine (enumerable-state models); 'tpu'
-                and 'tpu-wgl' are accepted aliases, so a test map written
-                for the JAX package runs unchanged
+      'gpu'   — the port's device engines, dense or sort-frontier
+                (enumerable-state models); 'tpu' and 'tpu-wgl' are
+                accepted aliases, so a test map written for the JAX
+                package runs unchanged
       'auto'  — gpu when the model has a device form and the history fits
                 its device encoding, else host
       'linear'/'wgl' — accepted aliases (reference names) for 'auto'.
 
     Extra keyword options flow straight to `wgl.analysis_gpu`: device
     ('cuda' by default; 'cpu' runs the plain PyTorch path), engine,
-    dense_slot_cap, chunk_entries, budget_s, explain, frontier.
-
-    A history whose shape needs the sort-frontier family raises
-    NotImplementedError from analysis_gpu under 'gpu' and 'auto' alike:
-    the port does not hand it to the host oracle behind the caller's
-    back.
+    dense_slot_cap, chunk_entries, budget_s, explain, frontier,
+    max_frontier, slot_overflow_fallback.
     """
 
     def __init__(self, model: m.Model, algorithm: str = "auto", **opts):

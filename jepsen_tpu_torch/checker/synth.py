@@ -9,10 +9,10 @@ is always a legal linearization), with real overlap between processes and
 optional crashed ops. `corrupt` then breaks a valid history in a way the
 checker must catch (stale read).
 
-The port's own copy of the register generators of
-`jepsen_tpu/checker/synth.py` (the port imports nothing of the JAX
-package); tests/test_torch_host.py holds the two copies to the same
-histories.
+The port's own copy of the register, counter and unordered-queue
+generators of `jepsen_tpu/checker/synth.py` (the port imports nothing of
+the JAX package); tests/test_torch_host.py holds the two copies to the
+same histories.
 """
 
 from __future__ import annotations
@@ -206,3 +206,95 @@ def corrupt(hist: History, seed: int = 7, value: Any = 10 ** 6) -> History:
     # (NIL aside), so this must be caught
     ops[i]["value"] = value
     return History(ops)
+
+
+def _slotted_history(n_ops: int, concurrency: int, seed: int,
+                     make_op, crash_rate: float = 0.0,
+                     crashable=lambda f: True) -> History:
+    """Shared scheduler for single-object model histories: ops apply
+    at their invoke point (a legal linearization) with real overlap.
+    make_op(rng) -> (invoke-value-fn applied immediately, returning
+    (f, invoke_value, ok_value))."""
+    rng = random.Random(seed)
+    ops: list[dict] = []
+    t = 0
+    pending: dict[int, dict] = {}
+    process = {i: i for i in range(concurrency)}
+    emitted = 0
+
+    def tick() -> int:
+        nonlocal t
+        t += rng.randint(1, 10)
+        return t
+
+    while emitted < n_ops or pending:
+        slot = rng.randrange(concurrency)
+        if slot in pending:
+            comp = pending.pop(slot)
+            comp["time"] = tick()
+            ops.append(comp)
+            continue
+        if emitted >= n_ops:
+            for s in sorted(pending):
+                comp = pending.pop(s)
+                comp["time"] = tick()
+                ops.append(comp)
+            break
+        p = process[slot]
+        f, inv_v, ok_v, ok = make_op(rng)
+        inv = {"type": "invoke", "f": f, "value": inv_v,
+               "process": p, "time": tick()}
+        comp = {**inv, "type": "ok" if ok else "fail", "value": ok_v}
+        ops.append(inv)
+        emitted += 1
+        if ok and crash_rate and crashable(f) \
+                and rng.random() < crash_rate:
+            comp["type"] = "info"
+            comp["time"] = tick()
+            ops.append(comp)
+            process[slot] = p + concurrency
+        else:
+            pending[slot] = comp
+    return History(ops)
+
+
+def counter_history(n_ops: int, concurrency: int = 4,
+                    max_delta: int = 3, crash_rate: float = 0.0,
+                    seed: int = 45100) -> History:
+    """A valid counter history: adds (possibly negative) applied at
+    invoke; reads observe the true value. Crashed adds (crash_rate)
+    are applied — a legal linearization."""
+    state = {"v": 0}
+
+    def make_op(rng):
+        if rng.random() < 0.5:
+            d = rng.randint(1, max_delta) * rng.choice((1, -1))
+            state["v"] += d
+            return "add", d, d, True
+        return "read", None, state["v"], True
+
+    return _slotted_history(n_ops, concurrency, seed, make_op,
+                            crash_rate, crashable=lambda f: f == "add")
+
+
+def uqueue_history(n_ops: int, concurrency: int = 4, values: int = 5,
+                   seed: int = 45100) -> History:
+    """A valid unordered-queue history: enqueues/dequeues over a small
+    value domain; dequeues of absent values fail."""
+    counts = [0] * values
+
+    def make_op(rng):
+        if rng.random() < 0.5:
+            v = rng.randrange(values)
+            if counts[v] >= 15:
+                counts[v] -= 1
+                return "dequeue", v, v, True
+            counts[v] += 1
+            return "enqueue", v, v, True
+        v = rng.randrange(values)
+        if counts[v] > 0:
+            counts[v] -= 1
+            return "dequeue", v, v, True
+        return "dequeue", v, v, False
+
+    return _slotted_history(n_ops, concurrency, seed, make_op)

@@ -1,4 +1,4 @@
-"""Linearizability on the GPU: the dense reachable-set engine in PyTorch.
+"""Linearizability on the GPU: the WGL engines in PyTorch.
 
 Counterpart of `jepsen_tpu/checker/wgl.py`. A configuration is (model
 state, set of pending ops already linearized). Each in-flight operation
@@ -6,29 +6,41 @@ holds a *slot* in [0, P); slots are assigned host-side by scanning the
 history (freed at completion, held forever by crashed :info ops), so the
 mask width is bounded by real concurrency, not history length.
 
-When the model's state count S and the slot count P are small enough
-that S * 2^P fits DENSE_TABLE_CAP, the whole configuration space is a
-dense boolean table T[state, pending-mask], and every history step is a
-transform of the whole table:
+Two engine families, picked per history by `select_engine`:
 
-  * an :ok return keeps the configurations holding the op's bit and
-    clears it — a gather along the mask axis;
-  * an invoke closes the table under linearization of every occupied
-    slot: closure rounds (`wgl_closure.closure_round`, the hand-written
-    Hopper kernel K1 on CUDA) repeated until the popcount stops growing;
-  * the history is linearizable iff the table is nonempty after the last
-    step.
+  * **dense** (`DenseKernel`): when S states x 2^P masks fit
+    DENSE_TABLE_CAP, the configuration space is a dense boolean table
+    T[state, pending-mask]. An :ok return keeps the configurations
+    holding the op's bit and clears it (a gather along the mask axis);
+    an invoke closes the table under linearization of every occupied
+    slot with closure rounds (`wgl_closure.closure_round`, the Hopper
+    kernel K1 on CUDA) until the popcount stops growing. Exact.
+  * **sort** (`SortKernel`): a frontier of at most F configurations.
+    An invoke linearizes the new op (stage A), then closes the frontier
+    by expanding only the configurations each round added (stage B);
+    after each expansion the frontier is deduplicated and compacted.
+    The dedup runs one of three routes: the hash dedup
+    (`wgl_dedup.dedup`, the Hopper kernel K2 on CUDA) when the config
+    packs into one 31-bit key, else one stable sort of a packed key,
+    else a stable lexicographic sort of the mask words and the state.
+    A frontier that drops configurations (overflow) makes an invalid
+    verdict 'unknown', and `analysis_gpu` escalates F x 4.
 
-The step walk is an eager Python loop: each step's control values (the
+The history is linearizable iff the table or frontier is nonempty after
+the last step.
+
+Engine and dedup names in results ("dense-table", "pallas-hash",
+"xla-sort") are the JAX package's result vocabulary, kept so that
+results and calibration keys compare field for field: they name the
+route, not the implementation ("pallas-hash" runs K2 here).
+
+The step walks are eager Python loops: each step's control values (the
 completion mask and the invoked slot) come from the host copy of the
-step matrix, the slot arguments from its device copy. One closure round
-costs one host read of the table's popcount; that sync and the launches
-around it set the pace of this slice (a persistent step-walk kernel is a
-later slice's work).
-
-This slice ports the dense family only. A history whose shape needs the
-sort-frontier family raises NotImplementedError; that engine and its
-hash-dedup kernel come in the next slice.
+step matrix, the slot arguments from its device copy. A dense closure
+round costs one host read of the table's popcount, a sort stage-B round
+one read of "any legal candidate?"; those syncs and the launches around
+them set the pace (a persistent step-walk kernel is a later slice's
+work).
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from ..history import (DeviceEncodingError, F_CAS, F_READ, F_WRITE,
                        KIND_OK, NIL, OpArray, UQ_COUNT_MAX, UQ_VALUES,
                        default_register_codec, encode_ops,
                        history as as_history)
-from . import abft
+from . import abft, wgl_dedup
 from .wgl_closure import closure_round
 
 # Event kinds (host-side stream construction)
@@ -442,7 +454,38 @@ def stage_steps(x: np.ndarray, device) -> Staged:
     return Staged(host, torch.from_numpy(host).to(device))
 
 
-class DenseKernel:
+class _Engine:
+    """What both engine families share: counted host reads, the carry
+    digest and the one-call check. A subclass sets `device` and
+    implements init_carry, run_range and summarize."""
+
+    device: torch.device
+    syncs: int
+
+    def fetch(self, t: torch.Tensor):
+        """Read a tensor's value on the host (one device sync)."""
+        self.syncs += 1
+        return t.tolist()
+
+    def fetch_carry(self, carry) -> tuple:
+        self.syncs += 1
+        return carry_to_numpy(carry)
+
+    def _i32(self, v: int) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.int32, device=self.device)
+
+    def digest(self, carry) -> torch.Tensor:
+        """The carry digest (abft.carry_digest_host is its host mirror),
+        unfetched."""
+        return abft.carry_digest_device(carry)
+
+    def check(self, xs: Staged, n_steps: int, init_state: int) -> tuple:
+        """The whole search in one call: init + walk + summarize."""
+        return self.summarize(
+            self.run_range(xs, n_steps, self.init_carry(init_state)))
+
+
+class DenseKernel(_Engine):
     """The dense engine for S states x P slots on one device.
 
     Same entry points as the JAX package's dense `Kernel`: init_carry,
@@ -454,6 +497,8 @@ class DenseKernel:
 
     `rounds` counts closure rounds (K1 launches on CUDA) and `syncs`
     counts blocking device-to-host reads, over the kernel's life."""
+
+    dedups = 0   # the dense family has no dedup (SortKernel counts K2's)
 
     def __init__(self, model_name: str, s_lo: int, S: int, P: int,
                  device):
@@ -471,19 +516,6 @@ class DenseKernel:
                                   dtype=torch.int32, device=dev)
         self.rounds = 0
         self.syncs = 0
-
-    # -- host reads ----------------------------------------------------------
-    def fetch(self, t: torch.Tensor):
-        """Read a tensor's value on the host (one device sync)."""
-        self.syncs += 1
-        return t.tolist()
-
-    def fetch_carry(self, carry) -> tuple:
-        self.syncs += 1
-        return carry_to_numpy(carry)
-
-    def _i32(self, v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int32, device=self.device)
 
     # -- carry ---------------------------------------------------------------
     def init_carry(self, init_state: int) -> tuple:
@@ -509,11 +541,6 @@ class DenseKernel:
         e, att, count, maxc = self.fetch(torch.stack([e, att, count, maxc]))
         ok = count > 0
         return ok, (-1 if ok else e - 1), False, maxc, att
-
-    def digest(self, carry) -> torch.Tensor:
-        """The carry digest (abft.carry_digest_host is its host mirror),
-        unfetched."""
-        return abft.carry_digest_device(carry)
 
     # -- the walk --------------------------------------------------------------
     def _closure(self, table, slots, occ):
@@ -588,10 +615,257 @@ class DenseKernel:
 
     check_chunk = run_range
 
-    def check(self, xs: Staged, n_steps: int, init_state: int) -> tuple:
-        """The whole search in one call: init + walk + summarize."""
-        return self.summarize(
-            self.run_range(xs, n_steps, self.init_carry(init_state)))
+
+# ---------------------------------------------------------------------------
+# Sort-frontier engine
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _neq_prev(x: torch.Tensor) -> torch.Tensor:
+    """True at 0 and wherever x differs from the element before it."""
+    out = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    out[1:] = x[1:] != x[:-1]
+    return out
+
+
+class SortKernel(_Engine):
+    """The sort-frontier engine: an F-configuration frontier over P slots
+    on one device (counterpart of the JAX package's `_kernel_cached`).
+
+    Same entry points as `DenseKernel`, over the JAX sort kernel's carry
+    ``(e, masks [F,W], states [F], valid bool[F], slot_f, slot_a, slot_b
+    int32[P], slot_occ bool[P], overflow bool, att, count, max_count
+    int32)``. The masks are uint32 words in the JAX carry; here they are
+    int32 tensors holding the same bit patterns (torch has no shifts on
+    uint32), and `carry.py` views them as uint32 on the host.
+
+    pack: (s_lo, sb_bits) from `_pack_params`, or None. dedup: the
+    resolved route, DEDUP_PALLAS (the hash dedup, K2 on CUDA; needs a
+    packed one-word config) or DEDUP_SORT (one stable sort of the packed
+    key when pack is given and W == 1, else the lexicographic sort).
+
+    `rounds` counts stage-B expansion rounds, `dedups` the hash-dedup
+    calls (K2 launches on CUDA), `syncs` blocking host reads."""
+
+    def __init__(self, model_name: str, F: int, P: int,
+                 pack: tuple[int, int] | None, dedup: str, device):
+        if not 1 <= P <= 256 or F < 1:
+            raise ValueError(f"sort engine needs 1 <= P <= 256 and F >= 1, "
+                             f"got P={P}, F={F}")
+        self.step = DEVICE_MODELS[model_name].step
+        self.F, self.P, self.W = F, P, max(1, (P + 31) // 32)
+        self.s_lo, self.sb_bits = pack if pack is not None else (0, 64)
+        self.packed = pack is not None and self.W == 1
+        if dedup == DEDUP_PALLAS and not self.packed:
+            raise ValueError("the hash dedup needs a packed one-word config")
+        if dedup not in (DEDUP_PALLAS, DEDUP_SORT):
+            raise ValueError(f"unknown dedup route {dedup!r}")
+        self.dedup_route = dedup
+        self.device = dev = torch.device(device)
+        self.use_attest = attest_enabled()
+        bits = np.zeros((P, self.W), np.uint32)
+        for p in range(P):
+            bits[p, p // 32] = np.uint32(1) << np.uint32(p % 32)
+        self._bitmat = torch.from_numpy(bits.view(np.int32)).to(dev)
+        self._origin_a = torch.arange(2 * F, device=dev) >= F
+        self._origin_b = torch.arange(F * (1 + P), device=dev) >= F
+        self.rounds = 0
+        self.dedups = 0
+        self.syncs = 0
+
+    # -- carry ---------------------------------------------------------------
+    def init_carry(self, init_state: int) -> tuple:
+        # att is the ABFT attestation accumulator: frontier-invariant
+        # residues and hash-dedup digest mismatches sum into it, and it
+        # must read 0 on the host at every chunk boundary
+        F, P, dev = self.F, self.P, self.device
+        valid = torch.zeros(F, dtype=torch.bool, device=dev)
+        valid[0] = True
+        return (self._i32(0),
+                torch.zeros((F, self.W), dtype=torch.int32, device=dev),
+                torch.full((F,), int(init_state), dtype=torch.int32,
+                           device=dev),
+                valid,
+                torch.zeros(P, dtype=torch.int32, device=dev),
+                torch.full((P,), NIL, dtype=torch.int32, device=dev),
+                torch.full((P,), NIL, dtype=torch.int32, device=dev),
+                torch.zeros(P, dtype=torch.bool, device=dev),
+                torch.tensor(False, device=dev),
+                self._i32(0), self._i32(1), self._i32(1))
+
+    def summarize(self, carry) -> tuple:
+        """(ok, death, overflow, max_count, att) on the host; death is the
+        merged step at which the frontier emptied (-1 when alive)."""
+        e, overflow, att, count, maxc = self.fetch(torch.stack(
+            [carry[0], carry[8].to(torch.int32), carry[9], carry[10],
+             carry[11]]))
+        ok = count > 0
+        return ok, (-1 if ok else e - 1), bool(overflow), maxc, att
+
+    # -- dedup routes ----------------------------------------------------------
+    # Each takes N rows (old frontier first) and returns the F-row
+    # frontier (masks, states, valid, new), the overflow flag and the
+    # digest-mismatch flag, as tensors.
+
+    def _dedup(self, masks, states, valid, origin):
+        if self.dedup_route == DEDUP_PALLAS:
+            return self._dedup_hash(masks, states, valid)
+        if self.packed:
+            return self._dedup_packed(masks, states, valid, origin)
+        return self._dedup_lex(masks, states, valid, origin)
+
+    def _dedup_hash(self, masks, states, valid):
+        """The packed 31-bit key through the hash dedup: the distinct
+        keys in first-seen order. Old configs sit in rows [0, F), so
+        first-seen wins is the stable sort's old-configs-first rule.
+        ABFT: when the count fits the frontier, the XOR digest of the
+        compacted output must equal the digest of the table's keys."""
+        F, P = self.F, self.P
+        key = torch.where(valid, ((states - self.s_lo) << P) | masks[:, 0],
+                          wgl_dedup.EMPTY).contiguous()
+        out, new, distinct, kdig = wgl_dedup.dedup(key, F)
+        self.dedups += 1
+        valid_f = out >= 0
+        safe = torch.where(valid_f, out, 0)
+        masks_f = (safe & ((1 << P) - 1))[:, None]
+        states_f = (safe >> P) + self.s_lo
+        if self.use_attest:
+            exp = abft.wrap_i32(wgl_dedup.xor_fold(safe)
+                                ^ wgl_dedup.mix_count(distinct))
+            mism = ((exp != kdig) & (distinct <= F)).to(torch.int32)
+        else:
+            mism = self._i32(0)
+        return masks_f, states_f, valid_f, new & valid_f, distinct > F, mism
+
+    def _dedup_packed(self, masks, states, valid, origin):
+        """One stable sort of key = invalid<<31 | (state-s_lo)<<P | mask,
+        as the uint32 it is in the JAX kernel (held in int64)."""
+        F, P = self.F, self.P
+        i64 = torch.int64
+        key = (torch.where(valid, 0, 1 << 31)
+               | (((states.to(i64) - self.s_lo) & _M32) << P) & _M32
+               | (masks[:, 0].to(i64) & _M32))
+        key_s, perm = torch.sort(key, stable=True)
+        valid_s = ((key_s >> 31) == 0) & _neq_prev(key_s)
+        head = key_s[:F]
+        masks_f = (head & ((1 << P) - 1)).to(torch.int32)[:, None]
+        states_f = ((head >> P) & ((1 << self.sb_bits) - 1)).to(torch.int32) \
+            + self.s_lo
+        valid_f = valid_s[:F]
+        return (masks_f, states_f, valid_f, valid_f & origin[perm[:F]],
+                valid_s[F:].any(), self._i32(0))
+
+    def _dedup_lex(self, masks, states, valid, origin):
+        """Stable lexicographic sort by (invalid, mask words as unsigned,
+        state as signed), as chained stable sorts from the least
+        significant key up; the first row of each run of equal keys
+        wins, so an old config beats an equal candidate."""
+        F = self.F
+        i64 = torch.int64
+        words = masks.to(i64) & _M32                                # (N, W)
+        inv = (~valid).to(i64)
+        # (invalid, word 0) fit one 33-bit key; the rest sort alone
+        keys = [(inv << 32) | words[:, 0]] + \
+            [words[:, w] for w in range(1, self.W)] + [states.to(i64)]
+        perm = torch.arange(len(states), device=self.device)
+        for k in reversed(keys):
+            perm = perm[torch.sort(k[perm], stable=True)[1]]
+        first = _neq_prev(keys[-1][perm])
+        for k in keys[:-1]:
+            first |= _neq_prev(k[perm])
+        valid_s = valid[perm] & first
+        head = perm[:F]
+        valid_f = valid_s[:F]
+        return (masks[head], states[head], valid_f, valid_f & origin[head],
+                valid_s[F:].any(), self._i32(0))
+
+    # -- the walk --------------------------------------------------------------
+    def _expand(self, masks, states, valid, new, slots, occ, overflow, att):
+        """Stage B: close the frontier under linearization, expanding
+        only the configurations the last round added. One host read per
+        round ("any legal candidate?", with the live count); the read
+        that finds none ends the stage and gives the step's count. A
+        round whose dedup adds nothing leaves no legal candidate for the
+        next, so that read also ends the stage, as the JAX loop's
+        converged flag does."""
+        F, P, W = self.F, self.P, self.W
+        bitmat = self._bitmat
+        i32 = torch.int32
+        while True:
+            legal, cstate = self.step(states[:, None], slots[0][None, :],
+                                      slots[1][None, :], slots[2][None, :])
+            already = ((masks[:, None, :] & bitmat[None]) != 0).any(-1)
+            legal = legal & (valid & new)[:, None] & occ[None, :] & ~already
+            any_legal, count = self.fetch(torch.stack(
+                [legal.any().to(i32), valid.sum(dtype=i32)]))
+            if not any_legal:
+                return masks, states, valid, overflow, att, count
+            cmasks = (masks[:, None, :] | bitmat[None]).reshape(F * P, W)
+            masks, states, valid, new, ovf, mism = self._dedup(
+                torch.cat([masks, cmasks]),
+                torch.cat([states, cstate.reshape(F * P)]),
+                torch.cat([valid, legal.reshape(F * P)]), self._origin_b)
+            overflow = overflow | ovf
+            att = att + mism
+            self.rounds += 1
+
+    def run_range(self, xs: Staged, stop: int, carry) -> tuple:
+        """Walk steps [carry.e, stop) while the frontier is nonempty; a
+        dead carry's e is death + 1, as the JAX while_loop leaves it."""
+        e, count = self.fetch(torch.stack([carry[0], carry[10]]))
+        if e >= stop or count <= 0:
+            return carry
+        i32 = torch.int32
+        W, bitmat = self.W, self._bitmat
+        (_e, masks, states, valid, slot_f, slot_a, slot_b, occ, overflow,
+         att, count_t, maxc) = carry
+        # fresh copies, updated in place below: the caller's carry stays
+        slots = torch.stack([slot_f, slot_a, slot_b])           # (3, P)
+        occ = occ.clone()
+        x, xd = xs.host, xs.dev
+        while e < stop and count > 0:
+            s = int(x[e, W])
+            if x[e, :W].any():
+                # completion: survivors linearized every returned op;
+                # clearing the bits keeps distinct configs distinct, so
+                # no dedup. rm == 0 is a no-op, so it is skipped.
+                rm = xd[e, :W]
+                valid = valid & ((masks & rm) == rm).all(1)
+                masks = masks & ~rm
+                occ &= ~((bitmat & rm) != 0).any(1)
+            if s >= 0:
+                fab = xd[e, W + 1:W + 4]
+                slots[:, s] = fab
+                occ[s] = True
+                # stage A: linearize just the new op
+                legal, nstate = self.step(states, fab[0], fab[1], fab[2])
+                bv = bitmat[s]
+                cvalid = valid & legal & ~((masks & bv) != 0).any(1)
+                masks, states, valid, new, ovf, mism = self._dedup(
+                    torch.cat([masks, masks | bv]),
+                    torch.cat([states, nstate]),
+                    torch.cat([valid, cvalid]), self._origin_a)
+                overflow = overflow | ovf
+                att = att + mism
+                masks, states, valid, overflow, att, count = self._expand(
+                    masks, states, valid, new, slots, occ, overflow, att)
+            count_t = valid.sum(dtype=i32)
+            if s < 0:
+                count = self.fetch(count_t)
+            if self.use_attest:
+                # ABFT frontier invariant: a valid configuration holds
+                # pending bits of occupied slots only
+                occw = torch.where(occ[:, None], bitmat, 0).sum(0, dtype=i32)
+                bad = valid & ((masks & ~occw) != 0).any(1)
+                att = att + bad.sum(dtype=i32)
+            maxc = torch.maximum(maxc, count_t)
+            e += 1
+        return (self._i32(e), masks, states, valid, slots[0], slots[1],
+                slots[2], occ, overflow, att, count_t, maxc)
+
+    check_chunk = run_range
 
 
 def _dense_shape(srange: tuple[int, int],
@@ -610,8 +884,8 @@ def _dense_shape(srange: tuple[int, int],
 
 
 # ---------------------------------------------------------------------------
-# Engine cost model: the JAX package's, with the sort family's dedup
-# priced as the lexicographic sort until the hash-dedup kernel is ported
+# Engine cost model: the JAX package's, resolved as on its accelerator
+# (the hash dedup on wherever its gate admits the shape; no calibration)
 # ---------------------------------------------------------------------------
 
 MXU_ADVANTAGE = 256     # batched-matmul element-ops per VPU-op
@@ -619,10 +893,40 @@ CLOSURE_ROUNDS = 2      # typical stage-B fixpoint depth per invoke
 HASH_PROBE_COST = 6     # serial probe+claim cost per candidate key
 DENSE_EXACT_BIAS = 8.0  # prefer dense until its modeled cost exceeds the
 #                         sort family's by this factor
+MAX_SLOTS = 256         # past this the device path hands over to the host
 
-# dedup-engine names (reported in analyses)
-DEDUP_SORT = "xla-sort"
-DEDUP_NONE = "dense-table"   # the dense family has no dedup at all
+# dedup route names, the JAX package's result vocabulary (module doc)
+DEDUP_PALLAS = "pallas-hash"   # the hash dedup: K2 on CUDA
+DEDUP_SORT = "xla-sort"        # a stable sort (packed key or lexicographic)
+DEDUP_NONE = "dense-table"     # the dense family has no dedup at all
+
+
+def _pack_params(state_range: tuple[int, int] | None,
+                 P: int) -> tuple[int, int] | None:
+    """(s_lo, sb_bits) when a config (invalid flag, biased state, P-bit
+    mask) packs into one 32-bit word, else None."""
+    if state_range is None or P > 32:
+        return None
+    s_lo = state_range[0]
+    sb_bits = (state_range[1] - state_range[0] + 1).bit_length()
+    if P + sb_bits + 1 > 32:
+        return None
+    return s_lo, sb_bits
+
+
+def _hash_gate(F: int, P: int, pack: tuple[int, int] | None) -> bool:
+    """The one gate for the hash dedup: a packed config in one mask word
+    and the JAX package's capacity gate (`wgl_dedup.eligible`). Shared
+    by the kernel choice and every reporting site, so the "dedup"
+    stamped in a result is the route that ran."""
+    if pack is None or (P + 31) // 32 > 1:
+        return False
+    return wgl_dedup.eligible(F, P)
+
+
+def dedup_engine(F: int, P: int, pack: tuple[int, int] | None) -> str:
+    """The dedup route the sort family runs at this shape."""
+    return DEDUP_PALLAS if _hash_gate(F, P, pack) else DEDUP_SORT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -663,18 +967,21 @@ def select_engine(srange: tuple[int, int], p_exact: int, n_events: int,
                   engine: str = "auto",
                   dense_slot_cap: int | None = None) -> EngineDecision:
     """Pick the engine family for one history shape, by the JAX
-    package's cost model as it resolves without a TPU (no Pallas hash
-    dedup, no calibration). engine='dense'/'sort' force a family
-    ('dense' raises when the table cannot fit); dense_slot_cap bounds
-    the slot count 'auto' lets the dense table absorb."""
+    package's cost model as it resolves on its accelerator: the sort
+    family is priced at the dedup it will run (the hash dedup where
+    `_hash_gate` admits the shape), with no calibration. The result is
+    the JAX package's `select_engine(..., pallas=True)`.
+    engine='dense'/'sort' force a family ('dense' raises when the table
+    cannot fit); dense_slot_cap bounds the slot count 'auto' lets the
+    dense table absorb."""
     if engine not in ("auto", "dense", "sort"):
         raise ValueError(f"unknown WGL engine {engine!r}")
     if slots is None:
         slots = _bucket(p_exact, lo=8)
     S = _bucket(srange[1] - srange[0] + 1, lo=4)
     costs = _family_costs(S, p_exact, slots, frontier, n_events)
-    dedup = DEDUP_SORT
-    sort_cost = costs["sort"]
+    dedup = dedup_engine(frontier, slots, _pack_params(srange, slots))
+    sort_cost = costs["hash" if dedup == DEDUP_PALLAS else "sort"]
     dense = None
     if engine in ("auto", "dense"):
         if dense_slot_cap is not None and p_exact > dense_slot_cap:
@@ -736,68 +1043,109 @@ def _state_range(name: str, model, entries_list) -> tuple[int, int]:
     return int(lo), int(hi)
 
 
-def plan_dense(model, hist, *, frontier: int = 256,
-               slots: int | None = None, engine: str = "auto",
-               dense_slot_cap: int | None = None):
-    """Encode a history and pick its engine: (ops, decision), where
-    decision.dense is (s_lo, S, P). Raises NotImplementedError when the
-    shape needs the sort-frontier family, which this slice does not
-    port."""
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A history encoded and its engine picked. decision is None past
+    MAX_SLOTS, where the device path hands the history to the host;
+    slots is the count the engine runs (exact P for the dense table,
+    bucketed for the sort frontier)."""
+    model_name: str
+    ops: OpArray
+    decision: EngineDecision | None
+    slots: int
+    srange: tuple[int, int] | None
+
+    @property
+    def pack(self) -> tuple[int, int] | None:
+        return _pack_params(self.srange, self.slots)
+
+    def kernel(self, device, frontier: int) -> "DenseKernel | SortKernel":
+        """A fresh engine for this plan (the sort family at frontier F,
+        with the dedup route `dedup_engine` picks there)."""
+        if self.decision.dense is not None:
+            return DenseKernel(self.model_name, *self.decision.dense, device)
+        return SortKernel(self.model_name, frontier, self.slots, self.pack,
+                          dedup_engine(frontier, self.slots, self.pack),
+                          device)
+
+
+def plan(model, hist, *, frontier: int = 256, slots: int | None = None,
+         engine: str = "auto", dense_slot_cap: int | None = None) -> Plan:
+    """Encode a history and pick its engine family."""
     ops = encode_ops_for_model(model, hist)
     p_exact = required_slots(ops)
     if slots is None or p_exact > slots:
         slots = _bucket(p_exact, lo=8)
+    if slots > MAX_SLOTS:
+        return Plan(model.device_model, ops, None, slots, None)
     srange = _state_range(model.device_model, model, [ops])
     decision = select_engine(srange, p_exact, event_count(ops),
                              slots=slots, frontier=frontier,
                              engine=engine, dense_slot_cap=dense_slot_cap)
-    if decision.dense is None:
-        raise NotImplementedError(
-            f"this history needs the sort-frontier engine "
-            f"({decision.reason}); the port brings that engine and its "
-            f"hash-dedup kernel in the next slice")
-    return ops, decision
+    if decision.dense is not None:
+        slots = decision.dense[2]      # exact P: the table is 2^P wide
+    return Plan(model.device_model, ops, decision, slots, srange)
 
 
 def _check_att(att, site: str) -> None:
     """Raise the corrupt fault when a fetched attestation accumulator
-    is nonzero — the table-occupancy invariant failed on device."""
+    is nonzero — a table or frontier invariant failed on device."""
     if int(att) != 0:
         raise CorruptDeviceResult(
             site, f"in-kernel attestation accumulator = {att} — a "
-                  f"table invariant failed on device")
+                  f"frontier/table invariant or dedup digest failed on "
+                  f"device")
 
 
 def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
-                 slots: int | None = None, chunk_entries: int = 4096,
-                 budget_s: float | None = None, cancel=None,
-                 explain: bool = True, engine: str = "auto",
+                 slots: int | None = None, max_frontier: int = 65536,
+                 chunk_entries: int = 4096, budget_s: float | None = None,
+                 cancel=None, explain: bool = True,
+                 slot_overflow_fallback: bool = True, engine: str = "auto",
                  dense_slot_cap: int | None = None) -> dict:
-    """Check one history on the dense engine (counterpart of the JAX
-    package's `analysis_tpu`, one attempt, without its recovery ladder).
+    """Check one history on the GPU (counterpart of the JAX package's
+    `analysis_tpu`, one attempt, without its recovery ladder).
 
-    device: 'cuda' by default, where every closure round runs the K1
-    kernel; 'cpu' runs the plain PyTorch version of the same round.
+    device: 'cuda' by default, where every dense closure round runs K1
+    and every hash dedup K2; 'cpu' runs their plain PyTorch versions.
+
+    engine: 'auto' picks the dense or the sort family by the cost model
+    (`select_engine`); 'dense' / 'sort' force one. The sort family
+    starts at `frontier` configurations and, when a search dies after
+    dropping configurations (overflow), runs again at 4x the frontier up
+    to max_frontier. Past MAX_SLOTS slots the history goes to the host
+    oracle (analyzer "host-jit-linear (slot overflow)"), or, with
+    slot_overflow_fallback=False, comes back 'unknown'.
 
     Histories that fit one chunk run as one walk; longer ones run as
     chunk_entries-step chunks with the carry between them, the host
     reading each chunk's liveness one chunk late. budget_s caps wall
-    time (past it an undecided search is 'unknown'); cancel is polled
-    between chunks. explain: on an invalid verdict, re-run the host
-    oracle on the prefix ending at the culprit op for configs and
-    final-paths.
+    time across passes (past it an undecided search is 'unknown');
+    cancel is polled between chunks. explain: on an invalid verdict,
+    re-run the host oracle on the prefix ending at the culprit op for
+    configs and final-paths.
 
     With attestation on (JEPSEN_TPU_ATTEST, default on) the staged step
     buffer's device digest is checked against the host's, and a chunked
     search's final carry against its device digest and invariants."""
     t0 = _time.monotonic()
     dev = resolve_device(device)
-    ops, decision = plan_dense(model, hist, frontier=frontier, slots=slots,
-                               engine=engine, dense_slot_cap=dense_slot_cap)
-    s_lo, S, P = decision.dense
-    steps = build_steps(ops, P)
-    k = DenseKernel(model.device_model, s_lo, S, P, dev)
+    pl = plan(model, hist, frontier=frontier, slots=slots, engine=engine,
+              dense_slot_cap=dense_slot_cap)
+    if pl.decision is None:
+        if not slot_overflow_fallback:
+            return {"valid?": "unknown", "analyzer": "gpu-wgl",
+                    "error": f"slot overflow ({pl.slots} slots needed)"}
+        from .linear import analysis_host
+        a = analysis_host(model, hist, budget_s=budget_s, cancel=cancel)
+        a["analyzer"] = "host-jit-linear (slot overflow)"
+        return a
+    ops, decision, dense = pl.ops, pl.decision, pl.decision.dense
+    steps = build_steps(ops, pl.slots)
     xs = stage_steps(steps.x, dev)
+    F = frontier
+    k = pl.kernel(dev, F)
+    kernels = [k]
     att_info = None
     if attest_enabled():
         abft.verify_steps("offline", k.fetch(abft.digest_device(xs.dev)),
@@ -805,69 +1153,87 @@ def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
         att_info = {"steps": 1, "carry": 0}
     init_state = int(model.device_state())
     timed_out = cancelled = False
-    if steps.n <= chunk_entries:
-        ok, death, overflow, max_count, att = k.check(xs, steps.n,
-                                                      init_state)
-        _check_att(att, "offline")
-    else:
-        carry = k.init_carry(init_state)
-        e = 0
-        while e < steps.n:
-            stop = min(e + chunk_entries, steps.n)
-            prev, carry = carry, k.check_chunk(xs, stop, carry)
-            e = stop
-            if k.fetch(prev[7]) == 0:
-                carry = prev   # the table died last chunk: definite
-                break
-            # only give up when chunks remain — a search that just
-            # finished is definitive regardless of elapsed time
-            if e < steps.n:
-                over = budget_s is not None and \
-                    _time.monotonic() - t0 > budget_s
-                stop_req = cancel is not None and cancel()
-                if over or stop_req:
-                    if k.fetch(carry[7]) == 0:
-                        break
-                    timed_out = True
-                    cancelled = stop_req and not over
+    while True:
+        if steps.n <= chunk_entries:
+            ok, death, overflow, max_count, att = k.check(xs, steps.n,
+                                                          init_state)
+            _check_att(att, "offline")
+        else:
+            carry = k.init_carry(init_state)
+            e = 0
+            while e < steps.n:
+                stop = min(e + chunk_entries, steps.n)
+                prev, carry = carry, k.check_chunk(xs, stop, carry)
+                e = stop
+                if k.fetch(prev[-2]) == 0:
+                    carry = prev   # it died last chunk: definite
                     break
-        if att_info is not None:
-            # chunk-boundary carry attestation: fetch the carry and its
-            # device digest, recompute on the host, check att == 0 and
-            # count == popcount(table)
-            digest = k.fetch(k.digest(carry))
-            abft.verify_carry("offline", digest, k.fetch_carry(carry))
-            att_info["carry"] += 1
-        ok, death, overflow, max_count, att = k.summarize(carry)
-        _check_att(att, "offline")
-    ok = ok and not timed_out
-    overflow = overflow or timed_out
+                # only give up when chunks remain — a search that just
+                # finished is definitive regardless of elapsed time
+                if e < steps.n:
+                    over = budget_s is not None and \
+                        _time.monotonic() - t0 > budget_s
+                    stop_req = cancel is not None and cancel()
+                    if over or stop_req:
+                        if k.fetch(carry[-2]) == 0:
+                            break
+                        timed_out = True
+                        cancelled = stop_req and not over
+                        break
+            if att_info is not None:
+                # chunk-boundary carry attestation: fetch the carry and
+                # its device digest, recompute on the host, check
+                # att == 0 and count == the live population
+                digest = k.fetch(k.digest(carry))
+                abft.verify_carry("offline", digest, k.fetch_carry(carry))
+                att_info["carry"] += 1
+            ok, death, overflow, max_count, att = k.summarize(carry)
+            _check_att(att, "offline")
+        ok = ok and not timed_out
+        overflow = overflow or timed_out
+        if ok or not overflow or F >= max_frontier or timed_out:
+            break
+        if budget_s is not None and _time.monotonic() - t0 > budget_s:
+            timed_out = True
+            break
+        F *= 4   # invalid + overflow: the witness may have been dropped
+        k = pl.kernel(dev, F)
+        kernels.append(k)
     out = {
         "valid?": True if ok else "unknown" if overflow else False,
-        "analyzer": "gpu-wgl-dense",
-        "dedup": DEDUP_NONE,
+        "analyzer": "gpu-wgl-dense" if dense is not None else "gpu-wgl",
+        # the route the FINAL pass ran (escalation can move it)
+        "dedup": (DEDUP_NONE if dense is not None else
+                  dedup_engine(F, pl.slots, pl.pack)),
         "engine-reason": decision.reason,
-        "dense-shape": list(decision.dense),    # [s_lo, S, P]
         "op-count": len(ops),
         "max-frontier": int(max_count),
-        "frontier-size": frontier,
+        "frontier-size": F,
         "duration-ms": (_time.monotonic() - t0) * 1e3,
         "configs": [],
         "final-paths": [],
         "device": str(dev),
     }
+    if dense is not None:
+        out["dense-shape"] = list(dense)        # [s_lo, S, P]
     if att_info is not None:
         out["attested"] = att_info
     if not ok:
         if cancelled:
             out["error"] = "search cancelled"
         elif timed_out:
-            out["error"] = (f"search exceeded the {budget_s} s budget; "
-                            f"verdict unknown")
+            out["error"] = (f"search exceeded the {budget_s} s budget at "
+                            f"frontier {F}; verdict unknown")
+        elif overflow:
+            # the death point is an artifact of dropped configs: no
+            # culprit op for an 'unknown' verdict
+            out["error"] = (f"frontier overflowed at {F} configs; verdict "
+                            f"unknown (re-run with a larger frontier or "
+                            f"the host checker)")
         else:
             # the merged stream can't name a single culprit op: re-run
             # the unmerged stream, which dies at the same event
-            row = _death_row(k, ops, P, init_state)
+            row = _death_row(k, ops, pl.slots, init_state)
             if row >= 0:
                 src_index = int(ops.index[row])
                 out["op"] = _find_op(hist, src_index)
@@ -880,14 +1246,15 @@ def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
                         out["final-paths"] = ex["final-paths"]
                         if ex.get("previous-ok") is not None:
                             out["previous-ok"] = ex["previous-ok"]
-    out["closure-rounds"] = k.rounds
-    out["host-syncs"] = k.syncs
+    out["closure-rounds"] = sum(k.rounds for k in kernels)
+    out["dedup-launches"] = sum(k.dedups for k in kernels)
+    out["host-syncs"] = sum(k.syncs for k in kernels)
     return out
 
 
-def _death_row(k: DenseKernel, ops: OpArray, slots: int,
+def _death_row(k: _Engine, ops: OpArray, slots: int,
                init_state: int) -> int:
-    """Op row where the table died, from an unmerged re-run."""
+    """Op row where the search died, from an unmerged re-run."""
     steps = build_steps(ops, slots, merge=False)
     ok, death, *_ = k.check(stage_steps(steps.x, k.device), steps.n,
                             init_state)

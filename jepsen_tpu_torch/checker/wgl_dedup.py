@@ -1,0 +1,188 @@
+"""K2: the sort family's frontier dedup, hand-written for Hopper.
+
+Replaces the Pallas TPU kernel `jepsen_tpu/checker/wgl_dedup.py:129`
+(`dedup_fn(N, F)`, whose `pl.pallas_call` is at `:215`). Contract, the
+same as the TPU kernel's:
+
+  * input: N packed config keys, **old frontier first**, invalid
+    entries = EMPTY (-1). A key packs ``(state - s_lo) << P | mask``
+    into 31 bits (`wgl.SortKernel._dedup_hash` builds it);
+  * outputs: the distinct valid keys in **first-seen order**, compacted
+    into F slots (EMPTY past them); ``new[i]``, set when out[i]'s first
+    occurrence has input index >= F (a candidate, not an old config);
+    ``count``, the total of distinct keys (count > F is the overflow
+    signal); and ``digest = xor(keys claimed in the hash table) ^
+    count * DIGEST_COUNT_MIX`` in wrapping int32, which the caller
+    recomputes from the compacted output as its ABFT cross-check.
+
+Design (`csrc/dedup.cu`). The TPU kernel walks the keys in one serial
+`fori_loop` against a VMEM table. On the card every key inserts at once:
+one thread per key hashes it (murmur3 finaliser, the TPU kernel's
+constants) into a table of H = `table_size(N)` slots, claims a slot with
+`atomicCAS(EMPTY -> key)` by linear probing, and records its input index
+there with `atomicMin`. A key's first occurrence is the index that owns
+the minimum, so flagging those indices and compacting them with an
+exclusive scan (hand-written: per-block counts, one scan of the block
+totals, a block-local scan) gives the serial loop's first-seen order.
+Atomics move where a key lands in the table, never the outputs: the
+order comes from the minimum index, and the digest is a XOR over a set.
+Five launches: fill, insert, count (plus the table's XOR per block),
+scan of the block totals, scatter.
+
+What bounds it on an H100: the bytes. N keys are read, the table and its
+index array (2 * H int32) are written and read once, and 2F outputs are
+written; the probes are a few integer operations a key. At the main
+path's shapes (N <= 278,528) that is under 12 MB, a few microseconds at
+the H100 SXM's 3.35 TB/s (data sheet, 700 W power limit), so the five
+launches are the floor.
+
+On a CUDA tensor `dedup` launches K2 or raises; the plain PyTorch
+version (`dedup_plain`) runs only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .abft import wrap_i32
+
+EMPTY = -1                # table/key sentinel; valid keys are 31-bit
+# The TPU kernel's VMEM budget. The CUDA kernel keeps its table in
+# device memory and has no such limit, but `eligible` keeps the gate so
+# that the port runs the same dedup route as the JAX package at every
+# frontier size and stamps the same "dedup" in its results.
+MAX_VMEM_BYTES = 12 << 20
+# digest mixing constant (golden-ratio prime): the occupancy count is
+# folded into the XOR digest so a dropped-and-double-counted key pair
+# (XOR-cancelling) still perturbs the digest
+DIGEST_COUNT_MIX = -1640531527   # 0x9E3779B9 as int32
+
+LAUNCHES = 0    # K2 launches by `dedup`, and nothing else
+
+SOURCE = "jepsen_tpu_torch/csrc/dedup.cu"
+REPLACES = "jepsen_tpu/checker/wgl_dedup.py:129"
+
+_MASK = 0xFFFFFFFF
+
+
+def table_size(n: int) -> int:
+    """Hash slots for n keys: the next power of two (at least 64),
+    doubled, for a load factor of at most 1/2."""
+    h = 64
+    while h < n:
+        h *= 2
+    return 2 * h
+
+
+def eligible(F: int, P: int) -> bool:
+    """The JAX package's capacity gate for the hash dedup at frontier F
+    with P slots, sized for stage B's F * (1 + P) candidates. The
+    packed-key requirement is the caller's (`wgl._hash_gate`)."""
+    n = F * (1 + P)
+    return (n + table_size(n) + 2 * F) * 4 <= MAX_VMEM_BYTES
+
+
+def xor_fold(x: torch.Tensor) -> torch.Tensor:
+    """The XOR of a 1-d int32 tensor's elements as an int64 0-d tensor
+    in [0, 2^32): each bit's parity, from a sum. torch has no XOR
+    reduction."""
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    bits = (x.to(torch.int64)[:, None] >> shifts) & 1
+    return ((bits.sum(0) & 1) << shifts).sum()
+
+
+def mix_count(count: torch.Tensor) -> torch.Tensor:
+    """count * DIGEST_COUNT_MIX mod 2^32, as int64 in [0, 2^32)."""
+    return (count.to(torch.int64) * (DIGEST_COUNT_MIX & _MASK)) & _MASK
+
+
+def dedup_plain(keys: torch.Tensor, F: int):
+    """The plain PyTorch version of K2's contract, by a stable sort
+    instead of a hash table: equal keys sit together in input order, so
+    each run's first element is the key's first occurrence. No step
+    reads a value on the host, so it runs on any device."""
+    n = keys.numel()
+    dev = keys.device
+    k64 = torch.where(keys == EMPTY, torch.iinfo(torch.int64).max,
+                      keys.to(torch.int64))
+    ks, perm = torch.sort(k64, stable=True)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = ks[1:] != ks[:-1]
+    head &= ks != torch.iinfo(torch.int64).max
+    first = torch.zeros(n, dtype=torch.bool, device=dev)
+    first.scatter_(0, perm, head)         # flags in input order
+    count = first.sum(dtype=torch.int32)
+    rank = torch.cumsum(first, 0) - 1
+    at = torch.where(first & (rank < F), rank, F)   # F: discarded
+    out = torch.full((F + 1,), EMPTY, dtype=torch.int32, device=dev)
+    new = torch.zeros(F + 1, dtype=torch.bool, device=dev)
+    idx = torch.arange(n, device=dev)
+    out.scatter_(0, at, torch.where(at < F, keys, EMPTY))
+    new.scatter_(0, at, (idx >= F) & (at < F))
+    digest = wrap_i32(xor_fold(torch.where(first, keys, 0))
+                      ^ mix_count(count))
+    return out[:F], new[:F], count, digest
+
+
+def _check(keys: torch.Tensor, F: int) -> int:
+    if keys.device.type != "cuda":
+        raise ValueError(f"dedup takes a CUDA tensor (or a CPU one), got "
+                         f"{keys.device}")
+    if keys.dtype != torch.int32 or keys.dim() != 1 or keys.numel() < 1:
+        raise ValueError(f"keys must be a nonempty int32 (N,) tensor, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    if not keys.is_contiguous():
+        raise ValueError("dedup takes a contiguous tensor")
+    n = keys.numel()
+    if not 1 <= F < 1 << 30 or table_size(n) >= 1 << 30:
+        raise ValueError(f"N={n}, F={F} outside the kernel's int range")
+    return n
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("dedup")
+    fn = lib.jt_dedup
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = lib.jt_dedup_scratch_ints
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    scratch.restype = ctypes.c_longlong
+    err = lib.jt_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, scratch, err
+
+
+def dedup(keys: torch.Tensor, F: int):
+    """Frontier dedup: K2 on a CUDA tensor, the plain version on a CPU
+    tensor. keys: int32 (N,), old frontier first, EMPTY = -1. Returns
+    (out int32 (F,), new bool (F,), count int32 (), digest int32 ()),
+    launched on the current stream without a synchronisation."""
+    global LAUNCHES
+    if keys.device.type == "cpu":
+        return dedup_plain(keys, F)
+    n = _check(keys, F)
+    fn, scratch_ints, err = _kernel()
+    H = table_size(n)
+    dev = keys.device
+    out = torch.empty(F, dtype=torch.int32, device=dev)
+    new = torch.empty(F, dtype=torch.bool, device=dev)
+    tail = torch.empty(2, dtype=torch.int32, device=dev)   # count, digest
+    scratch = torch.empty(int(scratch_ints(n, H)), dtype=torch.int32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(keys.data_ptr(), n, F, H, out.data_ptr(), new.data_ptr(),
+                  tail.data_ptr(), scratch.data_ptr(), stream)
+    if code != 0:
+        raise RuntimeError(f"dedup launch failed: CUDA error {code} "
+                           f"({err(code).decode()})")
+    LAUNCHES += 1
+    return out, new, tail[0], tail[1]

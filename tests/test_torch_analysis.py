@@ -1,7 +1,8 @@
-"""The slice as a whole: `analysis_gpu(device="cpu")` and the port's
-`Linearizable` against the JAX package's `analysis_tpu` on the same
-histories — same verdict, culprit op, max-frontier, op-count, engine
-choice and explanation."""
+"""The port as a whole: `analysis_gpu(device="cpu")` and the port's
+`Linearizable` against the JAX package's `analysis_tpu` as it resolves
+on its accelerator (`pallas=True`) on the same histories — same verdict,
+culprit op, max-frontier, op-count, engine choice, dedup route and
+explanation. The sort family's own matrix is tests/test_torch_sort.py."""
 
 import random
 
@@ -30,13 +31,15 @@ def _one_torch_thread():
 
 
 KEYS = ("valid?", "op-index", "max-frontier", "op-count", "engine-reason",
-        "final-paths", "configs", "previous-ok", "op")
+        "final-paths", "configs", "previous-ok", "op", "dedup",
+        "frontier-size")
 
 
 def _both(model_name, hist, **kw):
     t = twgl.analysis_gpu(getattr(tmodels, model_name)(),
                           thistory.History(hist.ops), device="cpu", **kw)
-    j = jwgl.analysis_tpu(getattr(jmodels, model_name)(), hist, **kw)
+    j = jwgl.analysis_tpu(getattr(jmodels, model_name)(), hist,
+                          pallas=True, **kw)
     return t, j
 
 
@@ -75,20 +78,21 @@ def test_analysis_matches_jax(case, chunk):
         t["closure-rounds"]
 
 
-def test_sort_family_shapes_raise_instead_of_leaving_the_device():
+def test_sort_family_shapes_now_run_and_match_jax():
     h = jsynth.corrupt(jsynth.register_history(200, concurrency=4,
                                                seed=3), seed=3)
-    j = jwgl.analysis_tpu(jmodels.cas_register(), h, explain=False)
-    assert j["analyzer"] == "tpu-wgl"       # the sort family
-    with pytest.raises(NotImplementedError, match="next slice"):
-        twgl.analysis_gpu(tmodels.cas_register(), h, device="cpu")
-    with pytest.raises(NotImplementedError, match="sort-frontier"):
-        tlinear.linearizable(tmodels.cas_register(), device="cpu").check(
-            {}, h, {})
+    t, j = _both("cas_register", h, explain=False)
+    assert j["analyzer"] == "tpu-wgl" and t["analyzer"] == "gpu-wgl"
+    for key in KEYS:
+        assert t.get(key) == j.get(key), key
+    assert t["valid?"] is False and t["dedup"] == "pallas-hash"
+    r = tlinear.linearizable(tmodels.cas_register(), device="cpu").check(
+        {}, thistory.History(h.ops), {})
+    assert r["analyzer"] == "gpu-wgl" and r["op-index"] == t["op-index"]
     ok = jsynth.register_history(100, concurrency=3, seed=1)
-    with pytest.raises(NotImplementedError):
-        twgl.analysis_gpu(tmodels.cas_register(), ok, device="cpu",
-                          engine="sort")
+    t, j = _both("cas_register", ok, engine="sort")
+    assert t["valid?"] is True and t["analyzer"] == "gpu-wgl"
+    assert t["engine-reason"] == j["engine-reason"] == "forced"
     with pytest.raises(ValueError, match="dense_slot_cap"):
         twgl.analysis_gpu(tmodels.cas_register(), ok, device="cpu",
                           engine="dense", dense_slot_cap=1)

@@ -1,0 +1,146 @@
+"""K2, the frontier hash dedup: the port's plain version against the JAX
+package's Pallas kernel (interpret mode) and a Python oracle on all four
+outputs, the gate and helpers against the JAX package's, and the
+wrapper's contract on the CPU. Exact: everything is integer. The CUDA
+kernel itself is held against the plain version by
+tests/test_torch_gpu.py and chip_smoke.py on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu.checker import wgl_dedup as jdedup
+from jepsen_tpu_torch import _build
+from jepsen_tpu_torch.checker import abft as tabft
+from jepsen_tpu_torch.checker import wgl_dedup
+from jepsen_tpu_torch.checker.wgl_dedup import EMPTY, dedup, dedup_plain
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny tensors: torch's intra-op threads only contend with the
+    other test workers' threads, which slows these tests tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _oracle(keys, F):
+    """First-seen order by a Python dict: the serial TPU loop's result."""
+    seen = {}
+    for i, k in enumerate(keys.tolist()):
+        if k != EMPTY and k not in seen:
+            seen[k] = i >= F
+    items = list(seen.items())[:F]
+    out = [k for k, _ in items] + [EMPTY] * (F - len(items))
+    new = [n for _, n in items] + [False] * (F - len(items))
+    dig = 0
+    for k in seen:
+        dig ^= k
+    dig ^= (len(seen) * wgl_dedup.DIGEST_COUNT_MIX) & 0xFFFFFFFF
+    dig &= 0xFFFFFFFF
+    return out, new, len(seen), dig - (1 << 32) if dig >= 1 << 31 else dig
+
+
+def _keys(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "mixed":        # duplicates and EMPTY, as a stage-B input
+        k = rng.integers(0, n // 3 + 1, n)
+        k[rng.random(n) < 0.4] = EMPTY
+    elif kind == "empty":
+        k = np.full(n, EMPTY)
+    elif kind == "distinct":   # count > F: the overflow signal
+        k = rng.permutation(n) * 7919
+    elif kind == "dups":       # a handful of keys, many times each
+        k = rng.choice([3, 2 ** 31 - 1, 0, 12345], n)
+    else:                      # wide 31-bit keys
+        k = rng.integers(0, 2 ** 31 - 1, n)
+        k[rng.random(n) < 0.2] = EMPTY
+    return k.astype(np.int32)
+
+
+# (kind, N, F): the main path's stage-A and stage-B shapes at a small F,
+# plus edge cases; N = 77 and 300 are not powers of two
+CASES = [("mixed", 64, 32), ("mixed", 272, 16), ("mixed", 300, 37),
+         ("empty", 32, 8), ("distinct", 64, 8), ("distinct", 77, 77),
+         ("dups", 96, 48), ("wide", 128, 64)]
+
+
+@pytest.mark.parametrize("kind,N,F", CASES)
+def test_plain_matches_pallas_interpret_on_all_four_outputs(kind, N, F):
+    keys = _keys(kind, N, seed=N + F)
+    j_out, j_new, j_cnt, j_dig = map(
+        np.asarray, jdedup.dedup_fn(N, F, interpret=True)(keys))
+    out, new, cnt, dig = dedup_plain(torch.from_numpy(keys), F)
+    assert out.dtype == torch.int32 and new.dtype == torch.bool
+    assert out.shape == new.shape == (F,)
+    assert cnt.dtype == dig.dtype == torch.int32 and cnt.dim() == 0
+    np.testing.assert_array_equal(out.numpy(), j_out)
+    np.testing.assert_array_equal(new.numpy(), j_new)
+    assert int(cnt) == int(j_cnt) and int(dig) == int(j_dig)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("kind", ["mixed", "distinct", "dups", "wide"])
+def test_plain_matches_oracle(kind, seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 700))
+    F = int(rng.integers(1, n + 2))
+    keys = _keys(kind, max(n, 3), seed)[:n]
+    out, new, cnt, dig = dedup_plain(torch.from_numpy(keys), F)
+    want = _oracle(keys, F)
+    assert out.tolist() == want[0] and new.tolist() == want[1]
+    assert (int(cnt), int(dig)) == want[2:]
+
+
+def test_wrapper_uses_the_plain_version_on_cpu_tensors():
+    keys = torch.from_numpy(_keys("mixed", 256, 5))
+    before = wgl_dedup.LAUNCHES
+    got = dedup(keys, 64)
+    assert wgl_dedup.LAUNCHES == before          # no kernel launched
+    for a, b in zip(got, dedup_plain(keys, 64)):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_raises_off_cpu_and_cuda_instead_of_falling_back():
+    with pytest.raises(ValueError, match="CUDA"):
+        dedup(torch.zeros(64, dtype=torch.int32, device="meta"), 8)
+
+
+def test_gate_and_sizes_match_jax():
+    for n in (1, 63, 64, 65, 512, 2304, 4352, 17408, 278528, 10 ** 6):
+        assert wgl_dedup.table_size(n) == jdedup.table_size(n)
+    for F in (16, 256, 1024, 4096, 16384, 65536):
+        for P in (8, 16, 30, 32):
+            assert wgl_dedup.eligible(F, P) == jdedup.eligible(F, P)
+    assert wgl_dedup.DIGEST_COUNT_MIX == jdedup.DIGEST_COUNT_MIX
+    assert wgl_dedup.EMPTY == jdedup.EMPTY
+    assert wgl_dedup.MAX_VMEM_BYTES == jdedup.MAX_VMEM_BYTES
+
+
+def test_xor_fold_and_wrap_match_numpy():
+    rng = np.random.default_rng(9)
+    x = rng.integers(-2 ** 31, 2 ** 31 - 1, 1000).astype(np.int32)
+    want = int(np.bitwise_xor.reduce(x.view(np.uint32)))
+    assert int(wgl_dedup.xor_fold(torch.from_numpy(x))) == want
+    assert int(tabft.wrap_i32(torch.tensor(want))) == \
+        int(np.uint32(want).view(np.int32))
+    assert int(wgl_dedup.mix_count(torch.tensor(3, dtype=torch.int32))) \
+        == (3 * wgl_dedup.DIGEST_COUNT_MIX) & 0xFFFFFFFF
+
+
+def test_build_command_and_c_interface():
+    assert "dedup" in _build.sources()
+    cmd = _build.command("dedup", _build.lib_path("dedup"))
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert cmd[-1].endswith("csrc/dedup.cu")
+    src = (_build.CSRC / "dedup.cu").read_text()
+    for name in ('extern "C" int jt_dedup(',
+                 'extern "C" long long jt_dedup_scratch_ints(',
+                 "cudaGetLastError", "atomicCAS", "atomicMin",
+                 "0x85ebca6bu", "0xc2b2ae35u"):
+        assert name in src, name
+    # a hand kernel: no library kernel on the path
+    for banned in ("cub::Device", "thrust", "#include <cub"):
+        assert banned not in src

@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch port: the CUDA kernel against its plain
-version, and the dense engine on CUDA against the same engine on the
-CPU. Each skips inside the test when no CUDA device is present.
+"""Card-only tests of the PyTorch port: the CUDA kernels (K1, K2) against
+their plain versions, and both engine families on CUDA against the same
+engines on the CPU. Each skips inside the test when no CUDA device is
+present.
 
 This file imports nothing of JAX, so it also runs on a machine with the
 card and no JAX installed:
@@ -14,9 +15,10 @@ import torch
 
 from jepsen_tpu_torch import models
 from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
-from jepsen_tpu_torch.checker import synth, wgl, wgl_closure
+from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
                                                   closure_round_plain)
+from jepsen_tpu_torch.checker.wgl_dedup import dedup, dedup_plain
 
 
 def _need_cuda():
@@ -85,9 +87,9 @@ def test_cuda_carry_resumes_a_cpu_carry():
     m = models.cas_register()
     h = synth.adversarial_register_history(400, concurrency=4,
                                            crashed_writes=4, seed=2)
-    ops, dec = wgl.plan_dense(m, h)
-    s_lo, S, P = dec.dense
-    steps = wgl.build_steps(ops, P)
+    pl = wgl.plan(m, h, engine="dense")
+    s_lo, S, P = pl.decision.dense
+    steps = wgl.build_steps(pl.ops, P)
     kc = wgl.DenseKernel(m.device_model, s_lo, S, P, "cpu")
     kg = wgl.DenseKernel(m.device_model, s_lo, S, P, "cuda")
     xc = wgl.stage_steps(steps.x, "cpu")
@@ -101,3 +103,63 @@ def test_cuda_carry_resumes_a_cpu_carry():
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     assert int(kg.digest(resumed)) == int(kc.digest(full))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,F", [(512, 256), (4352, 256), (77, 16),
+                                 (64, 64), (17408, 1024)])
+def test_dedup_kernel_matches_plain_bit_exact(N, F):
+    _need_cuda()
+    rng = np.random.default_rng(N + F)
+    cases = [rng.integers(0, N // 3 + 1, N), np.full(N, -1),
+             rng.permutation(N), rng.integers(0, 2 ** 31 - 1, N)]
+    cases[0][rng.random(N) < 0.4] = -1
+    before = wgl_dedup.LAUNCHES
+    for k in cases:
+        keys = torch.from_numpy(k.astype(np.int32)).cuda()
+        got = dedup(keys, F)
+        want = dedup_plain(keys, F)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert wgl_dedup.LAUNCHES == before + len(cases)
+
+
+@pytest.mark.gpu
+def test_dedup_wrapper_raises_on_what_the_kernel_does_not_take():
+    _need_cuda()
+    keys = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        dedup(keys.long(), 8)                         # dtype
+    with pytest.raises(ValueError):
+        dedup(keys.view(8, 8), 8)                     # rank
+    with pytest.raises(ValueError):
+        dedup(keys[::2], 8)                           # not contiguous
+    with pytest.raises(ValueError):
+        dedup(keys, 0)                                # no frontier
+
+
+@pytest.mark.gpu
+def test_cuda_sort_family_matches_cpu():
+    _need_cuda()
+    reg = synth.register_history(600, concurrency=4, crash_rate=0.0,
+                                 seed=17)
+    wide = synth.register_history(600, concurrency=5, crash_rate=0.01,
+                                  seed=17)
+    cases = [  # (model, history, engine, the dedup route it takes)
+        (models.cas_register(), synth.corrupt(reg), "auto", "pallas-hash"),
+        (models.counter(), synth.counter_history(400, seed=3), "sort",
+         "pallas-hash"),
+        (models.cas_register(), synth.corrupt(wide), "auto", "xla-sort")]
+    for model, hist, eng, route in cases:
+        before = wgl_dedup.LAUNCHES
+        g = wgl.analysis_gpu(model, hist, chunk_entries=200, engine=eng)
+        assert g["analyzer"] == "gpu-wgl" and g["dedup"] == route
+        assert wgl_dedup.LAUNCHES - before == g["dedup-launches"]
+        assert (g["dedup-launches"] > 0) == (route == "pallas-hash")
+        cpu = wgl.analysis_gpu(model, hist, device="cpu", chunk_entries=200,
+                               engine=eng)
+        for key in ("valid?", "op-index", "max-frontier", "frontier-size",
+                    "closure-rounds", "dedup-launches", "host-syncs",
+                    "final-paths"):
+            assert g.get(key) == cpu.get(key), key

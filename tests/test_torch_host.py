@@ -3,6 +3,7 @@ history, models, synth and the host oracle give the same values, its
 engine choice agrees, it resolves devices without falling back, and it
 never imports jax or jepsen_tpu."""
 
+import itertools
 import os
 import subprocess
 import sys
@@ -88,29 +89,41 @@ def test_encoding_and_steps_match_jax(seed, merge):
 
 SHAPES = [((-1, 4), 7, 14_000), ((-1, 4), 14, 14_000), ((-1, 4), 19, 14_000),
           ((-1, 4), 21, 14_000), ((0, 600), 3, 500), ((0, 200), 12, 100),
-          ((-1, 10 ** 6), 7, 14_000), ((0, 1), 22, 10), ((-3, 3), 9, 10 ** 6)]
+          ((-1, 10 ** 6), 7, 14_000), ((0, 1), 22, 10), ((-3, 3), 9, 10 ** 6),
+          # the main path's adversarial and counter histories (synth,
+          # seed 45100, 10k ops): both take the sort family's hash dedup
+          ((-1, 4), 14, 14_626), ((-4975, 5076), 4, 20_000),
+          ((-1, 4), 30, 200)]
 
 
 @pytest.mark.parametrize("srange,p,n", SHAPES)
 def test_select_engine_agrees_with_jax_off_tpu(srange, p, n):
-    for engine in ("auto", "dense", "sort"):
-        for cap in (None, 8):
-            try:
-                want = jwgl.select_engine(srange, p, n, engine=engine,
-                                          dense_slot_cap=cap)
-            except ValueError as e:
-                with pytest.raises(ValueError, match=str(e)[:20]):
-                    twgl.select_engine(srange, p, n, engine=engine,
-                                       dense_slot_cap=cap)
-                continue
-            got = twgl.select_engine(srange, p, n, engine=engine,
-                                     dense_slot_cap=cap)
-            assert (got.family, got.dense, got.dedup, got.reason) == \
-                (want.family, want.dense, want.dedup, want.reason)
-            assert got.costs == want.costs
+    """The port's engine choice is the JAX package's as it resolves on
+    its accelerator: `select_engine(..., pallas=True)`, which prices the
+    sort family at the hash dedup wherever its gate admits the shape
+    (65,536 is past the gate's capacity at these slot counts)."""
+    for engine, cap, F in itertools.product(("auto", "dense", "sort"),
+                                            (None, 8), (256, 65_536)):
+        kw = dict(engine=engine, dense_slot_cap=cap, frontier=F)
+        try:
+            want = jwgl.select_engine(srange, p, n, pallas=True, **kw)
+        except ValueError as e:
+            with pytest.raises(ValueError, match=str(e)[:20]):
+                twgl.select_engine(srange, p, n, **kw)
+            continue
+        got = twgl.select_engine(srange, p, n, **kw)
+        assert (got.family, got.dense, got.dedup, got.reason) == \
+            (want.family, want.dense, want.dedup, want.reason)
+        assert got.costs == want.costs
     assert twgl._dense_shape(srange, p) == jwgl._dense_shape(srange, p)
     assert twgl._family_costs(8, p, 32, 256, n) == \
         jwgl._family_costs(8, p, 32, 256, n)
+    for P in (8, 16, 32, 64):
+        pack = jwgl._pack_params(srange, P)
+        assert twgl._pack_params(srange, P) == pack
+        for F in (256, 16_384, 65_536):
+            assert twgl.dedup_engine(F, P, pack) == \
+                jwgl.dedup_engine(F, P, pack, pallas=True)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -170,7 +183,8 @@ _GUARD = r"""
 import sys
 import jepsen_tpu_torch
 from jepsen_tpu_torch import carry, models
-from jepsen_tpu_torch.checker import linear, synth, wgl, wgl_closure, abft
+from jepsen_tpu_torch.checker import (abft, linear, synth, wgl,
+                                      wgl_closure, wgl_dedup)
 h = synth.register_history(120, concurrency=4, crash_rate=0.03, seed=1)
 r = linear.linearizable(models.cas_register(), device="cpu",
                         chunk_entries=40).check({}, h, {})
@@ -178,6 +192,10 @@ assert r["valid?"] is True and r["analyzer"] == "gpu-wgl-dense", r
 bad = linear.linearizable(models.cas_register(), device="cpu").check(
     {}, synth.corrupt(h, value=5), {})
 assert bad["valid?"] is False and "op-index" in bad, bad
+srt = linear.linearizable(models.cas_register(), device="cpu",
+                          chunk_entries=40).check({}, synth.corrupt(h), {})
+assert srt["analyzer"] == "gpu-wgl" and srt["dedup"] == "pallas-hash", srt
+assert srt["valid?"] is False and "op-index" in srt, srt
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
