@@ -10,11 +10,17 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      and build every kernel under jepsen_tpu_torch/csrc with nvcc, one
      process per source, all at once;
   2. hold K1 (the dense closure round) bit-exact against its plain PyTorch
-     version on the card over a shape matrix, several rounds each, then
-     time both with CUDA events at the main path's shapes;
+     version on the card over a shape matrix (P = 0 to 19), several rounds
+     each, and on the real table and transitions of the concurrency-11
+     history's dense walk after 1,500 steps, then time both with CUDA
+     events at the main path's shapes and on the real table;
   3. hold K2 (the sort family's frontier hash dedup) bit-exact against its
-     plain version on all four outputs over the main path's (N, F) shapes
-     and edge cases, then time both, and torch.unique beside them;
+     plain version on all four outputs over the main path's (N, F) shapes,
+     full frontiers, both sides of the single-block cap (N = 8,192 and
+     8,193) and edge cases, then time both, and torch.unique beside
+     them, with the path each shape takes and the CUDA launches a call
+     makes, and where both routes take a shape (N <= 8,192), each route
+     in turns;
   4. drive the main path — `linearizable(model).check(...)` — on the dense
      family (the headline 10k-op register history, the adversarial
      crashed-writes history and the concurrency-11 history forced dense,
@@ -63,15 +69,28 @@ COUNTER = dict(n_ops=10_000, seed=SEED)
 AT_CAP_BUDGET_S = 90
 ADVERSARIAL_BUDGET_S = 150
 BUDGET_CHUNK = 1024
-K1_MATRIX = [(8, 7), (8, 14), (8, 19), (16, 7), (30, 8), (256, 10),
-             (512, 12)]
+# every P from 0 to 19: P <= 3 is the byte-per-thread path, P = 0-3
+# inside a chunk are the byte butterflies; S = 3, 5, 24 and 30 are not
+# multiples of 8
+K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
+             (8, 7), (8, 14), (8, 19), (16, 7), (30, 8), (8, 9), (256, 10),
+             (24, 11), (512, 12), (8, 13), (8, 15), (64, 16), (8, 17),
+             (16, 18)]
 K1_TIMED = [(8, 7), (8, 14), (8, 19)]
 PROFILE_STEPS = 1_500
-# K2's (N, F): stage A (2F) and stage B (F(1+P), P = 8 and 16) at the
-# main path's F = 256, and stage B at the adversarial run's escalated F
-K2_MATRIX = [(512, 256), (2304, 256), (4352, 256), (17408, 1024),
-             (69632, 4096), (278528, 16384)]
-
+ROUTES = ("single-block", "five-launch")       # K2's two routes
+# K2's (N, F, keys): stage A (2F) and stage B (F(1+P), P = 8 and 16) at
+# the main path's F = 256, and stage B at the adversarial run's escalated
+# F, with keys shaped as `stage_keys` makes them; both sides of the
+# single-block route's cap; then full frontiers (`frontier_keys`): stage
+# A of the escalated passes at F = 1,024 and 4,096, and stage B at
+# F = 256 just before the frontier overflows
+K2_MATRIX = [(512, 256, "stage"), (2304, 256, "stage"),
+             (4352, 256, "stage"), (17408, 1024, "stage"),
+             (69632, 4096, "stage"), (278528, 16384, "stage"),
+             (8192, 256, "stage"), (8193, 256, "stage"),
+             (2048, 1024, "frontier"), (8192, 4096, "frontier"),
+             (4352, 256, "frontier")]
 
 def log(*a):
     print(*a, flush=True)
@@ -137,14 +156,15 @@ def graph_ms(fn, iters) -> float:
     return ms
 
 
-def in_turns(timer, kernel, plain, iters) -> tuple[float, float]:
-    """Kernel and plain version timed in turns (plain, kernel, kernel,
-    plain), each the mean of its two turns."""
-    p1 = timer(plain, max(iters // 4, 10))
+def in_turns(timer, kernel, other, iters, share=4) -> tuple[float, float]:
+    """Kernel and another version (the plain one, by default run a
+    quarter as often) timed in turns (other, kernel, kernel, other),
+    each the mean of its two turns."""
+    o1 = timer(other, max(iters // share, 10))
     k1 = timer(kernel, iters)
     k2 = timer(kernel, iters)
-    p2 = timer(plain, max(iters // 4, 10))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    o2 = timer(other, max(iters // share, 10))
+    return (k1 + k2) / 2, (o1 + o2) / 2
 
 
 def k1_bound(S, P, mft) -> tuple[float, str, int, int]:
@@ -152,7 +172,12 @@ def k1_bound(S, P, mft) -> tuple[float, str, int, int]:
     the larger of bytes (table read once and written once as uint8,
     plus mft) over HBM bandwidth and the AND-ORs the data needs (each
     set mft[p, q, s] against the C/2 columns with bit p set, an AND and
-    an OR each) over the fp32 rate."""
+    an OR each) over the fp32 rate. This is compulsory traffic at the
+    HBM rate, as for every kernel here; it is not K1's own limit. K1's
+    table can stay in the 50 MB L2 between rounds, and the kernel loads
+    more than the table from there (`k1_l2_bytes`); the data sheet gives
+    no L2 rate, so no L2 bound is computed, and K1's distance to this
+    bound overstates how much an L2-bound design could still gain."""
     C = 1 << P
     nbytes = 2 * S * C + P * S * S
     ops = 2 * int(mft.sum().item()) * (C // 2)
@@ -161,29 +186,83 @@ def k1_bound(S, P, mft) -> tuple[float, str, int, int]:
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def phase_k1(dev, wgl_closure) -> dict:
+def k1_l2_bytes(S, P, mft) -> int:
+    """The bytes K1's design loads and stores per round: each row's own
+    table once, for each listed source entry (p, s) of row q the whole
+    row s where p < 4 (in-chunk butterflies) or half of it where p >= 4
+    (chunks with bit p - 4 set), and the output once. Below P = 4 every
+    entry reads a whole row."""
+    C = 1 << P
+    nnz = mft.to(torch.int64).sum(dim=2)          # (P, S): entries of q
+    low = int(nnz[:4].sum().item())
+    high = int(nnz[4:].sum().item())
+    return 2 * S * C + low * C + high * (C // 2 if P >= 4 else C)
+
+
+def real_k1_inputs(wgl, model, hist, dev, steps, keep=8):
+    """The (table, mft) pairs of the last `keep` closure rounds in the
+    first `steps` merged steps of the dense walk: real inputs of K1."""
+    seen = collections.deque(maxlen=keep)
+    kernel = wgl.closure_round
+
+    def record(table, mft):
+        seen.append((table.clone(), mft.clone()))
+        return kernel(table, mft)
+
+    wgl.closure_round = record
+    try:
+        prefix_walk(wgl, model, hist, dev, engine="dense")(steps)
+        torch.cuda.synchronize()
+    finally:
+        wgl.closure_round = kernel
+    return list(seen)
+
+
+def k1_rounds_exact(closure_round, plain, tb, mft, rounds, label) -> int:
+    """Hold K1 bit-exact against the plain version over `rounds` rounds
+    from tb (fewer once a fixpoint is reached); returns the largest
+    absolute difference, 0."""
+    max_err = 0
+    for r in range(rounds):
+        got = closure_round(tb, mft)
+        want = plain(tb, mft)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int16) - want.to(torch.int16))
+                  .abs().max().item())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 != plain at {label} round {r}")
+        if torch.equal(got, tb):
+            break
+        tb = got
+    return max_err
+
+
+def phase_k1(dev, wgl_closure, real) -> dict:
     closure_round = wgl_closure.closure_round
     plain = wgl_closure.closure_round_plain
     rng = np.random.default_rng(SEED)
     max_err = 0
     for S, P in K1_MATRIX:
         tb, mft = random_inputs(S, P, rng, dev)
-        for r in range(4):
-            got = closure_round(tb, mft)
-            want = plain(tb, mft)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int16) - want.to(torch.int16))
-                      .abs().max().item())
-            max_err = max(max_err, err)
-            if not torch.equal(got, want):
-                raise AssertionError(f"K1 != plain at S={S} P={P} "
-                                     f"round {r}")
-            tb = got
-        log(f"K1 bit-exact vs plain: S={S} P={P}, 4 rounds, "
-            f"{int(tb.sum().item())} cells set")
+        max_err = max(max_err, k1_rounds_exact(
+            closure_round, plain, tb, mft, 4, f"S={S} P={P}"))
+        log(f"K1 bit-exact vs plain: S={S} P={P}, up to 4 rounds")
+    # the real table: each recorded round, then rounds to the fixpoint
+    for i, (tb, mft) in enumerate(real):
+        max_err = max(max_err, k1_rounds_exact(
+            closure_round, plain, tb, mft, 1 if i else 64,
+            f"the real table, recorded round {i}"))
+    S, P = real[-1][0].shape[0], real[-1][1].shape[0]
+    log(f"K1 bit-exact vs plain on {len(real)} real rounds of the dense "
+        f"walk at S={S} P={P} ({int(real[-1][0].sum().item())} cells set, "
+        f"{int(real[-1][1].sum().item())} transitions)")
     shapes = []
-    for S, P in K1_TIMED:
-        tb, mft = transition_inputs(S, P, rng, dev)
+    timed = [(S, P, "shaped", *transition_inputs(S, P, rng, dev))
+             for S, P in K1_TIMED]
+    timed.append((S, P, f"real: dense walk, step {PROFILE_STEPS}",
+                  *real[-1]))
+    for S, P, inputs, tb, mft in timed:
         iters = 400 if P < 16 else 100
 
         def kernel():
@@ -198,14 +277,16 @@ def phase_k1(dev, wgl_closure) -> dict:
         eager_ms, plain_eager_ms = in_turns(time_ms, kernel, plain_round,
                                             iters)
         bound_ms, bound_by, nbytes, ops = k1_bound(S, P, mft)
-        row = dict(S=S, P=P, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
-                   plain_eager_ms=plain_eager_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=nbytes, and_or_ops=ops)
+        row = dict(S=S, P=P, inputs=inputs, ms=ms, plain_ms=plain_ms,
+                   eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   and_or_ops=ops, l2_bytes=k1_l2_bytes(S, P, mft))
         shapes.append(row)
-        log(f"K1 time S={S} P={P}: {ms:.6f} ms on the device "
+        log(f"K1 time S={S} P={P} ({inputs}): {ms:.6f} ms on the device "
             f"({eager_ms:.6f} ms per eager call); plain {plain_ms:.6f} ms "
             f"({plain_eager_ms:.6f} ms eager); bound {bound_ms:.6f} ms by "
-            f"{bound_by}")
+            f"{bound_by} at the HBM rate; {row['l2_bytes']} bytes loaded "
+            f"and stored by the design")
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
@@ -228,11 +309,30 @@ def stage_keys(N, F, rng, live=0.5, legal=0.1):
     return np.concatenate([old, cand]).astype(np.int32)
 
 
+def frontier_keys(N, F, rng, legal=0.5):
+    """Keys shaped like a dedup input from a full frontier: F distinct
+    old configurations, then N - F candidates in blocks of F, block m
+    the old keys with pending bit m set where the op is legal (a share
+    `legal`), else EMPTY. Every valid key is distinct, as in stage A,
+    whose candidates all set the bit of the slot just filled."""
+    blocks = (N - F) // F
+    old = rng.choice(2 ** 31 >> blocks, F, replace=False) << blocks
+    cand = [np.where(rng.random(F) < legal, old | (1 << m), -1)
+            for m in range(blocks)]
+    return np.concatenate([old, *cand]).astype(np.int32)
+
+
+def k2_keys(N, F, kind, rng):
+    return (frontier_keys if kind == "frontier" else stage_keys)(N, F, rng)
+
+
 def k2_edge_cases(rng):
-    """(label, keys, F): all EMPTY, all distinct (count > F), N not a
-    power of two, heavy duplicates."""
+    """(label, keys, F): all EMPTY, all distinct (count > F, also at the
+    single-block cap), N not a power of two, heavy duplicates."""
     return [("all-empty", np.full(512, -1, np.int32), 256),
             ("all-distinct", rng.permutation(4352).astype(np.int32), 256),
+            ("all-distinct-8192", rng.permutation(8192).astype(np.int32),
+             256),
             ("n-not-pow2", stage_keys(3000, 200, rng), 200),
             ("heavy-dups", rng.choice(np.array([0, 7, 2 ** 31 - 1, 99],
                                                np.int32), 4352), 256)]
@@ -257,11 +357,11 @@ def k2_bound(N, F, keys) -> tuple[float, str, int, int]:
 def phase_k2(dev, wgl_dedup) -> dict:
     dedup, plain = wgl_dedup.dedup, wgl_dedup.dedup_plain
     rng = np.random.default_rng(SEED + 2)
-    cases = [(f"main-{N}-{F}", stage_keys(N, F, rng), F)
-             for N, F in K2_MATRIX]
+    cases = [(f"{kind}-{N}-{F}", k2_keys(N, F, kind, rng), F)
+             for N, F, kind in K2_MATRIX]
     cases += [(f"dense-{N}-{F}", stage_keys(N, F, rng, live=0.9,
                                             legal=0.6), F)
-              for N, F in K2_MATRIX[:3]]
+              for N, F, _kind in K2_MATRIX[:3]]
     cases += k2_edge_cases(rng)
     max_err = 0
     for label, k, F in cases:
@@ -277,12 +377,29 @@ def phase_k2(dev, wgl_dedup) -> dict:
                     or not torch.equal(a, b):
                 raise AssertionError(f"K2 != plain at {label} (N="
                                      f"{k.size}, F={F}): {name}")
-        log(f"K2 bit-exact vs plain: {label} N={k.size} F={F}, count "
-            f"{int(got[2].item())}")
+        if k.size <= wgl_dedup.SINGLE_BLOCK_MAX_N:
+            # the route `dedup` did not take, on the same keys
+            other = [r for r in ROUTES if r != wgl_dedup.path(k.size)][0]
+            for name, a, b in zip(("out", "new", "count", "digest"),
+                                  wgl_dedup.launch(keys, F, other), want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 != plain at {label} (N="
+                                         f"{k.size}, F={F}) on the "
+                                         f"{other} route: {name}")
+        log(f"K2 bit-exact vs plain: {label} N={k.size} F={F} "
+            f"({wgl_dedup.path(k.size)}), count {int(got[2].item())}")
     shapes = []
-    for N, F in K2_MATRIX:
-        keys = torch.from_numpy(stage_keys(N, F, rng)).to(dev)
+    for N, F, kind in K2_MATRIX:
+        keys = torch.from_numpy(k2_keys(N, F, kind, rng)).to(dev)
         iters = 200 if N < 100_000 else 50
+        route = wgl_dedup.path(N)
+        before = wgl_dedup.cuda_launches()
+        dedup(keys, F)
+        torch.cuda.synchronize()
+        per_call = wgl_dedup.cuda_launches() - before
+        if per_call != (1 if route == "single-block" else 5):
+            raise AssertionError(f"K2 at N={N}: {per_call} CUDA launches "
+                                 f"a call on the {route} route")
 
         def kernel():
             return dedup(keys, F)
@@ -293,21 +410,36 @@ def phase_k2(dev, wgl_dedup) -> dict:
         ms, plain_ms = in_turns(graph_ms, kernel, plain_dedup, iters)
         eager_ms, plain_eager_ms = in_turns(time_ms, kernel, plain_dedup,
                                             iters)
+        # both routes where both take N, by graph replay in turns (this
+        # route, the other, the other, this one)
+        route_ms = {route: ms}
+        if N <= wgl_dedup.SINGLE_BLOCK_MAX_N:
+            other = [r for r in ROUTES if r != route][0]
+
+            def other_route():
+                return wgl_dedup.launch(keys, F, other)
+
+            route_ms[route], route_ms[other] = in_turns(
+                graph_ms, kernel, other_route, iters, share=1)
         # the nearest single PyTorch call: distinct keys in key order,
         # with no first-seen order, no new flags and no digest — not the
         # same function, and it reads its output size on the host
         unique_ms = time_ms(lambda: torch.unique(keys), max(iters // 4, 10))
         bound_ms, bound_by, nbytes, ops = k2_bound(N, F, keys)
-        row = dict(N=N, F=F, ms=ms, plain_ms=plain_ms, eager_ms=eager_ms,
-                   plain_eager_ms=plain_eager_ms, unique_ms=unique_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   int_ops=ops)
+        row = dict(N=N, F=F, keys=kind, path=route,
+                   cuda_launches_per_call=per_call, ms=ms,
+                   plain_ms=plain_ms, eager_ms=eager_ms,
+                   plain_eager_ms=plain_eager_ms, route_ms=route_ms,
+                   unique_ms=unique_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, int_ops=ops)
         shapes.append(row)
-        log(f"K2 time N={N} F={F}: {ms:.6f} ms on the device "
+        log(f"K2 time N={N} F={F} {kind} keys ({route}, {per_call} CUDA "
+            f"launches a call): {ms:.6f} ms on the device "
             f"({eager_ms:.6f} ms per eager call); plain {plain_ms:.6f} ms "
-            f"({plain_eager_ms:.6f} ms eager); torch.unique (not the same "
-            f"function) {unique_ms:.6f} ms eager; bound {bound_ms:.6f} ms "
-            f"by {bound_by}")
+            f"({plain_eager_ms:.6f} ms eager); by route "
+            f"{ {r: round(t, 6) for r, t in route_ms.items()} }; "
+            f"torch.unique (not the same function) {unique_ms:.6f} ms "
+            f"eager; bound {bound_ms:.6f} ms by {bound_by}")
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
@@ -425,6 +557,12 @@ def check_run(label, r, launches, expect) -> None:
         raise AssertionError(f"{label}: no K2 launch on the hash route")
 
 
+def write_report(path, report) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON")
@@ -456,22 +594,25 @@ def main() -> int:
     build_logs = _build.build()
     for src, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                        "spill", "error")):
                 log(f"ptxas[{src}]: {line.strip()}")
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
 
     # -- phase 2: K1 against its plain version --------------------------------
-    k1 = phase_k1(dev, wgl_closure)
+    runs = main_path_runs(models, synth)
+    hists = {label: (model, hist) for label, model, hist, *_ in runs}
+    real = real_k1_inputs(wgl, *hists["at-cap-dense"], dev, PROFILE_STEPS)
+    k1 = phase_k1(dev, wgl_closure, real)
     phase_done("K1 against its plain version")
 
     # -- phase 3: K2 against its plain version --------------------------------
     k2 = phase_k2(dev, wgl_dedup)
     phase_done("K2 against its plain version")
+    del real
 
     # -- phase 4: the main path -------------------------------------------------
-    runs = main_path_runs(models, synth)
-    hists = {label: (model, hist) for label, model, hist, *_ in runs}
     results = {}
     torch.cuda.reset_peak_memory_stats()
     wgl_closure.LAUNCHES = 0
@@ -555,7 +696,8 @@ def main() -> int:
            or m.startswith("jepsen_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
-    k1_main = k1["shapes"][-1]            # the at-cap shape, (8, 19)
+    k1_main = k1["shapes"][2]             # the at-cap shape, (8, 19)
+    k1_real = k1["shapes"][-1]            # the real table at (8, 19)
     k2_main = k2["shapes"][2]             # stage B at F=256, P=16
     kernels = [{
         "name": "closure_round",
@@ -570,6 +712,8 @@ def main() -> int:
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
         "shape": [k1_main["S"], k1_main["P"]],
+        "real_table_ms": k1_real["ms"],
+        "real_table_bound_ms": k1_real["bound_ms"],
         "shapes": k1["shapes"],
     }, {
         "name": "dedup",
@@ -590,16 +734,14 @@ def main() -> int:
         "shapes": k2["shapes"],
     }]
     if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        report = {"device": name, "nvidia_smi": smi, "phase_s": phase_s,
-                  "peak_gb": peak_gb, "kernels": kernels,
-                  "profiles": profiles,
-                  "main_path": {k: {f: v for f, v in r.items()
-                                    if f not in ("configs", "final-paths",
-                                                 "op", "previous-ok")}
-                                for k, r in results.items()}}
-        with open(args.out, "w") as f:
-            json.dump(report, f, indent=1, default=str)
+        write_report(args.out, {
+            "device": name, "nvidia_smi": smi, "phase_s": phase_s,
+            "peak_gb": peak_gb, "kernels": kernels,
+            "profiles": profiles,
+            "main_path": {k: {f: v for f, v in r.items()
+                              if f not in ("configs", "final-paths", "op",
+                                           "previous-ok")}
+                          for k, r in results.items()}})
     log(f"peak device memory on the main path: {peak_gb:.3f} GiB")
     log(json.dumps({"kernels": kernels}))
     log(smi)

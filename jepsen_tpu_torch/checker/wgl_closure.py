@@ -13,25 +13,32 @@ i.e. linearizing pending slot p moves state s to q and sets bit p of the
 mask. The caller (`wgl.DenseKernel._closure`) repeats rounds until the
 popcount stops growing.
 
-Design (`csrc/closure_round.cu`). One thread per output cell (q, c), a
-block of 256 columns of one state row q. The block first compacts, per
-slot p, the source states s with mft[p, q, s] set into shared memory
-(a warp ballot per 32 states), so each thread then reads only the
-table cells that can move into it: for a deterministic model at most
-one source state per slot. The TPU's lane roll + iota mask becomes the
-direct index c ^ 2^p, and the TPU's f32 ``dot > 0`` becomes a boolean
-OR-AND, bit-exact, with an early exit once the cell is set. The round
+Design (`csrc/closure_round.cu`). A block serves one state row q and
+first lists, per slot p, the source states s with mft[p, q, s] set in
+shared memory (a warp ballot per 32 states), so a thread reads only the
+rows that can move into its row: for a deterministic model at most one
+source state per slot. A thread owns a 16-byte chunk (columns
+[16j, 16j + 16)) of row q: it loads its chunk once, ORs in what moves
+into it and writes one 16-byte word. Slots p >= 4 move whole chunks
+(bit p of c is bit p - 4 of j: the aligned chunk j ^ 2^(p-4) of each
+source row, loaded only where that bit is set); slots p < 4 move bytes
+inside the chunk, by shifts and word swaps on its four little-endian
+32-bit words, which is the TPU kernel's lane roll plus iota mask. The
+TPU's f32 ``dot > 0`` becomes a boolean OR-AND, bit-exact, with no
+branch per cell and no early exit. Tables narrower than a chunk
+(P <= 3) take a byte-per-thread path in the same source. The round
 reads ``tb`` and writes a separate buffer, so it stays Jacobi, as the
 TPU round does. Unlike the TPU kernel's VMEM gate, there is no shape
-gate: the kernel reads the table from device memory and L2 at every
-dense shape (S <= 512, S * 2^P <= 2^22).
+gate over the dense domain (S <= 512, S * 2^P <= 2^22).
 
-What bounds it on an H100: the bytes. The table is read once and written
-once as uint8 (2 * S * C bytes, plus P * S * S for mft); the AND-ORs the
-data needs are at most nnz(mft) * C / 2, a few per cell. At the main
-path's shapes (S = 8, P = 7 to 19) that is under 10 MB, so the bound is
-microseconds and one launch (about 3-5 us) is the real floor; the eager
-step walk around the kernel sets the pace of a check.
+What bounds it on an H100: L2 load instructions. The table is at most
+4 MB and stays in the 50 MB L2 between rounds, so the round costs
+1 + nnz(mft[:4, q]) + nnz(mft[4:, q]) / 2 coalesced 16-byte loads per
+chunk of row q, not HBM bytes; the AND-ORs are a few per loaded word.
+At the main path's S = 8 there is nothing for the tensor cores to do:
+the round is data movement. At P <= 14 one launch (about 3 us) is the
+floor, and the eager step walk around the kernel sets the pace of a
+check.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain
 PyTorch version runs only for tensors on the CPU.
@@ -53,6 +60,8 @@ REPLACES = "jepsen_tpu/checker/wgl_pallas.py:58"
 
 MAX_SLOTS = 30
 MAX_SMEM_BYTES = 48 * 1024    # static launch limit: no opt-in needed
+ENTRY_BYTES = 4               # one listed source state in shared memory
+CHUNK_SLOTS = 4               # P >= 4: 16-byte chunks, 16-byte aligned
 
 
 def closure_round_plain(table: torch.Tensor,
@@ -89,11 +98,13 @@ def _check(table: torch.Tensor, mft: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"shape mismatch: table {tuple(table.shape)}, "
                          f"mft {tuple(mft.shape)} (need C = 2^P, "
                          f"P <= {MAX_SLOTS})")
-    if 2 * P * S > MAX_SMEM_BYTES or S > 65535:
+    if ENTRY_BYTES * P * S > MAX_SMEM_BYTES or S > 65535:
         raise ValueError(f"S={S}, P={P} exceeds the kernel's shared "
                          f"memory ({MAX_SMEM_BYTES} bytes)")
     if not (table.is_contiguous() and mft.is_contiguous()):
         raise ValueError("closure_round takes contiguous tensors")
+    if P >= CHUNK_SLOTS and table.data_ptr() % 16:
+        raise ValueError("closure_round takes a 16-byte aligned table")
     return S, C, P
 
 

@@ -17,24 +17,38 @@ same as the TPU kernel's:
 
 Design (`csrc/dedup.cu`). The TPU kernel walks the keys in one serial
 `fori_loop` against a VMEM table. On the card every key inserts at once:
-one thread per key hashes it (murmur3 finaliser, the TPU kernel's
-constants) into a table of H = `table_size(N)` slots, claims a slot with
-`atomicCAS(EMPTY -> key)` by linear probing, and records its input index
-there with `atomicMin`. A key's first occurrence is the index that owns
-the minimum, so flagging those indices and compacting them with an
-exclusive scan (hand-written: per-block counts, one scan of the block
-totals, a block-local scan) gives the serial loop's first-seen order.
-Atomics move where a key lands in the table, never the outputs: the
-order comes from the minimum index, and the digest is a XOR over a set.
-Five launches: fill, insert, count (plus the table's XOR per block),
-scan of the block totals, scatter.
+it hashes (murmur3 finaliser, the TPU kernel's constants) into a table
+of H = `table_size(N)` slots, claims a slot with `atomicCAS(EMPTY ->
+key)` by linear probing, and records its input index there with
+`atomicMin`. A key's first occurrence is the index that owns the
+minimum, so flagging those indices and ranking them with an exclusive
+scan in input order gives the serial loop's first-seen order. Atomics
+move where a key lands in the table, never the outputs: the order comes
+from the minimum index, and the digest is a XOR over a set. Two routes,
+by N (`path`):
 
-What bounds it on an H100: the bytes. N keys are read, the table and its
-index array (2 * H int32) are written and read once, and 2F outputs are
-written; the probes are a few integer operations a key. At the main
-path's shapes (N <= 278,528) that is under 12 MB, a few microseconds at
-the H100 SXM's 3.35 TB/s (data sheet, 700 W power limit), so the five
-launches are the floor.
+  * N <= `SINGLE_BLOCK_MAX_N` (8,192): one launch of one 1,024-thread
+    block with all its state in shared memory (200 KB at most); each
+    thread owns up to 8 consecutive keys, so one block scan ranks the
+    flags, and takes them as a queue, one probe per turn. No scratch.
+    This route
+    takes every call of the main path at F = 256 and stage A (N = 2F)
+    of the escalated passes at F = 1,024 and 4,096, whose keys, a full
+    frontier and its candidates, are nearly all distinct.
+    `chip_smoke.py` times both routes on every shape both take, on
+    repeating keys and on full frontiers; the single block was the
+    faster on each (PERF.md).
+  * larger N (stage B of the escalated passes, stage A from
+    F = 16,384): five launches (fill, insert, count, scan of the block
+    totals, scatter) with the table in a scratch buffer.
+
+What bounds it on an H100: launches. The bytes K2 must move (N keys
+read, 2F outputs written) take under a microsecond at the main path's
+shapes, at the H100 SXM's 3.35 TB/s (data sheet, 700 W power limit),
+and the probes are a few integer operations a key; one launch of a few
+microseconds is the single-block route's floor, five that of the large
+route's. On the single block, one SM's shared-memory atomics add to the
+floor as N and the share of distinct keys grow.
 
 On a CUDA tensor `dedup` launches K2 or raises; the plain PyTorch
 version (`dedup_plain`) runs only for tensors on the CPU.
@@ -62,6 +76,9 @@ MAX_VMEM_BYTES = 12 << 20
 DIGEST_COUNT_MIX = -1640531527   # 0x9E3779B9 as int32
 
 LAUNCHES = 0    # K2 launches by `dedup`, and nothing else
+# the largest N that the single-block route takes (csrc/dedup.cu
+# kSingleMaxN): one CUDA launch per call, five above it
+SINGLE_BLOCK_MAX_N = 8192
 
 SOURCE = "jepsen_tpu_torch/csrc/dedup.cu"
 REPLACES = "jepsen_tpu/checker/wgl_dedup.py:129"
@@ -148,16 +165,31 @@ def _kernel():
     lib = _build.library("dedup")
     fn = lib.jt_dedup
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     scratch = lib.jt_dedup_scratch_ints
-    scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     scratch.restype = ctypes.c_longlong
+    launches = lib.jt_dedup_kernel_launches
+    launches.argtypes = []
+    launches.restype = ctypes.c_longlong
     err = lib.jt_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, scratch, err
+    return fn, scratch, launches, err
+
+
+def path(n: int) -> str:
+    """The route K2 takes for n keys."""
+    return "single-block" if n <= SINGLE_BLOCK_MAX_N else "five-launch"
+
+
+def cuda_launches() -> int:
+    """CUDA kernels launched by K2's library since it was loaded: one
+    per call on the single-block path, five on the large path."""
+    return int(_kernel()[2]())
 
 
 def dedup(keys: torch.Tensor, F: int):
@@ -165,24 +197,39 @@ def dedup(keys: torch.Tensor, F: int):
     tensor. keys: int32 (N,), old frontier first, EMPTY = -1. Returns
     (out int32 (F,), new bool (F,), count int32 (), digest int32 ()),
     launched on the current stream without a synchronisation."""
-    global LAUNCHES
     if keys.device.type == "cpu":
         return dedup_plain(keys, F)
+    return launch(keys, F, path(_check(keys, F)))
+
+
+def launch(keys: torch.Tensor, F: int, route: str):
+    """K2 on the CUDA tensor `keys` by the route named (`path`'s
+    values; "single-block" takes at most SINGLE_BLOCK_MAX_N keys).
+    `dedup` takes the route `path` picks; this entry lets a measurement
+    time the other one on the same keys."""
+    global LAUNCHES
     n = _check(keys, F)
-    fn, scratch_ints, err = _kernel()
+    if route not in ("single-block", "five-launch"):
+        raise ValueError(f"no K2 route {route!r}")
+    single = int(route == "single-block")
+    if single and n > SINGLE_BLOCK_MAX_N:
+        raise ValueError(f"the single-block route takes at most "
+                         f"{SINGLE_BLOCK_MAX_N} keys, got {n}")
+    fn, scratch_ints, _launches, err = _kernel()
     H = table_size(n)
     dev = keys.device
-    out = torch.empty(F, dtype=torch.int32, device=dev)
+    # two allocations: out, count, digest and the large path's scratch
+    # (none on the single-block path) in one int32 buffer; the flags
+    ints = torch.empty(F + 2 + int(scratch_ints(n, H, single)),
+                       dtype=torch.int32, device=dev)
     new = torch.empty(F, dtype=torch.bool, device=dev)
-    tail = torch.empty(2, dtype=torch.int32, device=dev)   # count, digest
-    scratch = torch.empty(int(scratch_ints(n, H)), dtype=torch.int32,
-                          device=dev)
+    ptr = ints.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(keys.data_ptr(), n, F, H, out.data_ptr(), new.data_ptr(),
-                  tail.data_ptr(), scratch.data_ptr(), stream)
+        code = fn(keys.data_ptr(), n, F, H, single, ptr, new.data_ptr(),
+                  ptr + 4 * F, ptr + 4 * (F + 2), stream)
     if code != 0:
         raise RuntimeError(f"dedup launch failed: CUDA error {code} "
                            f"({err(code).decode()})")
     LAUNCHES += 1
-    return out, new, tail[0], tail[1]
+    return ints[:F], new, ints[F], ints[F + 1]

@@ -11,16 +11,44 @@
 // Reads tb and writes the separate buffer out, so the round is Jacobi,
 // exactly as the TPU round reads tb and accumulates into acc.
 //
-// Layout: a block holds 256 consecutive columns of one state row q
-// (grid = C/256 x S). The block first compacts, per slot p, the source
-// states s with mft[p][q][s] set into shared memory (one warp ballot per
-// 32 states), so each thread then reads only the table cells that can
-// move into its cell. For a deterministic model that is at most one
-// source state per slot. A thread stops as soon as its cell is set.
+// Sources. A block serves one state row q. It first lists, per slot p,
+// the source states s with mft[p][q][s] set (one warp ballot per 32
+// states) in shared memory as entries s << 5 | p, grouped by slot. For a
+// deterministic model that is at most one source state per slot, so a
+// thread then reads only the rows that can move into its row.
 //
-// Bound on an H100: bytes. The table is read once and written once
-// (2 * S * C bytes) and the AND-ORs the data needs are a few per cell,
-// far under the card's integer rate.
+// Chunks (P >= 4). A thread owns one 16-byte chunk (uint4) of row q,
+// columns [16j, 16j + 16). It loads its own chunk once, ORs in what moves
+// into it and writes one uint4. Byte i of 32-bit word k of a chunk is
+// column 16j + 4k + i (little-endian), so column bits 0-3 lie inside the
+// chunk and bits 4 and up are bits of j:
+//   * slot p >= 4: every column of the chunk has bit p equal to bit p - 4
+//     of j. Where it is set, the moved columns are the aligned chunk
+//     j ^ 2^(p-4) of each source row; where it is clear nothing moves and
+//     the load is predicated off. No per-byte mask.
+//   * slot p < 4: the source columns lie in the same chunk j of the
+//     source row. A byte butterfly on the four words gives "byte i takes
+//     byte i ^ 2^p where bit p of i is set, else 0", the TPU kernel's lane
+//     roll plus iota mask:
+//       p = 0: (w << 8) & 0xFF00FF00 on each word
+//       p = 1: (w << 16) & 0xFFFF0000 on each word
+//       p = 2: words (x, y, z, w) -> (0, x, 0, z)
+//       p = 3: words (x, y, z, w) -> (0, 0, x, y)
+// 0/1 bytes stay 0/1 under OR and AND, so there is no per-cell branch and
+// no early exit: every lane of a warp runs the same entry list.
+//
+// Cells (P <= 3, C < 16). A row is less than a chunk, so one warp per row
+// runs the same formulation one byte per thread, with the moved byte
+// masked by bit p of c instead of predicated.
+//
+// Bound on an H100. The table is at most 4 MB (S * 2^P <= 2^22 on the
+// dense engine) and stays in the 50 MB L2 from one round to the next, so
+// the round is limited by L2 load instructions and their latency, not by
+// HBM bytes: 1 + nnz(mft[0..3][q]) + nnz(mft[4..][q]) / 2 coalesced
+// 16-byte loads per chunk of row q. The AND-ORs are a few per loaded
+// word. No tensor cores: at the main path's S = 8 a 0/1 `mma` would
+// multiply 8 x 8 tiles that are almost all zero; the round is data
+// movement.
 //
 // The C entry points take raw device pointers and the CUDA stream and
 // return cudaGetLastError(), so a refused launch is reported to the
@@ -31,70 +59,163 @@
 
 namespace {
 
-constexpr int kThreads = 256;            // columns per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;            // chunks per block (P >= 4)
+constexpr int kChunkLog = 4;             // 16 columns = one uint4
 constexpr int kMaxSlots = 30;            // C = 2^P must fit an int
+constexpr int kMaxRows = 65535;          // grid.y
 constexpr int kMaxSmem = 48 * 1024;      // static launch limit
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-closure_round_kernel(const uint8_t* __restrict__ tb,
-                     const uint8_t* __restrict__ mft,
-                     uint8_t* __restrict__ out, int S, int P, int C) {
-  // pre[p * S + k], k < npre[p]: the source states of row q for slot p
-  extern __shared__ uint16_t pre[];
-  __shared__ int npre[kMaxSlots];
-
-  const int q = blockIdx.y;
+// List row q's source states of every slot in ent, grouped by slot:
+// ent[start[p] .. start[p + 1]) = s << 5 | p for each s with
+// mft[p][q][s] set. Every thread of the block must call it.
+template <int THREADS>
+__device__ void list_sources(const uint8_t* __restrict__ mft, int S, int P,
+                             int q, uint32_t* ent, int* start) {
+  __shared__ int cnt[kMaxSlots];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int p = warp; p < P; p += kWarps) {
+  for (int p = warp; p < P; p += THREADS / 32) {
     const uint8_t* row = mft + ((size_t)p * S + q) * S;
-    uint16_t* dst = pre + (size_t)p * S;
     int n = 0;
     for (int s0 = 0; s0 < S; s0 += 32) {   // warp-uniform trip count
       const int s = s0 + lane;
-      const bool hit = s < S && row[s] != 0;
-      const unsigned bal = __ballot_sync(0xffffffffu, hit);
-      if (hit) dst[n + __popc(bal & ((1u << lane) - 1u))] = (uint16_t)s;
-      n += __popc(bal);
+      n += __popc(__ballot_sync(kFull, s < S && row[s] != 0));
     }
-    if (lane == 0) npre[p] = n;
+    if (lane == 0) cnt[p] = n;
   }
   __syncthreads();
-
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const size_t at = (size_t)q * C + c;
-  uint8_t v = tb[at] != 0;
-  for (int p = 0; p < P && !v; ++p) {
-    if (!((c >> p) & 1)) continue;
-    const int src = c ^ (1 << p);
-    const uint16_t* ps = pre + (size_t)p * S;
-    const int n = npre[p];
-    for (int k = 0; k < n; ++k) {
-      if (tb[(size_t)ps[k] * C + src]) {
-        v = 1;
-        break;
+  if (threadIdx.x == 0) {
+    int at = 0;
+    for (int p = 0; p < P; ++p) {
+      start[p] = at;
+      at += cnt[p];
+    }
+    start[P] = at;
+  }
+  __syncthreads();
+  for (int p = warp; p < P; p += THREADS / 32) {
+    const uint8_t* row = mft + ((size_t)p * S + q) * S;
+    uint32_t* dst = ent + start[p];
+    int n = 0;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool hit = s < S && row[s] != 0;
+      const unsigned bal = __ballot_sync(kFull, hit);
+      if (hit) {
+        dst[n + __popc(bal & ((1u << lane) - 1u))] = (uint32_t)s << 5 | p;
       }
+      n += __popc(bal);
     }
   }
-  out[at] = v;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void or_into(uint4& a, const uint4& b) {
+  a.x |= b.x;
+  a.y |= b.y;
+  a.z |= b.z;
+  a.w |= b.w;
+}
+
+// The in-chunk move of slot p < 4: byte i takes byte i ^ 2^p where bit p
+// of i is set, else 0.
+template <int p>
+__device__ __forceinline__ uint4 butterfly(const uint4& v) {
+  if (p == 0) {
+    return make_uint4((v.x << 8) & 0xFF00FF00u, (v.y << 8) & 0xFF00FF00u,
+                      (v.z << 8) & 0xFF00FF00u, (v.w << 8) & 0xFF00FF00u);
+  }
+  if (p == 1) {
+    return make_uint4((v.x << 16) & 0xFFFF0000u, (v.y << 16) & 0xFFFF0000u,
+                      (v.z << 16) & 0xFFFF0000u, (v.w << 16) & 0xFFFF0000u);
+  }
+  if (p == 2) return make_uint4(0u, v.x, 0u, v.z);
+  return make_uint4(0u, 0u, v.x, v.y);
+}
+
+template <int p>
+__device__ __forceinline__ void in_chunk_slot(
+    uint4& acc, const uint4* __restrict__ tb, const uint32_t* ent,
+    const int* start, int nchunk, int j) {
+  for (int e = start[p]; e < start[p + 1]; ++e) {
+    or_into(acc, butterfly<p>(tb[(size_t)(ent[e] >> 5) * nchunk + j]));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+closure_round_chunks(const uint4* __restrict__ tb,
+                     const uint8_t* __restrict__ mft,
+                     uint4* __restrict__ out, int S, int P, int nchunk) {
+  extern __shared__ uint32_t ent[];
+  __shared__ int start[kMaxSlots + 1];
+  const int q = blockIdx.y;
+  list_sources<kThreads>(mft, S, P, q, ent, start);
+
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= nchunk) return;
+  uint4 acc = tb[(size_t)q * nchunk + j];
+  in_chunk_slot<0>(acc, tb, ent, start, nchunk, j);
+  in_chunk_slot<1>(acc, tb, ent, start, nchunk, j);
+  in_chunk_slot<2>(acc, tb, ent, start, nchunk, j);
+  in_chunk_slot<3>(acc, tb, ent, start, nchunk, j);
+  // slots p >= 4: chunk j ^ 2^(p-4), where bit p - 4 of j is set
+#pragma unroll 4
+  for (int e = start[kChunkLog]; e < start[P]; ++e) {
+    const uint32_t x = ent[e];
+    const int b = (int)(x & 31u) - kChunkLog;
+    if ((j >> b) & 1) {
+      or_into(acc, tb[(size_t)(x >> 5) * nchunk + (j ^ (1 << b))]);
+    }
+  }
+  out[(size_t)q * nchunk + j] = acc;
+}
+
+__global__ void __launch_bounds__(32)
+closure_round_cells(const uint8_t* __restrict__ tb,
+                    const uint8_t* __restrict__ mft,
+                    uint8_t* __restrict__ out, int S, int P, int C) {
+  extern __shared__ uint32_t ent[];
+  __shared__ int start[kMaxSlots + 1];
+  const int q = blockIdx.x;
+  list_sources<32>(mft, S, P, q, ent, start);
+
+  const int c = threadIdx.x;
+  if (c >= C) return;
+  uint8_t v = tb[(size_t)q * C + c];
+  for (int e = 0; e < start[P]; ++e) {
+    const uint32_t x = ent[e];
+    const int p = (int)(x & 31u);
+    v |= tb[(size_t)(x >> 5) * C + (c ^ (1 << p))] & ((c >> p) & 1);
+  }
+  out[(size_t)q * C + c] = v;
 }
 
 }  // namespace
 
 extern "C" int jt_closure_round(const void* tb, const void* mft, void* out,
                                 int S, int P, int C, void* stream) {
-  const size_t smem = (size_t)P * S * sizeof(uint16_t);
-  if (S <= 0 || S > 65535 || P < 0 || P > kMaxSlots || C != (1 << P) ||
+  const size_t smem = (size_t)P * S * sizeof(uint32_t);
+  if (S <= 0 || S > kMaxRows || P < 0 || P > kMaxSlots || C != (1 << P) ||
       smem > (size_t)kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)((C + kThreads - 1) / kThreads), (unsigned)S);
-  closure_round_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(mft),
-      static_cast<uint8_t*>(out), S, P, C);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P >= kChunkLog) {
+    if (((uintptr_t)tb | (uintptr_t)out) & 15u) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+    const int nchunk = C >> kChunkLog;
+    const dim3 grid((unsigned)((nchunk + kThreads - 1) / kThreads),
+                    (unsigned)S);
+    closure_round_chunks<<<grid, kThreads, smem, s>>>(
+        static_cast<const uint4*>(tb), static_cast<const uint8_t*>(mft),
+        static_cast<uint4*>(out), S, P, nchunk);
+  } else {
+    closure_round_cells<<<(unsigned)S, 32, smem, s>>>(
+        static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(mft),
+        static_cast<uint8_t*>(out), S, P, C);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,39 +11,64 @@
 //            in wrapping 32-bit arithmetic.
 //
 // The TPU kernel inserts the keys one by one in a serial loop. Here every
-// key inserts at once, and five launches on one stream do the rest:
+// key inserts at once: murmur3 finaliser masked to H - 1 (the TPU
+// kernel's constants), linear probing with atomicCAS(EMPTY -> key) until
+// the slot holds the key, then atomicMin(first[slot], i). A key's first
+// occurrence is the index i with first[slot of i] == i; an exclusive scan
+// of those flags in input order gives each its rank r, and r < F writes
+// out[r] and nw[r]. Atomics change where a key lands in the table, never
+// the outputs: the order comes from the minimum index and the digest is a
+// XOR over a set, so the outputs are bit-identical to the serial loop's.
+// H = table_size(N) is at least 2N (load factor <= 1/2), so probing ends.
 //
-//   1. fill     table[H] = EMPTY, first[H] = INT_MAX, out = EMPTY, nw = 0;
-//   2. insert   one thread per key: murmur3 finaliser masked to H - 1
-//               (the TPU kernel's constants), linear probing with
-//               atomicCAS(EMPTY -> key) until the slot holds the key, then
-//               atomicMin(first[slot], i); pos[i] = slot;
-//   3. count    per tile of kTile keys, the number of first occurrences
-//               (i with first[pos[i]] == i), and per block the XOR of a
-//               share of the table's claimed slots;
-//   4. scan     one block: exclusive scan of the tile counts into tile
-//               offsets, the total count and the digest;
-//   5. scatter  per tile, a block-local exclusive scan of the flags gives
-//               each first occurrence its rank r; r < F writes out[r] and
-//               nw[r].
+// Two routes; the caller picks by N (wgl_dedup.path):
 //
-// Atomics change where a key lands in the table, never the outputs: the
-// order comes from the minimum index and the digest is a XOR over a set,
-// so the outputs are bit-identical to the serial loop's. H is at least
-// 2N (load factor <= 1/2), so probing ends.
+//   N <= 8,192: one launch of one block of 1,024 threads, all its state
+//   in dynamic shared memory (200 KB at most): table[H] and first[H]
+//   (H <= 16,384), and a copy of the keys and their slots. Thread t owns
+//   ceil(N / 1024) <= 8 consecutive keys, so thread order is input
+//   order. It takes them as a queue, one probe per turn, so a warp
+//   waits once for the lane with the most probes in all, not at every
+//   key for that key's longest chain; with nearly distinct keys (a full
+//   frontier) that wait is most of the insert. Phases, split by
+//   __syncthreads(): fill; insert with shared atomics; flags ranked by
+//   one block scan; scatter; count and the digest from a block XOR of
+//   the claimed slots. No scratch in device memory. This takes every
+//   call of the main path at F = 256 and stage A (N = 2F) of the
+//   escalated passes at F = 1,024 and 4,096; it beat the five launches
+//   on every shape both take, repeating keys or a full frontier
+//   (chip_smoke.py times both).
 //
-// Bound on an H100: bytes. The keys are read once, the table and its
-// index array (2H ints) written and read once, pos (N ints) written and
-// read, 2F outputs written: under 12 MB at the main path's N <= 278,528,
-// a few microseconds at the H100 SXM's 3.35 TB/s (data sheet, 700 W power
-// limit). The integer work is a few operations per key. At these sizes
-// the five launches are the floor.
+//   N > 8,192 (stage B of the escalated passes, and stage A from
+//   F = 16,384): five launches on one stream, with the table in the
+//   caller's scratch:
+//     1. fill     table = EMPTY, first = INT_MAX, out = EMPTY, nw = 0;
+//     2. insert   one thread per key; pos[i] = slot;
+//     3. count    per tile of kTile keys, the number of first
+//                 occurrences, and per block the XOR of a share of the
+//                 table's claimed slots;
+//     4. scan     one block: exclusive scan of the tile counts into tile
+//                 offsets, the total count and the digest;
+//     5. scatter  per tile, a block-local exclusive scan of the flags
+//                 ranks each first occurrence.
+//
+// Bound on an H100: bytes, and at these sizes launches. The keys are read
+// once and 2F outputs written: under 1.2 MB at the main path's
+// N <= 278,528, well under a microsecond at 3.35 TB/s (H100 SXM data
+// sheet, 700 W power limit). The integer work is a few operations per key.
+// So one launch (a few microseconds) is the floor of the single-block
+// route, and five launches that of the large one; on one block the
+// shared-memory atomics and the issue rate of one SM add to it as N
+// grows.
 //
 // The C entry points take raw device pointers and the CUDA stream and
 // return the first nonzero cudaGetLastError(), so a refused launch is
 // reported to the caller (jepsen_tpu_torch/checker/wgl_dedup.py), which
-// raises. The scratch buffer is the caller's (jt_dedup_scratch_ints).
+// raises. The large path's scratch is the caller's
+// (jt_dedup_scratch_ints); jt_dedup_kernel_launches counts the kernels
+// this library has launched.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,8 +80,21 @@ constexpr int kThreads = 256;              // fill, insert, count, scatter
 constexpr int kPerThread = 4;
 constexpr int kTile = kThreads * kPerThread;
 constexpr int kScanThreads = 1024;          // the single-block scan
+constexpr int kSingleThreads = 1024;       // the single-block path
+constexpr int kSingleMaxN = 8192;
+constexpr int kSinglePerThread = kSingleMaxN / kSingleThreads;
+constexpr int kSingleMaxH = 2 * kSingleMaxN;   // table_size(kSingleMaxN)
+// table and first (H each), and the keys and their slots (1,024 odd
+// strides of at most 9 each): 200 KB at most
+constexpr int kSingleMaxSmem =
+    (2 * kSingleMaxH + 2 * kSingleThreads * (kSinglePerThread | 1)) *
+    (int)sizeof(int);
+constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kCountMix = 0x9E3779B9u;
+
+std::atomic<long long> g_launches{0};
+std::atomic<unsigned long long> g_smem_ready{0};   // a bit per device
 
 __device__ __forceinline__ unsigned murmur_mix(unsigned k) {
   unsigned h = k ^ (k >> 16);
@@ -235,22 +273,165 @@ scatter_kernel(const int* __restrict__ keys, const int* __restrict__ pos,
   }
 }
 
+__global__ void __launch_bounds__(kSingleThreads)
+single_block_kernel(const int* __restrict__ keys, int n, int F, int H,
+                    int* __restrict__ out, uint8_t* __restrict__ nw,
+                    int* __restrict__ tail) {
+  extern __shared__ int smem[];
+  int* table = smem;
+  int* first = smem + H;
+  // thread t owns keys [t * per, t * per + per), in input order. Their
+  // copies sit in skey[] and their slots in pos[] from t * stride on:
+  // an odd stride keeps a warp's lanes on distinct banks
+  const int per = (n + kSingleThreads - 1) / kSingleThreads;
+  const int stride = per | 1;
+  int* skey = first + H;
+  int* pos = skey + kSingleThreads * stride;
+  const int t = threadIdx.x;
+
+  // 1. fill, and the keys into shared memory (coalesced)
+  for (int i = t; i < n; i += kSingleThreads) {
+    skey[i + (i / per) * (stride - per)] = keys[i];
+  }
+  for (int i = t; i < H; i += kSingleThreads) {
+    table[i] = kEmpty;
+    first[i] = INT_MAX;
+  }
+  for (int r = t; r < F; r += kSingleThreads) {
+    out[r] = kEmpty;
+    nw[r] = 0;
+  }
+  __syncthreads();
+
+  // 2. insert. A lane takes its keys as a queue, one probe per turn of
+  // the loop, so a long probe chain holds its warp up once: the warp's
+  // turns are the most probes one lane makes over all its keys, not the
+  // sum over its keys of the longest chain in the warp.
+  const int base = t * per;
+  const int mine = max(0, min(per, n - base));
+  const int* my_key = skey + t * stride;
+  int* my_pos = pos + t * stride;
+  const unsigned mask = (unsigned)(H - 1);
+  int j = 0, k = mine > 0 ? my_key[0] : kEmpty;
+  unsigned h = murmur_mix((unsigned)k) & mask;
+  while (j < mine) {
+    bool done = k == kEmpty;
+    if (!done) {
+      const int old = atomicCAS(&table[h], kEmpty, k);
+      done = old == kEmpty || old == k;
+      if (done) atomicMin(&first[h], base + j);
+    }
+    if (done) {
+      my_pos[j] = k == kEmpty ? -1 : (int)h;
+      k = ++j < mine ? my_key[j] : kEmpty;
+      h = murmur_mix((unsigned)k) & mask;
+    } else {
+      h = (h + 1) & mask;
+    }
+  }
+  __syncthreads();
+
+  // 3. first-occurrence flags, ranked in input order
+  unsigned flags = 0;
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < kSinglePerThread; ++i) {
+    if (i < mine) {
+      const int p = my_pos[i];
+      if (p >= 0 && first[p] == base + i) {
+        flags |= 1u << i;
+        ++c;
+      }
+    }
+  }
+  int count;
+  int r = block_exclusive_scan<kSingleThreads>(c, &count);
+
+  // 4. scatter the ranks below F
+#pragma unroll
+  for (int i = 0; i < kSinglePerThread; ++i) {
+    if (!((flags >> i) & 1u)) continue;
+    if (r < F) {
+      out[r] = my_key[i];
+      nw[r] = base + i >= F;
+    }
+    ++r;
+  }
+
+  // 5. count, and the digest over the table's claimed slots
+  unsigned x = 0;
+  for (int i = t; i < H; i += kSingleThreads) {
+    const int v = table[i];
+    if (v != kEmpty) x ^= (unsigned)v;
+  }
+  x = block_reduce<kSingleThreads>(x, Xor());
+  if (t == 0) {
+    tail[0] = count;
+    tail[1] = (int)(x ^ ((unsigned)count * kCountMix));
+  }
+}
+
+// Opt in to the single-block path's dynamic shared memory, once per
+// device.
+cudaError_t single_block_ready() {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < kMaxDevices ? 1ull << dev : 0ull;
+  if (bit && (g_smem_ready.load() & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(single_block_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSingleMaxSmem);
+  if (e == cudaSuccess) g_smem_ready.fetch_or(bit);
+  return e;
+}
+
+bool single_block_fits(int n, int H) {
+  return n <= kSingleMaxN && H <= kSingleMaxH;
+}
+
 int tiles_for(int n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
-// Scratch ints the caller allocates for (n, H): pos[n], table[H],
-// first[H], and three per-tile arrays.
-extern "C" long long jt_dedup_scratch_ints(int n, int H) {
+// Scratch ints the caller allocates for (n, H) on the chosen path: none
+// on the single-block path; else pos[n], table[H], first[H], and three
+// per-tile arrays.
+extern "C" long long jt_dedup_scratch_ints(int n, int H, int single) {
+  if (single) return 0;
   return (long long)n + 2LL * H + 3LL * tiles_for(n);
 }
 
-extern "C" int jt_dedup(const void* keys, int n, int F, int H, void* out,
-                        void* nw, void* tail, void* scratch, void* stream) {
-  if (n < 1 || F < 1 || H < 2 || (H & (H - 1)) != 0 || H / 2 < n) {
+// Kernels launched by jt_dedup since the library was loaded.
+extern "C" long long jt_dedup_kernel_launches() { return g_launches.load(); }
+
+// single: 1 for the single-block path (n <= 8,192), 0 for the five
+// launches; the caller picks (jepsen_tpu_torch/checker/wgl_dedup.py).
+extern "C" int jt_dedup(const void* keys, int n, int F, int H, int single,
+                        void* out, void* nw, void* tail, void* scratch,
+                        void* stream) {
+  if (n < 1 || F < 1 || H < 2 || (H & (H - 1)) != 0 || H / 2 < n ||
+      (single && !single_block_fits(n, H))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* k = static_cast<const int*>(keys);
+  int* o = static_cast<int*>(out);
+  uint8_t* w = static_cast<uint8_t*>(nw);
+  int* t = static_cast<int*>(tail);
+  cudaError_t e;
+
+  if (single) {
+    if ((e = single_block_ready()) != cudaSuccess) return (int)e;
+    const int per = (n + kSingleThreads - 1) / kSingleThreads;
+    const size_t smem = (2 * H + 2 * kSingleThreads * (per | 1)) *
+                        sizeof(int);
+    single_block_kernel<<<1, kSingleThreads, smem, s>>>(k, n, F, H, o, w,
+                                                         t);
+    ++g_launches;
+    return (int)cudaGetLastError();
+  }
+
   const int tiles = tiles_for(n);
   int* pos = static_cast<int*>(scratch);
   int* table = pos + n;
@@ -258,29 +439,29 @@ extern "C" int jt_dedup(const void* keys, int n, int F, int H, void* out,
   int* tile_cnt = first + H;
   int* tile_xor = tile_cnt + tiles;
   int* tile_off = tile_xor + tiles;
-  const int* k = static_cast<const int*>(keys);
-  int* o = static_cast<int*>(out);
-  uint8_t* w = static_cast<uint8_t*>(nw);
-  int* t = static_cast<int*>(tail);
-  cudaError_t e;
 
   const int m = H > F ? H : F;
   int fill_blocks = (m + kThreads - 1) / kThreads;
   if (fill_blocks > 4096) fill_blocks = 4096;
   fill_kernel<<<fill_blocks, kThreads, 0, s>>>(table, first, H, o, w, F);
+  ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   insert_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       k, n, table, first, pos, (unsigned)(H - 1));
+  ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int hchunk = (H + tiles - 1) / tiles;
   count_kernel<<<tiles, kThreads, 0, s>>>(pos, first, table, n, H, hchunk,
                                           tile_cnt, tile_xor);
+  ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   scan_kernel<<<1, kScanThreads, 0, s>>>(tile_cnt, tile_xor, tiles, tile_off,
                                          t);
+  ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   scatter_kernel<<<tiles, kThreads, 0, s>>>(k, pos, first, n, F, tile_off, o,
                                             w);
+  ++g_launches;
   return (int)cudaGetLastError();
 }
 

@@ -148,3 +148,92 @@ def test_build_command_targets_hopper_with_a_plain_c_interface():
     src = (_build.CSRC / "closure_round.cu").read_text()
     assert 'extern "C" int jt_closure_round' in src
     assert "cudaGetLastError" in src
+
+
+# -- the kernel's chunked formulation, emulated in numpy ---------------------
+
+CHUNK_SLOTS = 4       # slots p < 4 move bytes inside a 16-byte chunk
+
+
+def _listed_sources(mft, q):
+    """Row q's source states grouped by slot, as the kernel lists them
+    in shared memory: (s, p) for each set mft[p, q, s]."""
+    return [(int(s), p) for p in range(mft.shape[0])
+            for s in np.nonzero(mft[p, q])[0]]
+
+
+def _butterfly(w, p):
+    """The in-chunk move of slot p < 4 on a chunk's four little-endian
+    32-bit words (..., 4): byte i takes byte i ^ 2^p where bit p of i
+    is set, else 0."""
+    z = np.zeros_like(w[..., 0])
+    x, y, zz = w[..., 0], w[..., 1], w[..., 2]
+    if p == 0:
+        return (w << np.uint32(8)) & np.uint32(0xFF00FF00)
+    if p == 1:
+        return (w << np.uint32(16)) & np.uint32(0xFFFF0000)
+    if p == 2:
+        return np.stack([z, x, z, zz], axis=-1)
+    return np.stack([z, z, x, y], axis=-1)
+
+
+def _chunked_round(tb, mft):
+    """One round as csrc/closure_round.cu computes it: for P >= 4 a
+    thread per 16-byte chunk j of row q, holding four '<u4' words, ORs
+    in the butterflied chunk j of each listed source of a slot p < 4
+    and the chunk j ^ 2^(p-4) of each listed source of a slot p >= 4
+    where bit p - 4 of j is set; for P < 4 a thread per byte c ORs in
+    tb[s, c ^ 2^p] masked by bit p of c."""
+    P, S, _ = mft.shape
+    C = tb.shape[1]
+    src = np.ascontiguousarray(tb, dtype=np.uint8)
+    if P < CHUNK_SLOTS:
+        c = np.arange(C)
+        out = src.copy()
+        for q in range(S):
+            for s, p in _listed_sources(mft, q):
+                out[q] |= src[s, c ^ (1 << p)] & ((c >> p) & 1).astype(
+                    np.uint8)
+        return out.astype(bool)
+    nchunk = C >> CHUNK_SLOTS
+    words = src.view("<u4").reshape(S, nchunk, 4)
+    j = np.arange(nchunk)
+    out = words.copy()
+    for q in range(S):
+        for s, p in _listed_sources(mft, q):
+            if p < CHUNK_SLOTS:
+                out[q] |= _butterfly(words[s], p)
+            else:
+                b = p - CHUNK_SLOTS
+                take = ((j >> b) & 1).astype(bool)
+                out[q, take] |= words[s, j[take] ^ (1 << b)]
+    return out.reshape(S, C // 4).view(np.uint8).astype(bool)
+
+
+def test_butterflies_move_each_byte_to_its_partner_column():
+    """Each in-chunk butterfly on the little-endian words equals the
+    direct column index: byte i takes byte i - 2^p where bit p of i is
+    set."""
+    chunk = np.arange(1, 17, dtype=np.uint8)
+    w = chunk.view("<u4")
+    for p in range(CHUNK_SLOTS):
+        i = np.arange(16)
+        want = np.where((i >> p) & 1, chunk[i ^ (1 << p)], 0)
+        got = _butterfly(w, p).astype("<u4").view(np.uint8)
+        np.testing.assert_array_equal(got, want, err_msg=f"p={p}")
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 30])
+@pytest.mark.parametrize("P", range(11))
+def test_chunked_emulation_matches_oracle_and_pallas_every_round(S, P):
+    tb, mft = _inputs(S, P, seed=97 * S + P, density=0.05)
+    want = _rounds(_oracle_round, tb, mft)
+    got = _rounds(_chunked_round, tb, mft)
+    assert len(got) == len(want)
+    for r, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"round {r}")
+    if wgl_pallas.eligible(S, P):
+        pallas = _rounds(_pallas_np(S, P), tb, mft)
+        assert len(pallas) == len(got)
+        for r, (g, w) in enumerate(zip(got, pallas)):
+            np.testing.assert_array_equal(g, w, err_msg=f"round {r}")

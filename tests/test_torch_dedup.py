@@ -144,3 +144,106 @@ def test_build_command_and_c_interface():
     # a hand kernel: no library kernel on the path
     for banned in ("cub::Device", "thrust", "#include <cub"):
         assert banned not in src
+
+
+# -- the single-block path's phases, emulated in numpy -----------------------
+
+SINGLE_THREADS = 1024
+
+
+def _murmur(k):
+    h = k ^ (k >> 16)
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def _single_block(keys, F, seed):
+    """K2's single-block path as csrc/dedup.cu runs it: thread t owns the
+    per = ceil(N / 1024) consecutive keys [t * per, t * per + per) and
+    takes them as a queue, one probe per turn; the threads' probes
+    interleave in an order drawn from `seed` (warps run in any order);
+    a key's first occurrence is the index holding its slot's atomicMin;
+    an exclusive scan of the per-thread flag counts ranks them; ranks
+    below F scatter; the digest XORs the table's claimed slots."""
+    n = len(keys)
+    H = wgl_dedup.table_size(n)
+    table = np.full(H, EMPTY, np.int64)
+    first = np.full(H, np.iinfo(np.int32).max, np.int64)
+    per = -(-n // SINGLE_THREADS)
+    slot = np.full(n, -1)
+    rng = np.random.default_rng(seed)
+    nxt = {t: t * per for t in range(SINGLE_THREADS) if t * per < n}
+    at = {}                                              # 2. insert
+    while nxt:
+        live = list(nxt)
+        for t in rng.permutation(live):                  # one turn each
+            i = nxt[t]
+            k = int(keys[i])
+            done = k == EMPTY
+            if not done:
+                h = at.get(t, _murmur(k) & (H - 1))
+                if table[h] in (EMPTY, k):               # the CAS
+                    table[h] = k
+                    first[h] = min(first[h], i)
+                    slot[i] = h
+                    done = True
+                else:
+                    at[t] = (h + 1) & (H - 1)
+            if done:
+                at.pop(t, None)
+                if i + 1 < min(t * per + per, n):
+                    nxt[t] = i + 1
+                else:
+                    del nxt[t]
+    flags = np.zeros(SINGLE_THREADS * per, bool)         # 3. flags, ranks
+    flags[:n] = (slot >= 0) & (first[slot] == np.arange(n))
+    counts = flags.reshape(SINGLE_THREADS, per).sum(1)
+    rank = np.cumsum(counts) - counts
+    count = int(counts.sum())
+    out = np.full(F, EMPTY, np.int32)                    # 4. scatter
+    new = np.zeros(F, bool)
+    for t in range(SINGLE_THREADS):
+        r = rank[t]
+        for i in np.nonzero(flags[t * per:(t + 1) * per])[0] + t * per:
+            if r < F:
+                out[r], new[r] = keys[i], i >= F
+            r += 1
+    x = 0                                                # 5. digest
+    for v in table[table != EMPTY]:
+        x ^= int(v)
+    dig = (x ^ (count * wgl_dedup.DIGEST_COUNT_MIX)) & 0xFFFFFFFF
+    return out, new, count, dig - (1 << 32) if dig >= 1 << 31 else dig
+
+
+@pytest.mark.parametrize("kind", ["mixed", "dups", "empty", "distinct"])
+@pytest.mark.parametrize("N", [1, 512, 4352, 8192])
+def test_single_block_emulation_matches_plain_and_pallas(N, kind):
+    assert N <= wgl_dedup.SINGLE_BLOCK_MAX_N
+    F = min(256, max(N // 2, 1))
+    keys = _keys(kind, max(N, 3), seed=N + 5)[:N]
+    out, new, cnt, dig = _single_block(keys, F, seed=N)
+    p_out, p_new, p_cnt, p_dig = dedup_plain(torch.from_numpy(keys), F)
+    np.testing.assert_array_equal(out, p_out.numpy())
+    np.testing.assert_array_equal(new, p_new.numpy())
+    assert (cnt, dig) == (int(p_cnt), int(p_dig))
+    j_out, j_new, j_cnt, j_dig = map(
+        np.asarray, jdedup.dedup_fn(N, F, interpret=True)(keys))
+    np.testing.assert_array_equal(out, j_out)
+    np.testing.assert_array_equal(new, j_new)
+    assert (cnt, dig) == (int(j_cnt), int(j_dig))
+
+
+def test_single_block_cap_matches_the_source():
+    """The wrapper's path split is the kernel's: N <= 8,192 is one
+    launch of one block with the table in shared memory."""
+    src = (_build.CSRC / "dedup.cu").read_text()
+    cap = wgl_dedup.SINGLE_BLOCK_MAX_N
+    assert f"constexpr int kSingleMaxN = {cap};" in src
+    assert "constexpr int kSingleThreads = 1024;" in src
+    assert 'extern "C" long long jt_dedup_kernel_launches(' in src
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert wgl_dedup.table_size(cap) * 2 * 4 == 128 * 1024
+    assert wgl_dedup.path(cap) == "single-block"
+    assert wgl_dedup.path(cap + 1) == "five-launch"

@@ -28,7 +28,8 @@ def _need_cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,P", [(8, 7), (8, 14), (16, 7), (30, 8),
-                                 (4, 1), (256, 10)])
+                                 (4, 1), (256, 10), (3, 0), (5, 2), (8, 3),
+                                 (8, 4), (30, 5), (8, 19)])
 def test_cuda_kernel_matches_plain_bit_exact(S, P):
     _need_cuda()
     rng = np.random.default_rng(P)
@@ -107,7 +108,8 @@ def test_cuda_carry_resumes_a_cpu_carry():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,F", [(512, 256), (4352, 256), (77, 16),
-                                 (64, 64), (17408, 1024)])
+                                 (64, 64), (17408, 1024), (8192, 256),
+                                 (8193, 256)])
 def test_dedup_kernel_matches_plain_bit_exact(N, F):
     _need_cuda()
     rng = np.random.default_rng(N + F)
@@ -123,6 +125,44 @@ def test_dedup_kernel_matches_plain_bit_exact(N, F):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert wgl_dedup.LAUNCHES == before + len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,launches", [(1, 1), (4352, 1), (8192, 1),
+                                        (8193, 5), (17408, 5)])
+def test_dedup_cuda_launches_per_call(N, launches):
+    """The single-block path (N <= 8,192) is one CUDA launch per call,
+    the large path five."""
+    _need_cuda()
+    assert wgl_dedup.path(N) == ("single-block" if launches == 1
+                                 else "five-launch")
+    keys = torch.from_numpy(np.random.default_rng(N).integers(
+        -1, N, N).astype(np.int32)).cuda()
+    dedup(keys, 256)                     # builds and loads the library
+    before = wgl_dedup.cuda_launches()
+    for _ in range(3):
+        dedup(keys, 256)
+    torch.cuda.synchronize()
+    assert wgl_dedup.cuda_launches() - before == 3 * launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 2048, 8192])
+def test_dedup_both_routes_match_plain(N):
+    """Where both routes take N, each is bit-exact on all four outputs;
+    the single-block route refuses more than its cap."""
+    _need_cuda()
+    rng = np.random.default_rng(N)
+    keys = torch.from_numpy(rng.integers(-1, 4 * N, N).astype(np.int32))
+    want = dedup_plain(keys, 1024)
+    for route in ("single-block", "five-launch"):
+        got = wgl_dedup.launch(keys.cuda(), 1024, route)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    big = torch.zeros(wgl_dedup.SINGLE_BLOCK_MAX_N + 1, dtype=torch.int32,
+                      device="cuda")
+    with pytest.raises(ValueError):
+        wgl_dedup.launch(big, 256, "single-block")
 
 
 @pytest.mark.gpu
