@@ -32,8 +32,27 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      counts and final carries against the port's own CPU path, and trace
      the first 1,500 steps of four walks with torch.profiler for the
      device's busy share;
-  5. print one JSON line of per-kernel numbers, the nvidia-smi line, and
-     last the line {"ok": true, "device": {...}}.
+  5. hold K1 and K2 with a batch axis bit-exact against their plain
+     versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
+     and at P = 0-3 and 19 with B = 4; K2 on all four outputs at
+     (32, 2048, 1024) and (32, 17408, 1024) and on edge rows, both
+     routes), each row against the unbatched call on that row, and time
+     each batched launch against B unbatched launches of the same rows,
+     in turns;
+  6. drive the batch path — `analysis_gpu_batch` and the independent
+     checker over a key-sharded history — at full size: the hazelcast
+     shape (100 keys of 500 register ops, three corrupted, dense groups
+     P = 4-10, K1 batched) and 32 counter keys on the sort family's hash
+     route (two corrupted, K2 batched on both routes), with every
+     kernel's launch count set to 0 just before each run and read just
+     after; then the dense batch again under an injected OOM (the
+     ladder's split); then hold verdicts, culprit ops, counts and each
+     group's final batched carry against the port's CPU path, and trace
+     the first 300 lockstep steps of each batch's largest group;
+  7. fail if any result other than the injected run's carries a
+     'recovered' or 'degraded' stamp; print one JSON line of per-kernel
+     numbers, the nvidia-smi line, and last the line
+     {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints
@@ -78,6 +97,24 @@ K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
              (16, 18)]
 K1_TIMED = [(8, 7), (8, 14), (8, 19)]
 PROFILE_STEPS = 1_500
+# the batch path (bench.py:section_config4's hazelcast shape): 100 keys
+# of register_history(500, concurrency=4, values=5, crash_rate=0.005,
+# seed=1000 + i), keys 7, 42 and 77 with one read set to 5 (one past the
+# value domain, so the batch stays dense); and 32 counter keys, keys 5
+# and 20 with one read set to 999 and -999 (unreachable, and inside a
+# state range that still packs at 16 slots, so the batch takes the hash
+# dedup; 10**6 would not)
+HAZELCAST = dict(n_ops=500, concurrency=4, values=5, crash_rate=0.005)
+HAZELCAST_KEYS, HAZELCAST_BAD = 100, (7, 42, 77)
+COUNTER_KEYS, COUNTER_BAD = 32, {5: 999, 20: -999}
+BATCH_SLOTS = 16
+BATCH_PROFILE_STEPS = 300
+# K1 batched: the hazelcast groups' (B padded, P) at S = 8, then P = 0-3
+# and 19 at B = 4; K2 batched: (B, N, F) of the counter batch's stage A
+# and stage B at F = 1,024, P = 16
+K1_BATCHED = [(32, 8, 4), (64, 8, 6), (16, 8, 8), (4, 8, 10), (4, 3, 0),
+              (4, 4, 1), (4, 5, 2), (4, 8, 3), (4, 8, 19)]
+K2_BATCHED = [(32, 2048, 1024), (32, 17408, 1024)]
 ROUTES = ("single-block", "five-launch")       # K2's two routes
 # K2's (N, F, keys): stage A (2F) and stage B (F(1+P), P = 8 and 16) at
 # the main path's F = 256, and stage B at the adversarial run's escalated
@@ -443,6 +480,417 @@ def phase_k2(dev, wgl_dedup) -> dict:
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
+def exact(got, want, label) -> int:
+    """Hold one kernel output bit-exact against the plain version's;
+    returns the largest absolute difference, 0."""
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()
+              .item()) if got.numel() else 0
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(got, want):
+        raise AssertionError(f"kernel != plain at {label}")
+    return err
+
+
+def phase_k1_batched(dev, wgl_closure) -> dict:
+    """K1 with a batch axis: bit-exact against the plain version and row
+    by row against the unbatched kernel over up to four rounds, then the
+    batched launch timed against B unbatched launches of the same rows,
+    in turns, and the plain version."""
+    closure_round = wgl_closure.closure_round
+    plain = wgl_closure.closure_round_plain
+    rng = np.random.default_rng(SEED + 4)
+    max_err, shapes = 0, []
+    for B, S, P in K1_BATCHED:
+        rows = [transition_inputs(S, P, rng, dev, density=0.05)
+                for _ in range(B)]
+        tb = torch.stack([t for t, _m in rows])
+        mft = torch.stack([m for _t, m in rows])
+        t = tb
+        for r in range(4):
+            before = wgl_closure.LAUNCHES
+            got = closure_round(t, mft)
+            if wgl_closure.LAUNCHES != before + 1:
+                raise AssertionError("a batched K1 call is one launch")
+            label = f"K1 batched B={B} S={S} P={P} round {r}"
+            max_err = max(max_err, exact(got, plain(t, mft), label))
+            for b in range(B):
+                exact(got[b], closure_round(t[b], mft[b]), f"{label} row {b}")
+            if torch.equal(got, t):
+                break
+            t = got
+        log(f"K1 batched bit-exact vs plain and vs each row's own launch: "
+            f"B={B} S={S} P={P}")
+        if P >= 19:
+            continue
+        iters = max(20, 2_000 // B)
+
+        def batched():
+            return closure_round(tb, mft)
+
+        def one_by_one():
+            return [closure_round(tb[b], mft[b]) for b in range(B)]
+
+        ms, turns_ms = in_turns(graph_ms, batched, one_by_one, iters,
+                                share=1)
+        _ms, plain_ms = in_turns(graph_ms, batched,
+                                 lambda: plain(tb, mft), iters)
+        C = 1 << P
+        nbytes = B * (2 * S * C + P * S * S)
+        ops = 2 * int(mft.sum().item()) * (C // 2)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        row = dict(B=B, S=S, P=P, ms=ms, scalar_turns_ms=turns_ms,
+                   plain_ms=plain_ms, bound_ms=max(t_b, t_o) * 1e3,
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   bytes=nbytes, and_or_ops=ops)
+        shapes.append(row)
+        log(f"K1 batched time B={B} S={S} P={P}: {ms:.6f} ms a batched "
+            f"launch; {turns_ms:.6f} ms for {B} unbatched launches of the "
+            f"same rows (in turns); plain {plain_ms:.6f} ms; bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def k2_batch_edge_rows(N, F, rng) -> np.ndarray:
+    """Four rows: all EMPTY, all distinct, heavy duplicates, and keys
+    shaped like a dedup input."""
+    return np.stack([np.full(N, -1, np.int32),
+                     rng.permutation(N).astype(np.int32),
+                     rng.choice(np.array([0, 7, 2 ** 31 - 1, 99], np.int32),
+                                N),
+                     stage_keys(N, F, rng)])
+
+
+def phase_k2_batched(dev, wgl_dedup) -> dict:
+    """K2 with a batch axis: all four outputs bit-exact against the plain
+    version and row by row against the unbatched kernel, on both routes
+    where both take N, then the batched call timed against B unbatched
+    calls of the same rows, in turns, and the plain version."""
+    dedup, plain = wgl_dedup.dedup, wgl_dedup.dedup_plain
+    rng = np.random.default_rng(SEED + 6)
+    max_err, shapes = 0, []
+    cases = [(f"stage-{B}x{N}-{F}",
+              np.stack([stage_keys(N, F, rng) for _ in range(B)]), F)
+             for B, N, F in K2_BATCHED]
+    cases += [(f"edge-rows-{N}-{F}", k2_batch_edge_rows(N, F, rng), F)
+              for _B, N, F in K2_BATCHED]
+    for label, k, F in cases:
+        B, N = k.shape
+        keys = torch.from_numpy(k).to(dev)
+        route = wgl_dedup.path(N)
+        before = wgl_dedup.cuda_launches()
+        got = dedup(keys, F)
+        torch.cuda.synchronize()
+        per_call = wgl_dedup.cuda_launches() - before
+        if per_call != (1 if route == "single-block" else 5):
+            raise AssertionError(f"K2 batched {label}: {per_call} CUDA "
+                                 f"launches on the {route} route")
+        want = plain(keys, F)
+        for name, a, b in zip(("out", "new", "count", "digest"), got, want):
+            max_err = max(max_err, exact(a, b, f"K2 batched {label} {name}"))
+        for b in range(B):
+            for name, a, o in zip(("out", "new", "count", "digest"), got,
+                                  dedup(keys[b].contiguous(), F)):
+                exact(a[b], o, f"K2 batched {label} row {b} {name}")
+        if N <= wgl_dedup.SINGLE_BLOCK_MAX_N:
+            for name, a, b in zip(("out", "new", "count", "digest"),
+                                  wgl_dedup.launch(keys, F, "five-launch"),
+                                  want):
+                exact(a, b, f"K2 batched {label} five-launch {name}")
+        log(f"K2 batched bit-exact vs plain and vs each row's own call: "
+            f"{label} ({route}, {per_call} CUDA launches a call)")
+    for B, N, F in K2_BATCHED:
+        k = np.stack([stage_keys(N, F, rng) for _ in range(B)])
+        keys = torch.from_numpy(k).to(dev)
+        rows = [keys[b].contiguous() for b in range(B)]
+        iters = 40
+
+        def batched():
+            return dedup(keys, F)
+
+        def one_by_one():
+            return [dedup(r, F) for r in rows]
+
+        ms, turns_ms = in_turns(graph_ms, batched, one_by_one, iters,
+                                share=1)
+        _ms, plain_ms = in_turns(graph_ms, batched,
+                                 lambda: plain(keys, F), iters)
+        valid = int((keys != -1).sum().item())
+        nbytes = B * (4 * N + 5 * F + 8)
+        ops = 10 * valid + (B * N - valid)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        row = dict(B=B, N=N, F=F, path=wgl_dedup.path(N), ms=ms,
+                   scalar_turns_ms=turns_ms, plain_ms=plain_ms,
+                   bound_ms=max(t_b, t_o) * 1e3,
+                   bound_by="bytes" if t_b >= t_o else "operations",
+                   bytes=nbytes, int_ops=ops)
+        shapes.append(row)
+        log(f"K2 batched time B={B} N={N} F={F} ({row['path']}): "
+            f"{ms:.6f} ms a batched call; {turns_ms:.6f} ms for {B} "
+            f"unbatched calls of the same rows (in turns); plain "
+            f"{plain_ms:.6f} ms; bound {row['bound_ms']:.6f} ms by "
+            f"{row['bound_by']}")
+    return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def batch_histories(models, synth):
+    """The hazelcast-shape dense batch and the counter sort batch."""
+    hz = [synth.register_history(**HAZELCAST, seed=1000 + i)
+          for i in range(HAZELCAST_KEYS)]
+    for i in HAZELCAST_BAD:
+        hz[i] = synth.corrupt(hz[i], value=HAZELCAST["values"])
+    cnt = [synth.counter_history(500, seed=2000 + i)
+           for i in range(COUNTER_KEYS)]
+    for i, v in COUNTER_BAD.items():
+        cnt[i] = synth.corrupt(cnt[i], value=v)
+    return (models.cas_register(), hz), (models.counter(), cnt)
+
+
+def kv_history(independent, hists) -> list:
+    """The per-key histories as one key-sharded history: values wrapped
+    as (key, value) tuples, processes kept apart per key, ops merged by
+    time (each key's ops keep their order)."""
+    ops = []
+    for k, h in enumerate(hists):
+        for o in h.ops:
+            ops.append(dict(o, value=independent.ktuple(k, o["value"]),
+                            process=o["process"] + 1_000 * k))
+    ops.sort(key=lambda o: o["time"])
+    return ops
+
+
+def walk_totals(results) -> dict:
+    """The batch walks behind a list of batch results: each walk's
+    'batch-walk' stamp once (the keys it decided share it)."""
+    walks = {json.dumps(r["batch-walk"], sort_keys=True): r["batch-walk"]
+             for r in results if "batch-walk" in r}
+    return {"groups": [w["group"] + [w["keys"]] for w in walks.values()],
+            "closure_rounds": sum(w["closure-rounds"] for w in walks.values()),
+            "dedup_launches": sum(w["dedup-launches"] for w in walks.values()),
+            "host_syncs": sum(w["host-syncs"] for w in walks.values())}
+
+
+def no_stamps(label, results) -> None:
+    """A fault the ladder absorbed must not pass unseen."""
+    for i, r in enumerate(results):
+        if r.get("recovered") or r.get("degraded"):
+            raise AssertionError(f"{label} key {i}: recovered/degraded "
+                                 f"{r.get('recovered')} {r.get('error')}")
+
+
+def run_batch(label, fn, wgl, wgl_closure, wgl_dedup, carry_to_numpy):
+    """One run of the batch path with every kernel's launch count set to
+    0 just before and read just after, and each group walk's final
+    batched carry kept (host copies, in walk order)."""
+    carries = []
+    walk = wgl._batch_walk
+
+    def record(*a, **k):
+        carry = walk(*a, **k)
+        carries.append(carry_to_numpy(carry))
+        return carry
+
+    wgl._batch_walk = record
+    wgl_closure.LAUNCHES = 0
+    wgl_dedup.LAUNCHES = 0
+    cuda0 = wgl_dedup.cuda_launches()
+    try:
+        t = time.perf_counter()
+        rs = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        wgl._batch_walk = walk
+    tot = walk_totals(rs)
+    rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
+               k2_launches=wgl_dedup.LAUNCHES,
+               k2_cuda_launches=wgl_dedup.cuda_launches() - cuda0,
+               verdicts=[r["valid?"] for r in rs],
+               invalid=[i for i, r in enumerate(rs) if r["valid?"] is False],
+               op_index={i: r.get("op-index") for i, r in enumerate(rs)
+                         if r["valid?"] is False}, **tot)
+    log(f"batch {label}: {len(rs)} keys, wall {wall:.3f} s, K1 launches "
+        f"{rec['k1_launches']}, K2 launches {rec['k2_launches']} "
+        f"({rec['k2_cuda_launches']} CUDA launches), host syncs "
+        f"{tot['host_syncs']}, groups [kind, shape..., keys] "
+        f"{tot['groups']}, invalid keys {rec['op_index']}")
+    return rs, rec, carries
+
+
+def check_batch(label, rs, rec, bad, dense) -> None:
+    """Hold a batch run to what its histories are: the corrupted keys
+    invalid with an op-index, the rest valid, K1 launched on the dense
+    groups and K2 on the sort group's hash route, each as often as the
+    walks counted."""
+    if rec["invalid"] != sorted(bad) or any(
+            not isinstance(rec["op_index"][i], int) for i in bad):
+        raise AssertionError(f"{label}: invalid keys {rec['op_index']}")
+    if any(v not in (True, False) for v in rec["verdicts"]):
+        raise AssertionError(f"{label}: undecided keys")
+    if any(r["analyzer"] != "gpu-wgl-batch" or r["device"] != "cuda"
+           for r in rs):
+        raise AssertionError(f"{label}: a key left the batch path")
+    k1, k2 = rec["k1_launches"], rec["k2_launches"]
+    if dense:
+        if k1 <= 0 or k1 != rec["closure_rounds"] or k2 != 0 \
+                or any(g[0] != "dense" for g in rec["groups"]):
+            raise AssertionError(f"{label}: K1 {k1} for "
+                                 f"{rec['closure_rounds']} rounds, K2 {k2}")
+        return
+    singles = (5 * k2 - rec["k2_cuda_launches"]) // 4
+    if k1 != 0 or k2 <= 0 or k2 != rec["dedup_launches"] or singles <= 0 \
+            or singles >= k2 or any(r["dedup"] != "pallas-hash" for r in rs):
+        raise AssertionError(f"{label}: K1 {k1}, K2 {k2} "
+                             f"({rec['k2_cuda_launches']} CUDA launches) for "
+                             f"{rec['dedup_launches']} hash dedups")
+
+
+def same_carries(label, a, b) -> None:
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} group walks vs {len(b)}")
+    for g, (ca, cb) in enumerate(zip(a, b)):
+        for i, (x, y) in enumerate(zip(ca, cb)):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{label}: walk {g} carry element {i} "
+                                     f"differs")
+
+
+def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+                independent, linearizable, platform, carry_to_numpy) -> dict:
+    """The batch path at full size on the card, under injection, and
+    against the CPU path."""
+    (reg, hz), (counter, cnt) = batch_histories(models, synth)
+    kw = dict(slots=BATCH_SLOTS)
+    out = {}
+
+    def run(label, fn):
+        return run_batch(label, fn, wgl, wgl_closure, wgl_dedup,
+                         carry_to_numpy)
+
+    dense_rs, out["dense"], dense_carries = run(
+        "hazelcast (dense)", lambda: wgl.analysis_gpu_batch(reg, hz, **kw))
+    check_batch("hazelcast", dense_rs, out["dense"], HAZELCAST_BAD, True)
+    kv = kv_history(independent, hz)
+
+    def independent_check():
+        res = independent.checker(linearizable(reg, **kw)).check({}, kv, {})
+        if res["valid?"] is not False \
+                or sorted(res["failures"]) != sorted(HAZELCAST_BAD):
+            raise AssertionError(f"independent: {res['valid?']} "
+                                 f"{res['failures']}")
+        return [res["results"][k] for k in range(len(hz))]
+
+    ind, out["independent"], _c = run(
+        "hazelcast through independent.checker", independent_check)
+    check_batch("independent", ind, out["independent"], HAZELCAST_BAD, True)
+    for i, (a, b) in enumerate(zip(dense_rs, ind)):
+        for key in ("valid?", "max-frontier", "dedup", "batch-walk"):
+            if a.get(key) != b.get(key):
+                raise AssertionError(f"independent key {i}: {key} "
+                                     f"{b.get(key)} != {a.get(key)}")
+        if a["valid?"] is False:
+            # the op-index of the key-sharded history names the same op
+            x, y = kv[b["op-index"]], hz[i].ops[a["op-index"]]
+            if (x["time"], x["f"], x["value"]) != \
+                    (y["time"], y["f"], independent.ktuple(i, y["value"])):
+                raise AssertionError(f"independent key {i}: op {x} != {y}")
+    sort_rs, out["sort"], sort_carries = run(
+        "counter (sort, hash dedup)",
+        lambda: wgl.analysis_gpu_batch(counter, cnt, **kw))
+    check_batch("counter", sort_rs, out["sort"], sorted(COUNTER_BAD), False)
+
+    # the ladder on the card: an injected OOM at the first chunk dispatch
+    # splits the group walking then (the cheapest dense group) in halves
+    os.environ[platform.FAULT_INJECT_ENV] = "oom@batch:1"
+    platform.reset_fault_injection()
+    try:
+        oom_rs, out["oom"], _c = run(
+            "hazelcast under oom@batch:1",
+            lambda: wgl.analysis_gpu_batch(reg, hz, **kw))
+    finally:
+        del os.environ[platform.FAULT_INJECT_ENV]
+        platform.reset_fault_injection()
+    first = min(g[3] for g in out["dense"]["groups"])   # smallest P
+    split = [i for i, r in enumerate(oom_rs) if r.get("recovered")]
+    want = [i for i, r in enumerate(dense_rs)
+            if r["batch-walk"]["group"][3] == first]
+    if [r["valid?"] for r in oom_rs] != out["dense"]["verdicts"] \
+            or split != want or any(
+                oom_rs[i]["recovered"] != {"faults": ["oom"], "retries": 1,
+                                           "split": True} for i in split) \
+            or any(r.get("degraded") for r in oom_rs):
+        raise AssertionError(f"injected OOM: verdicts or stamps differ "
+                             f"(split keys {split}, want {want})")
+    out["oom"]["split_keys"] = len(split)
+    log(f"injected OOM: the same {len(oom_rs)} verdicts; the {len(split)} "
+        f"keys of the P={first} group walking at the fault carry "
+        f"recovered {oom_rs[split[0]]['recovered']}")
+    for label, rs in (("hazelcast", dense_rs), ("independent", ind),
+                      ("counter", sort_rs)):
+        no_stamps(label, rs)
+
+    # the CPU path: verdicts, counts and each walk's final carry
+    t0 = time.perf_counter()
+    for label, model, hists, g_rs, g_carries in (
+            ("hazelcast", reg, hz, dense_rs, dense_carries),
+            ("counter", counter, cnt, sort_rs, sort_carries)):
+        t = time.perf_counter()
+        c_rs, _rec, c_carries = run_batch(
+            f"{label} on the CPU",
+            lambda: wgl.analysis_gpu_batch(model, hists, device="cpu", **kw),
+            wgl, wgl_closure, wgl_dedup, carry_to_numpy)
+        for i, (a, b) in enumerate(zip(g_rs, c_rs)):
+            for key in ("valid?", "op-index", "max-frontier", "dedup",
+                        "analyzer", "op-count", "batch-walk"):
+                if a.get(key) != b.get(key):
+                    raise AssertionError(f"{label} key {i}: {key} gpu "
+                                         f"{a.get(key)} != cpu {b.get(key)}")
+        same_carries(label, g_carries, c_carries)
+        out[f"{label}_cpu_s"] = time.perf_counter() - t
+        log(f"{label} batch: GPU and CPU agree on every key (verdict, "
+            f"op-index, max-frontier, dedup, walk counts) and on the final "
+            f"batched carry of each of {len(g_carries)} group walks; CPU "
+            f"path {out[f'{label}_cpu_s']:.3f} s")
+    out["cpu_agreement_s"] = time.perf_counter() - t0
+
+    # where a batched walk's time goes: its largest group's first steps
+    out["profiles"] = {}
+    for label, model, hists in (("hazelcast", reg, hz),
+                                ("counter", counter, cnt)):
+        walk, keys = batch_prefix_walk(wgl, model, hists, dev)
+        pr = profile_walk(walk, BATCH_PROFILE_STEPS)
+        pr["keys"] = keys
+        out["profiles"][label] = pr
+        log(f"profile {label} batch, largest group ({keys} keys), first "
+            f"{BATCH_PROFILE_STEPS} lockstep steps: wall "
+            f"{pr['wall_s']:.4f} s, device busy {pr['device_busy_s']:.4f} s "
+            f"({100 * pr['busy_share']:.2f}%), {pr['kernel_launches']} "
+            f"kernel launches ({pr['kernel_launches'] / BATCH_PROFILE_STEPS:.1f}"
+            f" per step); top {pr['top']}")
+    return out
+
+
+def batch_prefix_walk(wgl, model, hists, device):
+    """A function walking the first n lockstep steps of the batch's
+    largest dispatch group, as analysis_gpu_batch's walk does, and the
+    group's key count."""
+    pre = [wgl.encode_ops_for_model(model, h) for h in hists]
+    srange = wgl._state_range(model.device_model, model, pre)
+    dense, sort_idx = wgl._dispatch_groups(
+        srange, [wgl.required_slots(o) for o in pre], "auto",
+        n_events=max(wgl.event_count(o) for o in pre))
+    d, idx = max(list(dense.values()) + [(None, sort_idx)],
+                 key=lambda g: len(g[1]))
+    slots = d[2] if d is not None else BATCH_SLOTS
+    k = wgl._batch_kernel(model.device_model, d, srange, slots, 1024, device)
+    x, ns = wgl._stack_steps([wgl.build_steps(pre[i], slots) for i in idx],
+                             wgl._bucket(len(idx), lo=1))
+    xs = wgl.stage_steps(x, device)
+    init = [model.device_state()] * len(ns)
+    return (lambda n: k.check_chunk_batch(xs, np.minimum(ns, n),
+                                          k.init_carry_batch(init)),
+            len(idx))
+
+
 def prefix_walk(wgl, model, hist, device, **kw):
     """A function walking the first n merged steps of `hist` on the
     engine `plan` picks (the sort family at frontier F), as
@@ -570,7 +1018,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from jepsen_tpu_torch import _build, models
+    from jepsen_tpu_torch import _build, _platform, independent, models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
     from jepsen_tpu_torch.checker.linear import linearizable
@@ -635,6 +1083,7 @@ def main() -> int:
             f"rounds={r['closure-rounds']} host syncs={r['host-syncs']} "
             f"error={r.get('error')}")
         check_run(label, r, launches, expect)
+    no_stamps("main path", list(results.values()))
     main_launches = {"closure_round": wgl_closure.LAUNCHES,
                      "dedup": wgl_dedup.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -692,6 +1141,16 @@ def main() -> int:
             f"{pr['top']}")
     phase_done("profile")
 
+    # -- phase 5: K1 and K2 with a batch axis ---------------------------------
+    k1b = phase_k1_batched(dev, wgl_closure)
+    k2b = phase_k2_batched(dev, wgl_dedup)
+    phase_done("batched K1 and K2 against their plain versions")
+
+    # -- phase 6: the batch path, on the card and against the CPU -------------
+    batch = phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+                        independent, linearizable, _platform, carry_to_numpy)
+    phase_done("batch path")
+
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
            or m.startswith("jepsen_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -733,11 +1192,31 @@ def main() -> int:
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
+    # the batched launches: K1 at the hazelcast batch's largest group
+    # (64 tables of 8 x 2^6), K2 at the counter batch's stage B
+    k1b_main = next(r for r in k1b["shapes"] if r["B"] == 64)
+    k2b_main = k2b["shapes"][-1]
+    for kname, mod, row, err, launches, shape in (
+            ("closure_round_batched", wgl_closure, k1b_main,
+             k1b["max_abs_err"], batch["dense"]["k1_launches"],
+             [k1b_main["B"], k1b_main["S"], k1b_main["P"]]),
+            ("dedup_batched", wgl_dedup, k2b_main, k2b["max_abs_err"],
+             batch["sort"]["k2_launches"],
+             [k2b_main["B"], k2b_main["N"], k2b_main["F"]])):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": mod.SOURCE,
+            # the same TPU kernel, under jax.vmap in the batch entry
+            "replaces": mod.REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "scalar_turns_ms": row["scalar_turns_ms"],
+            "shape": shape,
+            "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
         write_report(args.out, {
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
-            "profiles": profiles,
+            "profiles": profiles, "batch": batch,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

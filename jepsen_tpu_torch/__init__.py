@@ -13,7 +13,10 @@ Ported so far: the offline linearizability check of a history
 (`checker.wgl.analysis_gpu`) on both engine families, the dense
 reachable-set table, whose closure round is the hand-written Hopper
 kernel `csrc/closure_round.cu`, and the sort frontier, whose hash dedup
-is the hand-written Hopper kernel `csrc/dedup.cu`.
+is the hand-written Hopper kernel `csrc/dedup.cu`; the batched check of
+many histories (`checker.wgl.analysis_gpu_batch`, both kernels with a
+batch axis) behind the independent checker (`independent`); and the
+recovery ladder with fault injection (`_platform`) around both entries.
 """
 
 __version__ = "0.1.0"

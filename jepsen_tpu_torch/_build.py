@@ -7,7 +7,8 @@ library with a plain C interface under `build/` at the repository root
 reused. `build()` starts one nvcc per source, all at once, and waits for
 them all; `library(name)` builds what it needs and loads it.
 
-Nothing here falls back: a missing nvcc or a failed compile raises.
+Nothing here falls back: a missing nvcc or a failed compile raises
+`KernelCompileError`, which the recovery ladder never retries.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ._platform import KernelCompileError
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
@@ -34,7 +37,7 @@ def nvcc() -> str:
               "/usr/local/cuda/bin/nvcc"):
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the port's "
+    raise KernelCompileError("nvcc not found (PATH, CUDA_HOME): the port's "
                        "CUDA kernels cannot be built")
 
 
@@ -92,7 +95,7 @@ def build(names: list[str] | None = None) -> dict[str, str]:
                 p.kill()
                 p.wait()
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+        raise KernelCompileError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
 

@@ -12,7 +12,10 @@ own copy, and a mismatch raises `CorruptDeviceResult`.
   * **Carry digests.** `carry_digest_host` recomputes an engine's
     on-device carry digest (`wgl.DenseKernel.digest`,
     `wgl.SortKernel.digest`) from a fetched carry; `verify_carry` also
-    checks att == 0 and count == the live population.
+    checks att == 0 and count == the live population. A batched carry
+    (a leading B on every element) has one digest per key
+    (`carry_digest_device(..., batch=True)`), checked key by key on the
+    host.
 
 Both sides do the arithmetic in int64 and reduce mod 2^32 explicitly,
 so the digests agree bit for bit with the JAX package's, which computes
@@ -131,15 +134,20 @@ def carry_digest_host(carry) -> int:
     return _to_i32(h)
 
 
-def carry_digest_device(carry) -> torch.Tensor:
+def carry_digest_device(carry, batch: bool = False) -> torch.Tensor:
     """The same mix as carry_digest_host, on the device, as an unfetched
-    0-d int32 tensor. Each product of a 32-bit sum and a 32-bit prime
-    is split at bit 16 of the prime, so no int64 product overflows."""
+    0-d int32 tensor; with batch=True, one digest per key of a batched
+    carry, as an int32 (B,) tensor (the vmapped digest). Each product of
+    a 32-bit sum and a 32-bit prime is split at bit 16 of the prime, so
+    no int64 product overflows."""
     h = None
     for i, c in enumerate(carry):
         if c.dtype == torch.float32:
             c = c.view(torch.int32)
-        s = c.sum(dtype=torch.int64) & _MASK
+        if batch:
+            s = c.reshape(c.shape[0], -1).sum(1, dtype=torch.int64) & _MASK
+        else:
+            s = c.sum(dtype=torch.int64) & _MASK
         p = _PRIMES[i % len(_PRIMES)]
         term = (s * (p & 0xFFFF) + (((s * (p >> 16)) & 0xFFFF) << 16)) \
             & _MASK

@@ -16,7 +16,9 @@ already linearized).
   * the history is linearizable iff a configuration survives every entry.
 
 `Linearizable` routes models with a device form to the port's GPU engine
-(`wgl.analysis_gpu`) and everything else to this oracle.
+(`wgl.analysis_gpu`) and everything else to this oracle; the independent
+checker hands its per-key subhistories to the batch entry
+(`wgl.analysis_gpu_batch`) with the same options.
 """
 
 from __future__ import annotations
@@ -239,7 +241,13 @@ class Linearizable(Checker):
     Extra keyword options flow straight to `wgl.analysis_gpu`: device
     ('cuda' by default; 'cpu' runs the plain PyTorch path), engine,
     dense_slot_cap, chunk_entries, budget_s, explain, frontier,
-    max_frontier, slot_overflow_fallback.
+    max_frontier, slot_overflow_fallback, and max_recovery_retries (the
+    recovery ladder's budget of classified device faults; the test
+    map's 'max-recovery-retries' applies when it is unset here). Under
+    `independent.checker` the same options go to the batch entry
+    `wgl.analysis_gpu_batch` (device, engine, dense_slot_cap,
+    chunk_entries, budget_s, frontier, max_frontier, slots,
+    max_recovery_retries; an option it does not take raises).
     """
 
     def __init__(self, model: m.Model, algorithm: str = "auto", **opts):
@@ -260,12 +268,16 @@ class Linearizable(Checker):
             algo = "gpu"
         if algo not in ("auto", "gpu", "host"):
             raise ValueError(f"unknown linearizability algorithm {algo!r}")
+        kw = dict(self.opts)
+        mrr = (test or {}).get("max-recovery-retries")
+        if mrr is not None:
+            kw.setdefault("max_recovery_retries", mrr)
         a = None
         if algo in ("auto", "gpu"):
             if self.model.device_model is not None:
                 from .wgl import analysis_gpu
                 try:
-                    a = analysis_gpu(self.model, hist, **self.opts)
+                    a = analysis_gpu(self.model, hist, **kw)
                 except DeviceEncodingError:
                     # history exceeds the device encoding (e.g. values
                     # outside int32): the host model handles it

@@ -41,6 +41,12 @@ round costs one host read of the table's popcount, a sort stage-B round
 one read of "any legal candidate?"; those syncs and the launches around
 them set the pace (a persistent step-walk kernel is a later slice's
 work).
+
+Batched keys (`analysis_gpu_batch`, the independent checker's entry):
+both engines also walk B independent histories in lockstep
+(`check_chunk_batch`, the JAX package's `jax.vmap` of the walk), one K1
+or K2 launch serving every key of a dispatch group. Both entries run
+under the recovery ladder (below `Device-fault recovery ladder`).
 """
 
 from __future__ import annotations
@@ -48,13 +54,18 @@ from __future__ import annotations
 import collections
 import dataclasses
 import heapq
+import logging
 import time as _time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from .._platform import CorruptDeviceResult, attest_enabled, resolve_device
+from .. import util
+from .._platform import (FAULT_COMPILE, FAULT_DEVICE_LOST, FAULT_OOM,
+                         CorruptDeviceResult, attest_enabled,
+                         classify_backend_error, guarded_fetch,
+                         maybe_corrupt, maybe_inject_fault, resolve_device)
 from ..carry import carry_to_numpy
 from ..history import (DeviceEncodingError, F_CAS, F_READ, F_WRITE,
                        KIND_OK, NIL, OpArray, UQ_COUNT_MAX, UQ_VALUES,
@@ -62,6 +73,8 @@ from ..history import (DeviceEncodingError, F_CAS, F_READ, F_WRITE,
                        history as as_history)
 from . import abft, wgl_dedup
 from .wgl_closure import closure_round
+
+log = logging.getLogger(__name__)
 
 # Event kinds (host-side stream construction)
 E_INVOKE = 0
@@ -454,22 +467,33 @@ def stage_steps(x: np.ndarray, device) -> Staged:
     return Staged(host, torch.from_numpy(host).to(device))
 
 
+def _h2d(a: np.ndarray, device) -> torch.Tensor:
+    """A host array (a per-key mask or index chosen by the host walk) on
+    the device. Non-blocking: CUDA copies a pageable source into its
+    staging buffer before the call returns, and the copy waits for no
+    queued kernel."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                        non_blocking=True)
+
+
 class _Engine:
-    """What both engine families share: counted host reads, the carry
-    digest and the one-call check. A subclass sets `device` and
-    implements init_carry, run_range and summarize."""
+    """What both engine families share: counted, watchdog-guarded host
+    reads, the carry digest, the one-call check and the batch entries'
+    scaffolding. A subclass sets `device` and implements init_carry,
+    run_range, summarize and their batched forms."""
 
     device: torch.device
     syncs: int
 
-    def fetch(self, t: torch.Tensor):
-        """Read a tensor's value on the host (one device sync)."""
+    def fetch(self, t: torch.Tensor, site: str = "device-sync"):
+        """Read a tensor's value on the host (one device sync, bounded by
+        the watchdog deadline when one is set)."""
         self.syncs += 1
-        return t.tolist()
+        return guarded_fetch(t.tolist, site=site)
 
-    def fetch_carry(self, carry) -> tuple:
+    def fetch_carry(self, carry, site: str = "carry") -> tuple:
         self.syncs += 1
-        return carry_to_numpy(carry)
+        return guarded_fetch(lambda: carry_to_numpy(carry), site=site)
 
     def _i32(self, v: int) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int32, device=self.device)
@@ -483,6 +507,70 @@ class _Engine:
         """The whole search in one call: init + walk + summarize."""
         return self.summarize(
             self.run_range(xs, n_steps, self.init_carry(init_state)))
+
+    # -- batch entries: jax.vmap of the entries above ---------------------
+    #
+    # A batched carry holds every element of the carry with a leading B,
+    # exactly the JAX package's vmapped carry; the step matrix is (B, T,
+    # W+4). Each key walks its own steps to its own stop, and a key that
+    # is stopped or dead keeps its carry unchanged, as vmap's select of a
+    # batched while_loop leaves it. The host walk keeps each key's step
+    # index and liveness (both it reads anyway), gathers each active
+    # key's step row on the device, and decides from its own copy of the
+    # steps whether any key completes or invokes at this step.
+
+    def init_carry_batch(self, init_states) -> tuple:
+        carries = [self.init_carry(int(s)) for s in init_states]
+        return tuple(torch.stack(c) for c in zip(*carries))
+
+    def digest_batch(self, carry) -> torch.Tensor:
+        """One carry digest per key, as an unfetched int32 (B,) tensor."""
+        return abft.carry_digest_device(carry, batch=True)
+
+    def check_batch(self, xs: Staged, n_steps, init_states) -> tuple:
+        """The whole search of B keys: init + walk + summarize, batched."""
+        return self.summarize_batch(self.run_range_batch(
+            xs, n_steps, self.init_carry_batch(init_states)))
+
+    def summarize_batch(self, carry) -> tuple:
+        """(ok, death, overflow, max_count, att), numpy arrays of B:
+        summarize of each key."""
+        e, count, maxc, att, ovf = self.summary_batch(carry)
+        ok = count > 0
+        return ok, np.where(ok, -1, e - 1), ovf, maxc, att
+
+    def summary_batch(self, carry) -> tuple:
+        """(e, count, max_count, att, overflow) of each key, numpy arrays
+        of B, in one host read."""
+        e, count, maxc, att, ovf = (np.asarray(v) for v in self.fetch(
+            torch.stack(self._summary_row(carry)), site="batch summarize"))
+        return e, count, maxc, att, ovf.astype(bool)
+
+    def _walk_start(self, carry, stops, count_at: int):
+        """Host copies of each key's step index and liveness, or None when
+        no key has a step to walk."""
+        e_h, count_h = (np.asarray(v, np.int64) for v in self.fetch(
+            torch.stack([carry[0], carry[count_at]])))
+        alive = count_h > 0
+        stops = np.asarray(stops, np.int64)
+        if not ((e_h < stops) & alive).any():
+            return None
+        return e_h, alive, stops
+
+    def _step_rows(self, xs: Staged, e_h: np.ndarray):
+        """Each key's current step row: the host copy (control decisions)
+        and the device copy, gathered at each key's own step index."""
+        T = xs.host.shape[1]
+        idx = np.minimum(e_h, T - 1)
+        row_h = xs.host[np.arange(len(e_h)), idx]
+        row_d = xs.dev[self._keys(len(e_h)), _h2d(idx, self.device)]
+        return row_h, row_d
+
+    def _keys(self, B: int) -> torch.Tensor:
+        ar = getattr(self, "_ar", None)
+        if ar is None or ar.shape[0] != B:
+            ar = self._ar = torch.arange(B, device=self.device)
+        return ar
 
 
 class DenseKernel(_Engine):
@@ -615,6 +703,100 @@ class DenseKernel(_Engine):
 
     check_chunk = run_range
 
+    # -- the batched walk (jax.vmap of run_range) --------------------------
+    def _summary_row(self, carry):
+        e, att, count, maxc = carry[0], carry[6], carry[7], carry[8]
+        return [e, count, maxc, att, torch.zeros_like(e)]
+
+    def _closure_batch(self, table, slots, occ, inv: torch.Tensor,
+                       inv_h: np.ndarray):
+        """Close the tables of the invoking keys (inv) under
+        linearization of their occupied slots, one batched K1 launch a
+        round, until no key's popcount changes; a key that has converged
+        is frozen, the others' tables are left as they are. Returns
+        (table, counts tensor, counts on the host) for every key."""
+        i32 = torch.int32
+        legal, new = self.step(self._s_vals[None, None, :],
+                               slots[0][:, :, None], slots[1][:, :, None],
+                               slots[2][:, :, None])            # (B, P, S)
+        legal = legal & occ[:, :, None]
+        mft = (legal[:, :, None, :]
+               & (new[:, :, None, :] == self._s_vals[None, None, :, None])
+               ).to(torch.uint8)                             # (B, P, S, S)
+        tb = torch.where(inv[:, None, None], closure_round(table, mft),
+                         table)
+        self.rounds += 1
+        cnt_t = tb.sum((1, 2), dtype=i32)
+        prev, cnt = (np.asarray(v) for v in self.fetch(
+            torch.stack([table.sum((1, 2), dtype=i32), cnt_t])))
+        going = inv_h & (cnt != prev)
+        while going.any():
+            g = _h2d(going, self.device)
+            tb = torch.where(g[:, None, None], closure_round(tb, mft), tb)
+            self.rounds += 1
+            cnt_t = tb.sum((1, 2), dtype=i32)
+            nxt = np.asarray(self.fetch(cnt_t))
+            going &= nxt != cnt
+            cnt = nxt
+        return tb, cnt_t, cnt
+
+    def run_range_batch(self, xs: Staged, stops, carry) -> tuple:
+        """Walk each key b's steps [e_b, stops[b]) while its table is
+        nonempty, all keys in lockstep: per step one gather of each
+        key's row, one completion gather for the keys that complete, and
+        batched closure rounds for the keys that invoke. xs holds a
+        (B, T, 5) step matrix; stops is a length-B sequence."""
+        start = self._walk_start(carry, stops, 7)
+        if start is None:
+            return carry
+        e_h, alive, stops = start
+        i32 = torch.int32
+        dev, B = self.device, len(e_h)
+        _e, table, slot_f, slot_a, slot_b, occ, att, count, maxc = carry
+        slots = torch.stack([slot_f, slot_a, slot_b])           # (3, B, P)
+        cols = self._cols[None, :]
+        parange = torch.arange(self.P, device=dev)[None, :]
+        while True:
+            act_h = (e_h < stops) & alive
+            if not act_h.any():
+                break
+            row_h, row = self._step_rows(xs, e_h)
+            act = _h2d(act_h, dev)
+            if (act_h & (row_h[:, 0] != 0)).any():
+                rm = torch.where(act, row[:, 0], 0).to(torch.int64)[:, None]
+                idx = (cols | rm)[:, None, :].expand(B, self.S, self.C)
+                table = table.gather(2, idx) & ((cols & rm) == 0)[:, None, :]
+                occ = occ & ((self._bits[None, :] & rm) == 0)
+            inv_h = act_h & (row_h[:, 1] >= 0)
+            if inv_h.any():
+                inv = _h2d(inv_h, dev)
+                # the invoked slot of each invoking key, and no slot at
+                # all for the others (vmap's lax.cond writes slot -1 and
+                # throws it away; here nothing is written)
+                onehot = (parange == row[:, 1:2]) & inv[:, None]  # (B, P)
+                slots = torch.where(onehot[None], row[:, 2:5].T[:, :, None],
+                                    slots)
+                occ = occ | onehot
+                table, count_t, cnt_h = self._closure_batch(
+                    table, slots, occ, inv, inv_h)
+            else:
+                count_t = table.sum((1, 2), dtype=i32)
+                cnt_h = np.asarray(self.fetch(count_t))
+            if self.use_attest:
+                occ_bits = torch.where(occ, self._bits, 0).sum(1, dtype=i32)
+                badc = (cols & ~occ_bits[:, None]) != 0          # (B, C)
+                att = att + torch.where(
+                    act, (table & badc[:, None, :]).sum((1, 2), dtype=i32),
+                    0)
+            count = torch.where(act, count_t, count)
+            maxc = torch.where(act, torch.maximum(maxc, count_t), maxc)
+            e_h = e_h + act_h
+            alive = cnt_h > 0
+        return (_h2d(e_h.astype(np.int32), dev), table, slots[0], slots[1],
+                slots[2], occ, att, count, maxc)
+
+    check_chunk_batch = run_range_batch
+
 
 # ---------------------------------------------------------------------------
 # Sort-frontier engine
@@ -624,9 +806,10 @@ _M32 = 0xFFFFFFFF
 
 
 def _neq_prev(x: torch.Tensor) -> torch.Tensor:
-    """True at 0 and wherever x differs from the element before it."""
-    out = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-    out[1:] = x[1:] != x[:-1]
+    """True at column 0 and wherever a (B, N) tensor's element differs
+    from the one before it in its row."""
+    out = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    out[:, 1:] = x[:, 1:] != x[:, :-1]
     return out
 
 
@@ -705,11 +888,17 @@ class SortKernel(_Engine):
         return ok, (-1 if ok else e - 1), bool(overflow), maxc, att
 
     # -- dedup routes ----------------------------------------------------------
-    # Each takes N rows (old frontier first) and returns the F-row
-    # frontier (masks, states, valid, new), the overflow flag and the
-    # digest-mismatch flag, as tensors.
+    # Each takes B rows of N configurations (old frontier first) and
+    # returns the B F-row frontiers (masks, states, valid, new), with each
+    # row's overflow and digest-mismatch flags, as tensors; the scalar
+    # walk runs them on a batch of one (`_dedup`).
 
     def _dedup(self, masks, states, valid, origin):
+        """One frontier's dedup: the batched route on a batch of one."""
+        return tuple(t[0] for t in self._dedup_batch(
+            masks[None], states[None], valid[None], origin))
+
+    def _dedup_batch(self, masks, states, valid, origin):
         if self.dedup_route == DEDUP_PALLAS:
             return self._dedup_hash(masks, states, valid)
         if self.packed:
@@ -717,69 +906,78 @@ class SortKernel(_Engine):
         return self._dedup_lex(masks, states, valid, origin)
 
     def _dedup_hash(self, masks, states, valid):
-        """The packed 31-bit key through the hash dedup: the distinct
-        keys in first-seen order. Old configs sit in rows [0, F), so
-        first-seen wins is the stable sort's old-configs-first rule.
-        ABFT: when the count fits the frontier, the XOR digest of the
-        compacted output must equal the digest of the table's keys."""
+        """The packed 31-bit key through the hash dedup, every row in one
+        call: the distinct keys in first-seen order. Old configs sit in
+        rows [0, F), so first-seen wins is the stable sort's
+        old-configs-first rule. ABFT: when the count fits the frontier,
+        the XOR digest of the compacted output must equal the digest of
+        the table's keys."""
         F, P = self.F, self.P
-        key = torch.where(valid, ((states - self.s_lo) << P) | masks[:, 0],
+        key = torch.where(valid,
+                          ((states - self.s_lo) << P) | masks[:, :, 0],
                           wgl_dedup.EMPTY).contiguous()
         out, new, distinct, kdig = wgl_dedup.dedup(key, F)
         self.dedups += 1
         valid_f = out >= 0
         safe = torch.where(valid_f, out, 0)
-        masks_f = (safe & ((1 << P) - 1))[:, None]
+        masks_f = (safe & ((1 << P) - 1))[:, :, None]
         states_f = (safe >> P) + self.s_lo
         if self.use_attest:
             exp = abft.wrap_i32(wgl_dedup.xor_fold(safe)
                                 ^ wgl_dedup.mix_count(distinct))
             mism = ((exp != kdig) & (distinct <= F)).to(torch.int32)
         else:
-            mism = self._i32(0)
+            mism = torch.zeros_like(distinct)
         return masks_f, states_f, valid_f, new & valid_f, distinct > F, mism
 
     def _dedup_packed(self, masks, states, valid, origin):
-        """One stable sort of key = invalid<<31 | (state-s_lo)<<P | mask,
-        as the uint32 it is in the JAX kernel (held in int64)."""
+        """One stable sort along each row of key = invalid<<31 |
+        (state-s_lo)<<P | mask, as the uint32 it is in the JAX kernel
+        (held in int64)."""
         F, P = self.F, self.P
         i64 = torch.int64
         key = (torch.where(valid, 0, 1 << 31)
                | (((states.to(i64) - self.s_lo) & _M32) << P) & _M32
-               | (masks[:, 0].to(i64) & _M32))
-        key_s, perm = torch.sort(key, stable=True)
+               | (masks[:, :, 0].to(i64) & _M32))
+        key_s, perm = torch.sort(key, dim=1, stable=True)
         valid_s = ((key_s >> 31) == 0) & _neq_prev(key_s)
-        head = key_s[:F]
-        masks_f = (head & ((1 << P) - 1)).to(torch.int32)[:, None]
-        states_f = ((head >> P) & ((1 << self.sb_bits) - 1)).to(torch.int32) \
-            + self.s_lo
-        valid_f = valid_s[:F]
-        return (masks_f, states_f, valid_f, valid_f & origin[perm[:F]],
-                valid_s[F:].any(), self._i32(0))
+        head = key_s[:, :F]
+        masks_f = (head & ((1 << P) - 1)).to(torch.int32)[:, :, None]
+        states_f = ((head >> P) & ((1 << self.sb_bits) - 1)) \
+            .to(torch.int32) + self.s_lo
+        valid_f = valid_s[:, :F]
+        return (masks_f, states_f, valid_f, valid_f & origin[perm[:, :F]],
+                valid_s[:, F:].any(1),
+                torch.zeros(len(key), dtype=torch.int32, device=self.device))
 
     def _dedup_lex(self, masks, states, valid, origin):
-        """Stable lexicographic sort by (invalid, mask words as unsigned,
-        state as signed), as chained stable sorts from the least
-        significant key up; the first row of each run of equal keys
-        wins, so an old config beats an equal candidate."""
-        F = self.F
+        """Stable lexicographic sort of each row by (invalid, mask words
+        as unsigned, state as signed), as chained stable sorts from the
+        least significant key up, each key gathered by the row's
+        permutation so far; the first row of each run of equal keys wins,
+        so an old config beats an equal candidate."""
+        F, W = self.F, self.W
         i64 = torch.int64
-        words = masks.to(i64) & _M32                                # (N, W)
+        B, N = states.shape
+        words = masks.to(i64) & _M32                             # (B, N, W)
         inv = (~valid).to(i64)
         # (invalid, word 0) fit one 33-bit key; the rest sort alone
-        keys = [(inv << 32) | words[:, 0]] + \
-            [words[:, w] for w in range(1, self.W)] + [states.to(i64)]
-        perm = torch.arange(len(states), device=self.device)
+        keys = [(inv << 32) | words[:, :, 0]] + \
+            [words[:, :, w] for w in range(1, W)] + [states.to(i64)]
+        perm = torch.arange(N, device=self.device).expand(B, N)
         for k in reversed(keys):
-            perm = perm[torch.sort(k[perm], stable=True)[1]]
-        first = _neq_prev(keys[-1][perm])
+            order = torch.sort(k.gather(1, perm), dim=1, stable=True)[1]
+            perm = perm.gather(1, order)
+        first = _neq_prev(keys[-1].gather(1, perm))
         for k in keys[:-1]:
-            first |= _neq_prev(k[perm])
-        valid_s = valid[perm] & first
-        head = perm[:F]
-        valid_f = valid_s[:F]
-        return (masks[head], states[head], valid_f, valid_f & origin[head],
-                valid_s[F:].any(), self._i32(0))
+            first |= _neq_prev(k.gather(1, perm))
+        valid_s = valid.gather(1, perm) & first
+        head = perm[:, :F]
+        valid_f = valid_s[:, :F]
+        return (masks.gather(1, head[:, :, None].expand(B, F, W)),
+                states.gather(1, head), valid_f, valid_f & origin[head],
+                valid_s[:, F:].any(1),
+                torch.zeros(B, dtype=torch.int32, device=self.device))
 
     # -- the walk --------------------------------------------------------------
     def _expand(self, masks, states, valid, new, slots, occ, overflow, att):
@@ -866,6 +1064,126 @@ class SortKernel(_Engine):
                 slots[2], occ, overflow, att, count_t, maxc)
 
     check_chunk = run_range
+
+    # -- the batched walk (jax.vmap of run_range) --------------------------
+    def _summary_row(self, carry):
+        return [carry[0], carry[10], carry[11], carry[9],
+                carry[8].to(torch.int32)]
+
+    def _expand_batch(self, masks, states, valid, new, slots, occ,
+                      overflow, att, going: np.ndarray):
+        """Stage B for the keys in `going` (the invoking keys): one host
+        read per round of each key's "any legal candidate?" and count;
+        a key with none leaves the stage and is frozen from then on, and
+        the stage runs while any key has one. Returns the frontier and
+        each key's count on the host."""
+        F, P, W = self.F, self.P, self.W
+        B = states.shape[0]
+        bitmat = self._bitmat
+        i32 = torch.int32
+        while True:
+            legal, cstate = self.step(states[:, :, None],
+                                      slots[0][:, None, :],
+                                      slots[1][:, None, :],
+                                      slots[2][:, None, :])    # (B, F, P)
+            already = ((masks[:, :, None, :] & bitmat[None, None])
+                       != 0).any(-1)
+            legal = legal & (valid & new)[:, :, None] & occ[:, None, :] \
+                & ~already
+            any_legal, count = (np.asarray(v) for v in self.fetch(
+                torch.stack([legal.any((1, 2)).to(i32),
+                             valid.sum(1, dtype=i32)])))
+            going = going & (any_legal != 0)
+            if not going.any():
+                return masks, states, valid, overflow, att, count
+            g = _h2d(going, self.device)
+            cmasks = (masks[:, :, None, :] | bitmat[None, None]) \
+                .reshape(B, F * P, W)
+            m2, s2, v2, n2, ovf, mism = self._dedup_batch(
+                torch.cat([masks, cmasks], 1),
+                torch.cat([states, cstate.reshape(B, F * P)], 1),
+                torch.cat([valid, (legal & g[:, None, None])
+                           .reshape(B, F * P)], 1), self._origin_b)
+            masks = torch.where(g[:, None, None], m2, masks)
+            states = torch.where(g[:, None], s2, states)
+            valid = torch.where(g[:, None], v2, valid)
+            new = n2 & g[:, None]
+            overflow = overflow | (ovf & g)
+            att = att + torch.where(g, mism, 0)
+            self.rounds += 1
+
+    def run_range_batch(self, xs: Staged, stops, carry) -> tuple:
+        """Walk each key b's steps [e_b, stops[b]) while its frontier is
+        nonempty, all keys in lockstep: per step one gather of each
+        key's row, the completion for the keys that complete, and stage
+        A and B for the keys that invoke, each dedup one batched call.
+        xs holds a (B, T, W+4) step matrix."""
+        start = self._walk_start(carry, stops, 10)
+        if start is None:
+            return carry
+        e_h, alive, stops = start
+        i32 = torch.int32
+        W, bitmat, dev = self.W, self._bitmat, self.device
+        B = len(e_h)
+        (_e, masks, states, valid, slot_f, slot_a, slot_b, occ, overflow,
+         att, count, maxc) = carry
+        slots = torch.stack([slot_f, slot_a, slot_b])           # (3, B, P)
+        parange = torch.arange(self.P, device=dev)[None, :]
+        while True:
+            act_h = (e_h < stops) & alive
+            if not act_h.any():
+                break
+            row_h, row = self._step_rows(xs, e_h)
+            act = _h2d(act_h, dev)
+            if (act_h & row_h[:, :W].any(1)).any():
+                rm = torch.where(act[:, None], row[:, :W], 0)[:, None, :]
+                valid = valid & ((masks & rm) == rm).all(2)
+                masks = masks & ~rm
+                occ = occ & ~((bitmat[None] & rm) != 0).any(2)
+            inv_h = act_h & (row_h[:, W] >= 0)
+            if inv_h.any():
+                inv = _h2d(inv_h, dev)
+                s = torch.where(inv, row[:, W], 0).to(torch.int64)
+                fab = row[:, W + 1:W + 4]                        # (B, 3)
+                onehot = (parange == s[:, None]) & inv[:, None]  # (B, P)
+                slots = torch.where(onehot[None], fab.T[:, :, None], slots)
+                occ = occ | onehot
+                # stage A: linearize just the new op
+                legal, nstate = self.step(states, fab[:, 0:1], fab[:, 1:2],
+                                          fab[:, 2:3])
+                bv = bitmat[s][:, None, :]                       # (B, 1, W)
+                cvalid = valid & legal & ~((masks & bv) != 0).any(2) \
+                    & inv[:, None]
+                m2, s2, v2, new, ovf, mism = self._dedup_batch(
+                    torch.cat([masks, masks | bv], 1),
+                    torch.cat([states, nstate], 1),
+                    torch.cat([valid, cvalid], 1), self._origin_a)
+                masks = torch.where(inv[:, None, None], m2, masks)
+                states = torch.where(inv[:, None], s2, states)
+                valid = torch.where(inv[:, None], v2, valid)
+                overflow = overflow | (ovf & inv)
+                att = att + torch.where(inv, mism, 0)
+                masks, states, valid, overflow, att, cnt_h = \
+                    self._expand_batch(masks, states, valid, new & inv[:, None],
+                                       slots, occ, overflow, att, inv_h)
+                count_t = valid.sum(1, dtype=i32)
+            else:
+                count_t = valid.sum(1, dtype=i32)
+                cnt_h = np.asarray(self.fetch(count_t))
+            if self.use_attest:
+                occw = torch.where(occ[:, :, None], bitmat[None], 0) \
+                    .sum(1, dtype=i32)                            # (B, W)
+                bad = valid & ((masks & ~occw[:, None, :]) != 0).any(2)
+                att = att + torch.where(act, bad.sum(1, dtype=i32), 0)
+            count = torch.where(act, count_t, count)
+            maxc = torch.where(act, torch.maximum(maxc, count_t), maxc)
+            e_h = e_h + act_h
+            alive = cnt_h > 0
+        return (_h2d(e_h.astype(np.int32), dev), masks, states, valid,
+                slots[0], slots[1], slots[2], occ, overflow, att, count,
+                maxc)
+
+    check_chunk_batch = run_range_batch
 
 
 def _dense_shape(srange: tuple[int, int],
@@ -956,9 +1274,12 @@ def _family_costs(S: int, p_dense: int, p_sort: int, F: int,
     return {"dense": dense, "sort": srt, "hash": hsh}
 
 
-def _dense_caps_error(srange, p: int) -> ValueError:
+def _dense_caps_error(srange, p: int, key=None) -> ValueError:
+    """The forced-dense contract violation (one message, three raise
+    sites: scalar, batch plain path, batch group split)."""
+    who = f"key {key}'s" if key is not None else "the"
     return ValueError(
-        f"dense engine requested but the {srange} state range x "
+        f"dense engine requested but {who} {srange} state range x "
         f"2^{p} table exceeds the dense caps")
 
 
@@ -1097,14 +1418,173 @@ def _check_att(att, site: str) -> None:
                   f"device")
 
 
+# ---------------------------------------------------------------------------
+# Device-fault recovery ladder
+# ---------------------------------------------------------------------------
+#
+# A checking entry must not lose a verdict to a transient device fault.
+# The ladder classifies each fault (`_platform.classify_backend_error`)
+# and re-runs the search down the fault's rung, from canonical host
+# data:
+#
+#   oom          shrink the working set (halve chunk_entries; under
+#                'auto', re-select the engine with dense_slot_cap 0, the
+#                sort family); the batch entry also SPLITS the batch in
+#                half and recovers each half on its own
+#   device-lost  synchronize, empty PyTorch's cache and drop the kernels'
+#                cached library handles, then retry. This cannot revive a
+#                CUDA context after a sticky error (an illegal address,
+#                ECC): such retries fail again and end on the final rung
+#   wedged       a plain bounded retry (watchdog'd reads)
+#   corrupt      a plain bounded retry: the retry re-stages every device
+#                buffer from canonical host data
+#
+# and when the budget is spent, the FINAL rung reports a degraded
+# 'unknown' with the fault trail. Results that went through the ladder
+# carry a 'recovered' trail.
+#
+# Two rungs of the JAX package are left out on purpose, so that a broken
+# kernel or a lost card never turns into a verdict of the plain version
+# or of the host: the compile bucket has NO rung (the JAX package retries
+# without its Pallas kernels; the port re-raises at once), and the final
+# rung never runs the host oracle (the JAX package's decides histories of
+# up to 20,000 ops there).
+
+MAX_RECOVERY_RETRIES = 3
+
+
+class _RecoveryTrail:
+    """Bookkeeping for one checking entry's ladder: classify each fault,
+    enforce the retry budget, back off with decorrelated jitter
+    (`util.backoff`) between attempts, and stamp the 'recovered' trail on
+    the eventual result. Exceptions the classifier rejects, and compile
+    faults, re-raise at once."""
+
+    def __init__(self, max_retries: int | None = None):
+        self.max = (MAX_RECOVERY_RETRIES if max_retries is None
+                    else max(0, int(max_retries)))
+        self.faults: list[str] = []
+        self._delays = None
+
+    def absorb(self, exc: BaseException, site: str) -> bool:
+        """Record exc's bucket; True when another retry is allowed (after
+        the backoff sleep), False when the budget is spent and the caller
+        must take the final rung."""
+        kind = classify_backend_error(exc)
+        if kind is None or kind == FAULT_COMPILE:
+            raise exc
+        self.faults.append(kind)
+        if len(self.faults) > self.max:
+            log.warning("%s: %s fault after %d recovery retries; taking "
+                        "the final rung (%s)", site, kind, self.max, exc)
+            return False
+        if self._delays is None:
+            self._delays = util.backoff()
+        delay = next(self._delays)
+        log.warning("%s: %s fault (%s); recovering, retry %d/%d in %.2fs",
+                    site, kind, exc, len(self.faults), self.max, delay)
+        _time.sleep(delay)
+        return True
+
+    def stamp(self, result) -> None:
+        """Mark a decided result as recovered (no-op when the entry never
+        faulted)."""
+        if self.faults and isinstance(result, dict):
+            result["recovered"] = {"faults": list(self.faults),
+                                   "retries": len(self.faults)}
+
+
+def _apply_recovery_rung(kind: str, kw: dict) -> None:
+    """Mutate a retry's kwargs per the fault bucket (only the knobs the
+    entry accepts: `kw` is the exact kwargs of the next attempt)."""
+    if kind == FAULT_OOM:
+        if "chunk_entries" in kw:
+            kw["chunk_entries"] = max(
+                256, int(kw["chunk_entries"] or 4096) // 2)
+        if kw.get("engine") != "dense":
+            # cap 0 routes the retry to the sort family (the dense table
+            # is the memory hog); a forced 'dense' keeps its contract
+            kw["dense_slot_cap"] = 0
+    elif kind == FAULT_DEVICE_LOST:
+        _device_reinit()
+    # corrupt and wedged: a plain retry, which re-stages from the host
+
+
+def _device_reinit() -> None:
+    """The device-lost rung: wait for the card, return PyTorch's cached
+    blocks and drop the kernels' cached library handles, so the retry
+    reloads them. Best effort: after a sticky CUDA error the calls here
+    fail too, and the retry will fault again."""
+    from . import wgl_closure
+    try:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    except Exception:  # noqa: BLE001 — reinit is best effort by design
+        pass
+    wgl_closure._kernel.cache_clear()
+    wgl_dedup._kernel.cache_clear()
+    from .. import _build
+    _build.library.cache_clear()
+
+
+def _final_rung(hist, trail: _RecoveryTrail, exc: BaseException) -> dict:
+    """The ladder's last rung: a degraded 'unknown' with the fault trail.
+    The device could not decide the history, and nothing else decides it
+    in the device's place."""
+    return {
+        "valid?": "unknown", "analyzer": "gpu-wgl", "degraded": True,
+        "op-count": len(as_history(hist)),
+        "error": (f"device faults exhausted the recovery budget (trail: "
+                  f"{trail.faults}); last fault: {exc}"),
+        "recovery-failed": {"faults": list(trail.faults),
+                            "retries": trail.max},
+        "configs": [], "final-paths": [],
+    }
+
+
 def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
                  slots: int | None = None, max_frontier: int = 65536,
                  chunk_entries: int = 4096, budget_s: float | None = None,
                  cancel=None, explain: bool = True,
                  slot_overflow_fallback: bool = True, engine: str = "auto",
-                 dense_slot_cap: int | None = None) -> dict:
+                 dense_slot_cap: int | None = None,
+                 max_recovery_retries: int | None = None) -> dict:
     """Check one history on the GPU (counterpart of the JAX package's
-    `analysis_tpu`, one attempt, without its recovery ladder).
+    `analysis_tpu`), under the recovery ladder above: a classified device
+    fault re-runs the search down its rung, and a result that went
+    through the ladder carries its 'recovered' trail.
+    max_recovery_retries bounds the ladder (None = MAX_RECOVERY_RETRIES);
+    past it the result is a degraded 'unknown' with the fault trail. See
+    `_analysis_gpu_once` for the search and the other options."""
+    kw = dict(device=device, frontier=frontier, slots=slots,
+              max_frontier=max_frontier, chunk_entries=chunk_entries,
+              budget_s=budget_s, cancel=cancel, explain=explain,
+              slot_overflow_fallback=slot_overflow_fallback, engine=engine,
+              dense_slot_cap=dense_slot_cap)
+    trail = _RecoveryTrail(max_recovery_retries)
+    while True:
+        try:
+            a = _analysis_gpu_once(model, hist, **kw)
+        except RuntimeError as e:
+            if not trail.absorb(e, "offline"):
+                return _final_rung(hist, trail, e)
+            _apply_recovery_rung(trail.faults[-1], kw)
+            continue
+        trail.stamp(a)
+        return a
+
+
+def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
+                       slots: int | None = None, max_frontier: int = 65536,
+                       chunk_entries: int = 4096,
+                       budget_s: float | None = None, cancel=None,
+                       explain: bool = True,
+                       slot_overflow_fallback: bool = True,
+                       engine: str = "auto",
+                       dense_slot_cap: int | None = None) -> dict:
+    """Check one history on the GPU: one attempt, which the ladder
+    (`analysis_gpu`) re-runs after a classified fault.
 
     device: 'cuda' by default, where every dense closure round runs K1
     and every hash dedup K2; 'cpu' runs their plain PyTorch versions.
@@ -1127,7 +1607,10 @@ def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
 
     With attestation on (JEPSEN_TPU_ATTEST, default on) the staged step
     buffer's device digest is checked against the host's, and a chunked
-    search's final carry against its device digest and invariants."""
+    search's final carry against its device digest and invariants. The
+    staged buffer passes `maybe_corrupt("offline", ...)` before it is
+    copied to the card, and each dispatch `maybe_inject_fault("offline")`
+    (the JAX package's injection sites)."""
     t0 = _time.monotonic()
     dev = resolve_device(device)
     pl = plan(model, hist, frontier=frontier, slots=slots, engine=engine,
@@ -1142,19 +1625,23 @@ def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
         return a
     ops, decision, dense = pl.ops, pl.decision, pl.decision.dense
     steps = build_steps(ops, pl.slots)
-    xs = stage_steps(steps.x, dev)
+    # the staged copy may carry an injected bit flip; the digest of the
+    # canonical steps.x catches it before the walk
+    xs = stage_steps(maybe_corrupt("offline", steps.x), dev)
     F = frontier
     k = pl.kernel(dev, F)
     kernels = [k]
     att_info = None
     if attest_enabled():
-        abft.verify_steps("offline", k.fetch(abft.digest_device(xs.dev)),
+        abft.verify_steps("offline", k.fetch(abft.digest_device(xs.dev),
+                                             site="offline attest"),
                           abft.digest_host(steps.x))
         att_info = {"steps": 1, "carry": 0}
     init_state = int(model.device_state())
     timed_out = cancelled = False
     while True:
         if steps.n <= chunk_entries:
+            maybe_inject_fault("offline")
             ok, death, overflow, max_count, att = k.check(xs, steps.n,
                                                           init_state)
             _check_att(att, "offline")
@@ -1163,6 +1650,7 @@ def analysis_gpu(model, hist, *, device=None, frontier: int = 256,
             e = 0
             while e < steps.n:
                 stop = min(e + chunk_entries, steps.n)
+                maybe_inject_fault("offline")
                 prev, carry = carry, k.check_chunk(xs, stop, carry)
                 e = stop
                 if k.fetch(prev[-2]) == 0:
@@ -1275,3 +1763,440 @@ def _find_op(hist, index: int):
             comp = hist.completion(pos)
             return comp if comp is not None else o
     return None
+
+
+# ---------------------------------------------------------------------------
+# Batched keys: many independent histories in lockstep walks
+# ---------------------------------------------------------------------------
+
+def _slot_bucket(p: int, p_max: int | None = None) -> int:
+    """Bucket a slot count UP to the next even P so nearby keys share one
+    dense group, floored at 4 and capped at the batch's true max (the
+    cap itself respects the floor, so a batch of tiny keys coalesces
+    into one P = 4 group)."""
+    pg = max(4, ((p + 1) // 2) * 2)
+    return min(pg, max(p_max, 4)) if p_max is not None else pg
+
+
+def _unknown_result(ops, error: str, t0: float) -> dict:
+    """The batch paths' 'unknown' verdict shape."""
+    return {"valid?": "unknown", "analyzer": "gpu-wgl-batch",
+            "op-count": len(ops), "error": error,
+            "configs": [], "final-paths": [],
+            "duration-ms": (_time.monotonic() - t0) * 1e3}
+
+
+def _dispatch_groups(srange, p_req: list[int], engine: str,
+                     n_events: int = 1, frontier: int = 1024,
+                     dense_slot_cap: int | None = None):
+    """Partition a batch's key indices into slot-bucketed dense groups
+    plus one shared sort-family group, as the JAX package does: padding
+    every key to the worst key's slot count would multiply the batch's
+    dense work by 2^(Pmax - P_key). Dense-ineligible keys spill into the
+    one sort group (or, under a forced dense engine, raise). Under
+    'auto' the cost model can route a dense-eligible bucket to the sort
+    family; n_events is the batch's largest event stream.
+
+    Returns (dense_groups: {P: (dense_shape, [key indices])}, sort_idx:
+    [key indices])."""
+    if engine == "sort":
+        return {}, list(range(len(p_req)))
+    sort_idx: list[int] = []
+    dense_groups: dict[int, tuple[tuple, list[int]]] = {}
+    p_max = max(p_req)
+    for i, p in enumerate(p_req):
+        pg = _slot_bucket(p, p_max)
+        d = _dense_shape(srange, pg) or _dense_shape(srange, p)
+        if d is not None and engine == "auto":
+            dec = select_engine(srange, d[2], n_events, frontier=frontier,
+                                dense_slot_cap=dense_slot_cap)
+            if dec.family != "dense":
+                d = None
+        if d is None:
+            if engine == "dense":
+                raise _dense_caps_error(srange, p, key=i)
+            sort_idx.append(i)
+        elif d[2] in dense_groups:
+            dense_groups[d[2]][1].append(i)
+        else:
+            dense_groups[d[2]] = (d, [i])
+    return dense_groups, sort_idx
+
+
+def _stack_steps(steps: list[Steps], b_pad: int) -> tuple:
+    """(x (B, T, W+4), n (B,)) of a list of step streams, T the longest,
+    padded with no-op rows (no completion, no invoke) and with zero-step
+    entries up to b_pad keys, which never walk a step."""
+    w = steps[0].w
+    T = max(max(st.n for st in steps), 1)
+    x = np.zeros((b_pad, T, w + 4), np.int32)
+    x[:, :, w] = -1                       # no invoke
+    x[:, :, w + 2:] = NIL
+    ns = np.zeros(b_pad, np.int64)
+    for b, st in enumerate(steps):
+        x[b, :st.n] = st.x[:st.n]
+        ns[b] = st.n
+    return x, ns
+
+
+def analysis_gpu_batch(model, hists: list, *, device=None,
+                       frontier: int = 1024, slots: int = 32,
+                       chunk_entries: int = 4096,
+                       budget_s: float | None = None, cancel=None,
+                       engine: str = "auto", max_frontier: int = 65536,
+                       dense_slot_cap: int | None = None,
+                       max_recovery_retries: int | None = None) -> list[dict]:
+    """Check a batch of independent histories (e.g. per-key subhistories
+    of the independent checker) on the GPU: counterpart of the JAX
+    package's `analysis_tpu_batch`, under the recovery ladder. A
+    classified device fault re-runs the batch down the ladder, except
+    that the OOM rung SPLITS the batch in half and recovers each half on
+    its own, its trail merged into each half's results; past the retry
+    budget each history ends on `_final_rung`. See
+    `_analysis_gpu_batch_once` for the batching."""
+    return _batch_group(model, hists, None, False, None, device=device,
+                        frontier=frontier, slots=slots,
+                        chunk_entries=chunk_entries, budget_s=budget_s,
+                        cancel=cancel, engine=engine,
+                        max_frontier=max_frontier,
+                        dense_slot_cap=dense_slot_cap,
+                        max_recovery_retries=max_recovery_retries)
+
+
+def _batch_group(model, hists: list, pre, dense, preq, *,
+                 max_recovery_retries: int | None = None, **kw) -> list[dict]:
+    """The ladder around one batch attempt. pre, dense and preq are what
+    a group split already knows of its histories (each one's encoding,
+    the group's dense shape, each one's slot need), or None, False and
+    None; kw are `_analysis_gpu_batch_once`'s options."""
+    trail = _RecoveryTrail(max_recovery_retries)
+    while True:
+        try:
+            rs = _analysis_gpu_batch_once(model, hists, pre, dense, preq,
+                                          **kw)
+        except RuntimeError as e:
+            if not trail.absorb(e, "batch"):
+                return [_final_rung(h, trail, e) for h in hists]
+            kind = trail.faults[-1]
+            if kind == FAULT_OOM and len(hists) > 1:
+                mid = len(hists) // 2
+                log.warning("batch: splitting %d histories into %d + %d "
+                            "after OOM", len(hists), mid, len(hists) - mid)
+
+                def half(sl):
+                    return _batch_group(
+                        model, hists[sl], None if pre is None else pre[sl],
+                        dense, None if preq is None else preq[sl],
+                        max_recovery_retries=max_recovery_retries, **kw)
+
+                rs = half(slice(0, mid)) + half(slice(mid, None))
+                for r in rs:
+                    _merge_trail(r, trail)
+                return rs
+            _apply_recovery_rung(kind, kw)
+            continue
+        for r in rs:
+            trail.stamp(r)
+        return rs
+
+
+def _merge_trail(r, trail: _RecoveryTrail) -> None:
+    """Merge a split batch's trail into one half's result: never stamp
+    'recovered' on a result that fell off its own ladder (its faults
+    live under 'recovery-failed'), and keep the half's own markers such
+    as {'split': True}."""
+    if not isinstance(r, dict):
+        return
+    if r.get("degraded"):
+        rf = r.get("recovery-failed")
+        if isinstance(rf, dict):
+            rf["faults"] = list(trail.faults) + list(rf.get("faults", []))
+        return
+    inner = r.get("recovered")
+    inner = dict(inner) if isinstance(inner, dict) else {}
+    faults = list(trail.faults) + list(inner.get("faults", []))
+    inner.update(faults=faults, retries=len(faults), split=True)
+    r["recovered"] = inner
+
+
+def _analysis_gpu_batch_once(model, hists: list, _pre: list | None,
+                             _dense, _preq: list | None, *, device=None,
+                             frontier: int = 1024, slots: int = 32,
+                             chunk_entries: int = 4096,
+                             budget_s: float | None = None, cancel=None,
+                             engine: str = "auto",
+                             max_frontier: int = 65536,
+                             dense_slot_cap: int | None = None) -> list[dict]:
+    """Check a batch of independent histories in batched walks: one
+    attempt, which the ladder (`_batch_group`) re-runs.
+
+    The keys split into slot-bucketed dense groups and one sort group
+    (`_dispatch_groups`), run cheapest first and the sort group last, so
+    a pathological key starves only itself of budget. Each group walks
+    all its keys in lockstep (`check_chunk_batch`: K1 and K2 each take
+    all keys in one launch), B padded to a power of two with zero-step
+    keys whose liveness is ignored, in chunks of chunk_entries steps
+    with the liveness read one chunk late and budget_s / cancel polled
+    between chunks (undecided keys report 'unknown'). One host read
+    gives every key's verdict and whether it was decided. Definite
+    invalids are blamed together in one batched walk of their unmerged
+    streams; overflow suspects re-run together at 4x the frontier; a key
+    needing more slots than the batch's takes the scalar entry.
+
+    Attestation: the stacked step buffer's digest (after
+    `maybe_corrupt("batch", ...)`) and each key's final carry; each
+    chunk dispatch passes `maybe_inject_fault("batch")`.
+
+    _pre, _dense, _preq: what the group split already knows (see
+    `_batch_group`)."""
+    t0 = _time.monotonic()
+    dev = resolve_device(device)
+
+    def _remaining():
+        if budget_s is None:
+            return None
+        return max(0.0, budget_s - (_time.monotonic() - t0))
+
+    def _out_of_time() -> bool:
+        return _remaining() == 0.0 or (cancel is not None and cancel())
+
+    name = model.device_model
+    pre = (_pre if _pre is not None
+           else [encode_ops_for_model(model, h) for h in hists])
+    _srange = _p_needs = None
+    if engine in ("auto", "dense") and len(hists) > 1 and _pre is None:
+        p_req = [required_slots(ops) for ops in pre]
+        srange_all = _state_range(name, model, pre)
+        dense_groups, sort_idx = _dispatch_groups(
+            srange_all, p_req, engine,
+            n_events=max((event_count(o) for o in pre), default=1),
+            frontier=frontier, dense_slot_cap=dense_slot_cap)
+        group_list = [dense_groups[pg] for pg in sorted(dense_groups)]
+        if sort_idx:
+            group_list.append((False, sort_idx))
+        if len(group_list) > 1:
+            grouped: list[dict | None] = [None] * len(hists)
+            for d, idx in group_list:
+                if _out_of_time():
+                    for i in idx:
+                        grouped[i] = _unknown_result(
+                            pre[i], "batch budget exhausted/cancelled "
+                            "before this key's search started", t0)
+                    continue
+                sub = _batch_group(
+                    model, [hists[i] for i in idx], [pre[i] for i in idx],
+                    d, [p_req[i] for i in idx], device=dev,
+                    frontier=frontier, slots=slots,
+                    chunk_entries=chunk_entries, budget_s=_remaining(),
+                    cancel=cancel, engine=engine,
+                    max_frontier=max_frontier,
+                    dense_slot_cap=dense_slot_cap)
+                for t, i in enumerate(idx):
+                    grouped[i] = sub[t]
+            return grouped
+        # one bucket: the plain path below, reusing the pre-pass
+        if group_list and group_list[0][0] is not False:
+            _dense = group_list[0][0]
+        else:
+            _srange, _p_needs = srange_all, dict(enumerate(p_req))
+
+    results: list[dict | None] = [None] * len(hists)
+    encoded = list(enumerate(pre))
+    items = []           # (orig index, ops, steps)
+    srange = None
+    if encoded:
+        if _dense is not False:
+            dense = _dense
+        else:
+            srange = (_srange if _srange is not None else
+                      _state_range(name, model, [o for _, o in encoded]))
+            if _p_needs is not None:
+                p_needs = _p_needs
+            elif _preq is not None:
+                p_needs = dict(enumerate(_preq))
+            else:
+                p_needs = {i: required_slots(o) for i, o in encoded}
+            dense = None
+            if engine in ("auto", "dense"):
+                # decided before the budget check below, so that a
+                # forced dense engine raises the same way at any budget
+                dense = select_engine(
+                    srange, max(p_needs.values()),
+                    max((event_count(o) for _, o in encoded), default=1),
+                    frontier=frontier, engine=engine,
+                    dense_slot_cap=dense_slot_cap).dense
+        if dense is not None:
+            slots = dense[2]
+        if _out_of_time():
+            for i, ops in encoded:
+                results[i] = _unknown_result(
+                    ops, "batch budget exhausted/cancelled before this "
+                    "key's search started", t0)
+            encoded = []
+        for i, ops in encoded:
+            if dense is None and p_needs[i] > slots:
+                # this key alone needs more slots than the batch has:
+                # the scalar entry sizes them (and hands the history to
+                # the host past MAX_SLOTS)
+                results[i] = analysis_gpu(
+                    model, hists[i], device=dev, frontier=frontier,
+                    budget_s=_remaining(), cancel=cancel, engine=engine,
+                    dense_slot_cap=dense_slot_cap)
+            else:
+                items.append((i, ops, build_steps(ops, slots)))
+    if items and _out_of_time():
+        for i, ops, _st in items:
+            results[i] = _unknown_result(
+                ops, "batch budget exhausted/cancelled before this key's "
+                "search started", t0)
+        items = []
+    if items:
+        _batch_walk(model, hists, items, results, dev, dense, srange,
+                    slots, frontier, chunk_entries, budget_s, cancel,
+                    engine, max_frontier, dense_slot_cap, t0, _remaining)
+    dur = (_time.monotonic() - t0) * 1e3
+    for r in results:
+        if r is not None:
+            r.setdefault("duration-ms", dur)
+    return results  # type: ignore[return-value]
+
+
+def _batch_kernel(name, dense, srange, slots, frontier, dev):
+    if dense is not None:
+        return DenseKernel(name, *dense, dev)
+    pack = _pack_params(srange, slots)
+    return SortKernel(name, frontier, slots, pack,
+                      dedup_engine(frontier, slots, pack), dev)
+
+
+def _batch_walk(model, hists, items, results, dev, dense, srange, slots,
+                frontier, chunk_entries, budget_s, cancel, engine,
+                max_frontier, dense_slot_cap, t0, _remaining):
+    """The batched walk of one group's items, its verdicts, blame and
+    escalation, written into results. Returns the walk's final batched
+    carry."""
+    name = model.device_model
+    k = _batch_kernel(name, dense, srange, slots, frontier, dev)
+    b_pad = _bucket(len(items), lo=1)
+    x_np, ns = _stack_steps([st for _, _, st in items], b_pad)
+    attest_on = attest_enabled()
+    xs = stage_steps(maybe_corrupt("batch", x_np), dev)
+    if attest_on:
+        # the whole stacked buffer is one staged buffer, one digest
+        abft.verify_steps("batch", k.fetch(abft.digest_device(xs.dev),
+                                           site="batch attest"),
+                          abft.digest_host(x_np))
+    init = int(model.device_state())
+    carry = k.init_carry_batch([init] * b_pad)
+    e, n_max = 0, int(ns.max())
+    n_items = len(items)
+    while e < n_max:
+        stop = min(e + chunk_entries, n_max)
+        maybe_inject_fault("batch")
+        prev, carry = carry, k.check_chunk_batch(xs, np.minimum(ns, stop),
+                                                 carry)
+        e = stop
+        # padding keys never walk, so their tables stay alive: only the
+        # real keys' liveness counts
+        all_dead = not any(k.fetch(prev[-2], site="batch liveness")
+                           [:n_items])
+        if all_dead:
+            carry = prev   # every key died last chunk: all definite
+            break
+        if e < n_max and (
+                (budget_s is not None and _time.monotonic() - t0 > budget_s)
+                or (cancel is not None and cancel())):
+            break
+    if attest_on:
+        # per-key carry attestation at the batch's final boundary
+        digests = k.fetch(k.digest_batch(carry), site="batch attest")
+        host = k.fetch_carry(carry, site="batch attest")
+        for b, d in enumerate(digests):
+            abft.verify_carry("batch", d, tuple(a[b] for a in host))
+    # one host read: verdicts, and what decides each key: it walked all
+    # its steps or its table or frontier died (death is definite however
+    # many steps remain)
+    consumed, counts, max_count, att, overflow = k.summary_batch(carry)
+    _check_att(int(att.sum()), "batch")
+    ok = counts > 0
+    decided = (consumed >= ns) | (counts == 0)
+    batch_dedup = (DEDUP_NONE if dense is not None else
+                   dedup_engine(frontier, slots, _pack_params(srange, slots)))
+    suspects, invalids = [], []
+    for j, (i, ops, _st) in enumerate(items):
+        if not decided[j]:
+            results[i] = _unknown_result(
+                ops, "batch budget exhausted/cancelled before this key's "
+                "search finished", t0)
+        elif ok[j]:
+            results[i] = {"valid?": True, "analyzer": "gpu-wgl-batch",
+                          "dedup": batch_dedup, "op-count": len(ops),
+                          "max-frontier": int(max_count[j]),
+                          "configs": [], "final-paths": []}
+        elif overflow[j]:
+            suspects.append((i, ops))
+        else:
+            invalids.append((j, i, ops))
+    if invalids:
+        _batch_blame(model, hists, k, invalids, results, max_count,
+                     batch_dedup, slots, dev)
+    if suspects:
+        if frontier < max_frontier:
+            sub = analysis_gpu_batch(
+                model, [hists[i] for i, _ in suspects], device=dev,
+                frontier=frontier * 4, slots=slots,
+                chunk_entries=chunk_entries, budget_s=_remaining(),
+                cancel=cancel, engine=engine, max_frontier=max_frontier,
+                dense_slot_cap=dense_slot_cap)
+            for t, (i, _ops) in enumerate(suspects):
+                results[i] = sub[t]
+        else:
+            for i, ops in suspects:
+                results[i] = _unknown_result(
+                    ops, f"frontier overflowed at {frontier}; escalation "
+                    f"cap {max_frontier} reached — verdict unknown", t0)
+    if attest_on:
+        for i, _ops, _st in items:
+            r = results[i]
+            if isinstance(r, dict):
+                r.setdefault("attested", {"steps": 1, "carry": 1})
+    # the walk's counts, on each result it decided (escalated keys carry
+    # their own walk's): the group's shape, its keys, its K1 launches
+    # (dense) or stage-B rounds (sort), its hash dedups and host reads
+    walk = {"group": (["dense", *dense] if dense is not None
+                      else ["sort", frontier, slots]),
+            "keys": len(items), "closure-rounds": k.rounds,
+            "dedup-launches": k.dedups, "host-syncs": k.syncs}
+    for i, _ops, _st in items:
+        r = results[i]
+        if isinstance(r, dict) and r.get("analyzer") == "gpu-wgl-batch" \
+                and "batch-walk" not in r:
+            r["device"] = str(dev)
+            r["batch-walk"] = dict(walk)
+    return carry
+
+
+def _batch_blame(model, hists, k, invalids, results, max_count,
+                 batch_dedup, slots, dev) -> None:
+    """Name every definite invalid's culprit op with one batched walk of
+    their unmerged streams on the group's engine."""
+    st2s = [build_steps(ops, slots, merge=False) for _, _, ops in invalids]
+    b_pad = _bucket(len(st2s), lo=1)
+    x2, n2 = _stack_steps(st2s, b_pad)
+    okb, deathb, *_ = k.check_batch(stage_steps(x2, dev), n2,
+                                    [int(model.device_state())] * b_pad)
+    for t, (j, i, ops) in enumerate(invalids):
+        r = {"valid?": False, "analyzer": "gpu-wgl-batch",
+             "dedup": batch_dedup, "op-count": len(ops),
+             "max-frontier": int(max_count[j]),
+             "configs": [], "final-paths": []}
+        d = int(deathb[t])
+        if not okb[t] and d >= 0:
+            row = int(st2s[t].inv_row[d])
+            if row < 0:
+                row = int(st2s[t].ret_row[d])
+            if row >= 0:
+                src = int(ops.index[row])
+                r["op"] = _find_op(hists[i], src)
+                r["op-index"] = src
+        results[i] = r

@@ -13,6 +13,11 @@ i.e. linearizing pending slot p moves state s to q and sets bit p of the
 mask. The caller (`wgl.DenseKernel._closure`) repeats rounds until the
 popcount stops growing.
 
+A leading batch axis, ``tb (B, S, C)`` with ``mft (B, P, S, S)``, runs
+the B rounds in one launch, as the TPU kernel gains a batch grid axis
+under `jax.vmap` in the JAX package's batch entry; row b of the result
+is the round of table b (`wgl.DenseKernel.check_chunk_batch`).
+
 Design (`csrc/closure_round.cu`). A block serves one state row q and
 first lists, per slot p, the source states s with mft[p, q, s] set in
 shared memory (a warp ballot per 32 states), so a thread reads only the
@@ -52,6 +57,7 @@ import functools
 import torch
 
 from .. import _build
+from .._platform import KernelLaunchError
 
 LAUNCHES = 0    # K1 launches by `closure_round`, and nothing else
 
@@ -68,44 +74,52 @@ def closure_round_plain(table: torch.Tensor,
                         mft: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch round: the same function as K1, as a batched
     product and one gather per slot. 0/1 operands make the f32 product
-    exact (sums of at most S ones)."""
-    P, S, _ = mft.shape
-    C = table.shape[1]
-    moved = torch.einsum("pqs,sc->pqc", mft.to(torch.float32),
-                         table.to(torch.float32)) > 0          # (P, S, C)
+    exact (sums of at most S ones). Takes K1's shapes, (S, C) with
+    (P, S, S), or the batched (B, S, C) with (B, P, S, S)."""
+    P, S = mft.shape[-3], mft.shape[-2]
+    C = table.shape[-1]
+    moved = torch.einsum("...pqs,...sc->...pqc", mft.to(torch.float32),
+                         table.to(torch.float32)) > 0     # (..., P, S, C)
     out = table.to(torch.bool).clone()
     cols = torch.arange(C, device=table.device)
     for p in range(P):
         b = 1 << p
-        out |= moved[p][:, cols ^ b] & ((cols & b) != 0)
+        out |= moved[..., p, :, :][..., cols ^ b] & ((cols & b) != 0)
     return out.to(table.dtype)
 
 
-def _check(table: torch.Tensor, mft: torch.Tensor) -> tuple[int, int, int]:
+def _check(table: torch.Tensor,
+           mft: torch.Tensor) -> tuple[int, int, int, int]:
     if table.device.type != "cuda" or mft.device != table.device:
         raise ValueError(
             f"closure_round takes both tensors on one CUDA device (or "
             f"both on the CPU), got {table.device} and {mft.device}")
-    if table.dtype not in (torch.bool, torch.uint8) or table.dim() != 2:
-        raise ValueError(f"table must be bool/uint8 (S, C), got "
-                         f"{table.dtype} {tuple(table.shape)}")
-    if mft.dtype != torch.uint8 or mft.dim() != 3:
-        raise ValueError(f"mft must be uint8 (P, S, S), got "
-                         f"{mft.dtype} {tuple(mft.shape)}")
-    S, C = table.shape
-    P = mft.shape[0]
-    if mft.shape[1:] != (S, S) or C != 1 << P or P > MAX_SLOTS:
+    batched = table.dim() == 3
+    if table.dtype not in (torch.bool, torch.uint8) \
+            or table.dim() not in (2, 3):
+        raise ValueError(f"table must be bool/uint8 (S, C) or (B, S, C), "
+                         f"got {table.dtype} {tuple(table.shape)}")
+    if mft.dtype != torch.uint8 or mft.dim() != table.dim() + 1:
+        raise ValueError(f"mft must be uint8 (P, S, S), or (B, P, S, S) "
+                         f"with a batched table, got {mft.dtype} "
+                         f"{tuple(mft.shape)}")
+    B = table.shape[0] if batched else 1
+    S, C = table.shape[-2:]
+    P = mft.shape[-3]
+    if mft.shape[-2:] != (S, S) or C != 1 << P or P > MAX_SLOTS \
+            or (batched and mft.shape[0] != B):
         raise ValueError(f"shape mismatch: table {tuple(table.shape)}, "
                          f"mft {tuple(mft.shape)} (need C = 2^P, "
-                         f"P <= {MAX_SLOTS})")
-    if ENTRY_BYTES * P * S > MAX_SMEM_BYTES or S > 65535:
-        raise ValueError(f"S={S}, P={P} exceeds the kernel's shared "
-                         f"memory ({MAX_SMEM_BYTES} bytes)")
+                         f"P <= {MAX_SLOTS}, one B)")
+    if ENTRY_BYTES * P * S > MAX_SMEM_BYTES or S > 65535 \
+            or not 1 <= B <= 65535 or B * S > 1 << 27:
+        raise ValueError(f"B={B}, S={S}, P={P} exceeds the kernel's grid "
+                         f"or shared memory ({MAX_SMEM_BYTES} bytes)")
     if not (table.is_contiguous() and mft.is_contiguous()):
         raise ValueError("closure_round takes contiguous tensors")
     if P >= CHUNK_SLOTS and table.data_ptr() % 16:
         raise ValueError("closure_round takes a 16-byte aligned table")
-    return S, C, P
+    return B, S, C, P
 
 
 @functools.cache
@@ -113,7 +127,7 @@ def _kernel():
     lib = _build.library("closure_round")
     fn = lib.jt_closure_round
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.jt_error_string
@@ -125,20 +139,21 @@ def _kernel():
 def closure_round(table: torch.Tensor, mft: torch.Tensor) -> torch.Tensor:
     """One closure round: K1 on CUDA tensors, the plain version on CPU
     tensors. table: bool or uint8 (S, 2^P); mft: uint8 (P, S, S) with
-    mft[p] = M[p].T. Returns a new table of table's dtype; launches on
-    the current stream and does not synchronise."""
+    mft[p] = M[p].T; or both with a leading batch axis B, one launch
+    for all B. Returns a new table of table's dtype; launches on the
+    current stream and does not synchronise."""
     global LAUNCHES
     if table.device.type == "cpu" and mft.device.type == "cpu":
         return closure_round_plain(table, mft)
-    S, C, P = _check(table, mft)
+    B, S, C, P = _check(table, mft)
     fn, err = _kernel()
     out = torch.empty_like(table)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         code = fn(table.data_ptr(), mft.data_ptr(), out.data_ptr(),
-                  S, P, C, stream)
+                  B, S, P, C, stream)
     if code != 0:
-        raise RuntimeError(f"closure_round launch failed: CUDA error "
-                           f"{code} ({err(code).decode()})")
+        raise KernelLaunchError(f"closure_round launch failed: CUDA error "
+                                f"{code} ({err(code).decode()})")
     LAUNCHES += 1
     return out

@@ -50,6 +50,12 @@ microseconds is the single-block route's floor, five that of the large
 route's. On the single block, one SM's shared-memory atomics add to the
 floor as N and the share of distinct keys grow.
 
+A leading batch axis, keys (B, N), dedups the B rows in one call (one
+launch on the single-block route, one block per row; five on the large
+route, each with a row axis), as the TPU kernel gains a batch grid axis
+under `jax.vmap` in the JAX package's batch entry; row b of each output
+is the call on row b (`wgl.SortKernel.check_chunk_batch`).
+
 On a CUDA tensor `dedup` launches K2 or raises; the plain PyTorch
 version (`dedup_plain`) runs only for tensors on the CPU.
 """
@@ -62,6 +68,7 @@ import functools
 import torch
 
 from .. import _build
+from .._platform import KernelLaunchError
 from .abft import wrap_i32
 
 EMPTY = -1                # table/key sentinel; valid keys are 31-bit
@@ -103,13 +110,31 @@ def eligible(F: int, P: int) -> bool:
     return (n + table_size(n) + 2 * F) * 4 <= MAX_VMEM_BYTES
 
 
+# xor_fold expands bits up to this many elements (a 32-times larger int64
+# intermediate, 32 MiB here) and folds halves past it
+XOR_EXPAND_MAX = 1 << 17
+
+
 def xor_fold(x: torch.Tensor) -> torch.Tensor:
-    """The XOR of a 1-d int32 tensor's elements as an int64 0-d tensor
-    in [0, 2^32): each bit's parity, from a sum. torch has no XOR
-    reduction."""
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    bits = (x.to(torch.int64)[:, None] >> shifts) & 1
-    return ((bits.sum(0) & 1) << shifts).sum()
+    """The XOR of an int32 tensor's elements along its last axis, as
+    int64 in [0, 2^32) (0-d for a 1-d tensor). torch has no XOR
+    reduction. Up to XOR_EXPAND_MAX elements (the hash dedup's
+    attestation, at (F,) or (B, F)) each bit's parity comes from one sum
+    over the expanded bits, in a fixed handful of launches; larger inputs
+    (the plain dedup's (B, N) on the CPU) fold halves onto each other,
+    log2(N) XORs with no intermediate larger than the input."""
+    if x.numel() <= XOR_EXPAND_MAX:
+        shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+        bits = (x.to(torch.int64)[..., None] >> shifts) & 1
+        return ((bits.sum(-2) & 1) << shifts).sum(-1)
+    x = x.to(torch.int64) & _MASK
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        if n % 2:
+            x = torch.cat([x, torch.zeros_like(x[..., :1])], -1)
+            n += 1
+        x = x[..., :n // 2] ^ x[..., n // 2:]
+    return x[..., 0]
 
 
 def mix_count(count: torch.Tensor) -> torch.Tensor:
@@ -121,43 +146,50 @@ def dedup_plain(keys: torch.Tensor, F: int):
     """The plain PyTorch version of K2's contract, by a stable sort
     instead of a hash table: equal keys sit together in input order, so
     each run's first element is the key's first occurrence. No step
-    reads a value on the host, so it runs on any device."""
-    n = keys.numel()
+    reads a value on the host, so it runs on any device. keys (N,), or
+    (B, N) for B rows at once (outputs with a leading B)."""
+    if keys.dim() == 1:
+        return tuple(t[0] for t in dedup_plain(keys[None], F))
+    B, n = keys.shape
     dev = keys.device
     k64 = torch.where(keys == EMPTY, torch.iinfo(torch.int64).max,
                       keys.to(torch.int64))
-    ks, perm = torch.sort(k64, stable=True)
-    head = torch.ones(n, dtype=torch.bool, device=dev)
-    head[1:] = ks[1:] != ks[:-1]
+    ks, perm = torch.sort(k64, dim=1, stable=True)
+    head = torch.ones((B, n), dtype=torch.bool, device=dev)
+    head[:, 1:] = ks[:, 1:] != ks[:, :-1]
     head &= ks != torch.iinfo(torch.int64).max
-    first = torch.zeros(n, dtype=torch.bool, device=dev)
-    first.scatter_(0, perm, head)         # flags in input order
-    count = first.sum(dtype=torch.int32)
-    rank = torch.cumsum(first, 0) - 1
+    first = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    first.scatter_(1, perm, head)         # flags in input order
+    count = first.sum(1, dtype=torch.int32)
+    rank = torch.cumsum(first, 1) - 1
     at = torch.where(first & (rank < F), rank, F)   # F: discarded
-    out = torch.full((F + 1,), EMPTY, dtype=torch.int32, device=dev)
-    new = torch.zeros(F + 1, dtype=torch.bool, device=dev)
+    out = torch.full((B, F + 1), EMPTY, dtype=torch.int32, device=dev)
+    new = torch.zeros((B, F + 1), dtype=torch.bool, device=dev)
     idx = torch.arange(n, device=dev)
-    out.scatter_(0, at, torch.where(at < F, keys, EMPTY))
-    new.scatter_(0, at, (idx >= F) & (at < F))
+    out.scatter_(1, at, torch.where(at < F, keys, EMPTY))
+    new.scatter_(1, at, (idx >= F) & (at < F))
     digest = wrap_i32(xor_fold(torch.where(first, keys, 0))
                       ^ mix_count(count))
-    return out[:F], new[:F], count, digest
+    return out[:, :F], new[:, :F], count, digest
 
 
-def _check(keys: torch.Tensor, F: int) -> int:
+def _check(keys: torch.Tensor, F: int) -> tuple[int, int]:
+    """(B, N) of a keys tensor K2 takes: (N,) is one row."""
     if keys.device.type != "cuda":
         raise ValueError(f"dedup takes a CUDA tensor (or a CPU one), got "
                          f"{keys.device}")
-    if keys.dtype != torch.int32 or keys.dim() != 1 or keys.numel() < 1:
-        raise ValueError(f"keys must be a nonempty int32 (N,) tensor, got "
-                         f"{keys.dtype} {tuple(keys.shape)}")
+    if keys.dtype != torch.int32 or keys.dim() not in (1, 2) \
+            or keys.numel() < 1:
+        raise ValueError(f"keys must be a nonempty int32 (N,) or (B, N) "
+                         f"tensor, got {keys.dtype} {tuple(keys.shape)}")
     if not keys.is_contiguous():
         raise ValueError("dedup takes a contiguous tensor")
-    n = keys.numel()
-    if not 1 <= F < 1 << 30 or table_size(n) >= 1 << 30:
-        raise ValueError(f"N={n}, F={F} outside the kernel's int range")
-    return n
+    B, n = (1, keys.shape[0]) if keys.dim() == 1 else keys.shape
+    if not 1 <= F < 1 << 30 or table_size(n) >= 1 << 30 \
+            or not 1 <= B <= 65535:
+        raise ValueError(f"B={B}, N={n}, F={F} outside the kernel's "
+                         f"grid or int range")
+    return B, n
 
 
 @functools.cache
@@ -165,12 +197,13 @@ def _kernel():
     lib = _build.library("dedup")
     fn = lib.jt_dedup
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     scratch = lib.jt_dedup_scratch_ints
-    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int]
     scratch.restype = ctypes.c_longlong
     launches = lib.jt_dedup_kernel_launches
     launches.argtypes = []
@@ -188,7 +221,8 @@ def path(n: int) -> str:
 
 def cuda_launches() -> int:
     """CUDA kernels launched by K2's library since it was loaded: one
-    per call on the single-block path, five on the large path."""
+    per call on the single-block path, five on the large path, batched
+    or not."""
     return int(_kernel()[2]())
 
 
@@ -196,10 +230,11 @@ def dedup(keys: torch.Tensor, F: int):
     """Frontier dedup: K2 on a CUDA tensor, the plain version on a CPU
     tensor. keys: int32 (N,), old frontier first, EMPTY = -1. Returns
     (out int32 (F,), new bool (F,), count int32 (), digest int32 ()),
-    launched on the current stream without a synchronisation."""
+    launched on the current stream without a synchronisation. keys
+    (B, N) dedups B rows in one call, with a leading B on each output."""
     if keys.device.type == "cpu":
         return dedup_plain(keys, F)
-    return launch(keys, F, path(_check(keys, F)))
+    return launch(keys, F, path(_check(keys, F)[1]))
 
 
 def launch(keys: torch.Tensor, F: int, route: str):
@@ -208,7 +243,7 @@ def launch(keys: torch.Tensor, F: int, route: str):
     `dedup` takes the route `path` picks; this entry lets a measurement
     time the other one on the same keys."""
     global LAUNCHES
-    n = _check(keys, F)
+    B, n = _check(keys, F)
     if route not in ("single-block", "five-launch"):
         raise ValueError(f"no K2 route {route!r}")
     single = int(route == "single-block")
@@ -218,18 +253,24 @@ def launch(keys: torch.Tensor, F: int, route: str):
     fn, scratch_ints, _launches, err = _kernel()
     H = table_size(n)
     dev = keys.device
-    # two allocations: out, count, digest and the large path's scratch
-    # (none on the single-block path) in one int32 buffer; the flags
-    ints = torch.empty(F + 2 + int(scratch_ints(n, H, single)),
+    # two allocations: out (B x F), count and digest (B x 2) and the
+    # large path's scratch (none on the single-block path) in one int32
+    # buffer; the flags
+    ints = torch.empty(B * (F + 2) + int(scratch_ints(B, n, H, single)),
                        dtype=torch.int32, device=dev)
-    new = torch.empty(F, dtype=torch.bool, device=dev)
+    new = torch.empty((B, F), dtype=torch.bool, device=dev)
     ptr = ints.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(keys.data_ptr(), n, F, H, single, ptr, new.data_ptr(),
-                  ptr + 4 * F, ptr + 4 * (F + 2), stream)
+        code = fn(keys.data_ptr(), B, n, F, H, single, ptr,
+                  new.data_ptr(), ptr + 4 * B * F, ptr + 4 * B * (F + 2),
+                  stream)
     if code != 0:
-        raise RuntimeError(f"dedup launch failed: CUDA error {code} "
-                           f"({err(code).decode()})")
+        raise KernelLaunchError(f"dedup launch failed: CUDA error {code} "
+                                f"({err(code).decode()})")
     LAUNCHES += 1
-    return ints[:F], new, ints[F], ints[F + 1]
+    out = ints[:B * F].view(B, F)
+    tail = ints[B * F:B * (F + 2)].view(B, 2)
+    if keys.dim() == 1:
+        return out[0], new[0], tail[0, 0], tail[0, 1]
+    return out, new, tail[:, 0], tail[:, 1]

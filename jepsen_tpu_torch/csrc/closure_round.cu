@@ -11,9 +11,21 @@
 // Reads tb and writes the separate buffer out, so the round is Jacobi,
 // exactly as the TPU round reads tb and accumulates into acc.
 //
+// Batch. B independent tables (B x S x C) with their own transitions
+// (B x P x S x S) take one launch: the batch index b is the grid's z (the
+// cells kernel's y). A block reads the transitions of its table b, and
+// lists each source state s as the global row b * S + s, so the loads
+// that follow index the whole (B * S) x C buffer with no per-batch
+// offset; row b of a batched round is exactly the unbatched round on
+// table b. This is the vmapped TPU kernel's batch grid axis. B = 1 runs
+// each kernel's unbatched instance (kBatched = false), where the batch
+// index is the constant 0 and the code is the unbatched round's (the
+// batched indexing alone made the unbatched round measurably slower).
+//
 // Sources. A block serves one state row q. It first lists, per slot p,
 // the source states s with mft[p][q][s] set (one warp ballot per 32
-// states) in shared memory as entries s << 5 | p, grouped by slot. For a
+// states) in shared memory as entries s << 5 | p (s a global row, see
+// Batch), grouped by slot. For a
 // deterministic model that is at most one source state per slot, so a
 // thread then reads only the rows that can move into its row.
 //
@@ -63,15 +75,17 @@ constexpr int kThreads = 256;            // chunks per block (P >= 4)
 constexpr int kChunkLog = 4;             // 16 columns = one uint4
 constexpr int kMaxSlots = 30;            // C = 2^P must fit an int
 constexpr int kMaxRows = 65535;          // grid.y
+constexpr int kMaxBatch = 65535;         // grid.z (grid.y of the cells)
 constexpr int kMaxSmem = 48 * 1024;      // static launch limit
 constexpr unsigned kFull = 0xffffffffu;
 
 // List row q's source states of every slot in ent, grouped by slot:
-// ent[start[p] .. start[p + 1]) = s << 5 | p for each s with
-// mft[p][q][s] set. Every thread of the block must call it.
+// ent[start[p] .. start[p + 1]) = (row0 + s) << 5 | p for each s with
+// mft[p][q][s] set, row0 the first global row of the block's table
+// (row0 + s < 2^27). Every thread of the block must call it.
 template <int THREADS>
 __device__ void list_sources(const uint8_t* __restrict__ mft, int S, int P,
-                             int q, uint32_t* ent, int* start) {
+                             int q, int row0, uint32_t* ent, int* start) {
   __shared__ int cnt[kMaxSlots];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -103,7 +117,8 @@ __device__ void list_sources(const uint8_t* __restrict__ mft, int S, int P,
       const bool hit = s < S && row[s] != 0;
       const unsigned bal = __ballot_sync(kFull, hit);
       if (hit) {
-        dst[n + __popc(bal & ((1u << lane) - 1u))] = (uint32_t)s << 5 | p;
+        dst[n + __popc(bal & ((1u << lane) - 1u))] =
+            (uint32_t)(row0 + s) << 5 | p;
       }
       n += __popc(bal);
     }
@@ -143,6 +158,7 @@ __device__ __forceinline__ void in_chunk_slot(
   }
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 closure_round_chunks(const uint4* __restrict__ tb,
                      const uint8_t* __restrict__ mft,
@@ -150,11 +166,14 @@ closure_round_chunks(const uint4* __restrict__ tb,
   extern __shared__ uint32_t ent[];
   __shared__ int start[kMaxSlots + 1];
   const int q = blockIdx.y;
-  list_sources<kThreads>(mft, S, P, q, ent, start);
+  const int b = kBatched ? (int)blockIdx.z : 0;
+  const int row0 = b * S;
+  list_sources<kThreads>(mft + (size_t)b * P * S * S, S, P, q, row0, ent,
+                         start);
 
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= nchunk) return;
-  uint4 acc = tb[(size_t)q * nchunk + j];
+  uint4 acc = tb[(size_t)(row0 + q) * nchunk + j];
   in_chunk_slot<0>(acc, tb, ent, start, nchunk, j);
   in_chunk_slot<1>(acc, tb, ent, start, nchunk, j);
   in_chunk_slot<2>(acc, tb, ent, start, nchunk, j);
@@ -168,9 +187,10 @@ closure_round_chunks(const uint4* __restrict__ tb,
       or_into(acc, tb[(size_t)(x >> 5) * nchunk + (j ^ (1 << b))]);
     }
   }
-  out[(size_t)q * nchunk + j] = acc;
+  out[(size_t)(row0 + q) * nchunk + j] = acc;
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(32)
 closure_round_cells(const uint8_t* __restrict__ tb,
                     const uint8_t* __restrict__ mft,
@@ -178,26 +198,31 @@ closure_round_cells(const uint8_t* __restrict__ tb,
   extern __shared__ uint32_t ent[];
   __shared__ int start[kMaxSlots + 1];
   const int q = blockIdx.x;
-  list_sources<32>(mft, S, P, q, ent, start);
+  const int b = kBatched ? (int)blockIdx.y : 0;
+  const int row0 = b * S;
+  list_sources<32>(mft + (size_t)b * P * S * S, S, P, q, row0, ent, start);
 
   const int c = threadIdx.x;
   if (c >= C) return;
-  uint8_t v = tb[(size_t)q * C + c];
+  uint8_t v = tb[(size_t)(row0 + q) * C + c];
   for (int e = 0; e < start[P]; ++e) {
     const uint32_t x = ent[e];
     const int p = (int)(x & 31u);
     v |= tb[(size_t)(x >> 5) * C + (c ^ (1 << p))] & ((c >> p) & 1);
   }
-  out[(size_t)q * C + c] = v;
+  out[(size_t)(row0 + q) * C + c] = v;
 }
 
 }  // namespace
 
+// B tables of S x C (C = 2^P) with B transition tensors of P x S x S, all
+// contiguous; B = 1 is one table, on the kernels' unbatched instances.
 extern "C" int jt_closure_round(const void* tb, const void* mft, void* out,
-                                int S, int P, int C, void* stream) {
+                                int B, int S, int P, int C, void* stream) {
   const size_t smem = (size_t)P * S * sizeof(uint32_t);
-  if (S <= 0 || S > kMaxRows || P < 0 || P > kMaxSlots || C != (1 << P) ||
-      smem > (size_t)kMaxSmem) {
+  if (B <= 0 || B > kMaxBatch || S <= 0 || S > kMaxRows || P < 0 ||
+      P > kMaxSlots || C != (1 << P) || smem > (size_t)kMaxSmem ||
+      (long long)B * S > (1LL << 27)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -207,12 +232,16 @@ extern "C" int jt_closure_round(const void* tb, const void* mft, void* out,
     }
     const int nchunk = C >> kChunkLog;
     const dim3 grid((unsigned)((nchunk + kThreads - 1) / kThreads),
-                    (unsigned)S);
-    closure_round_chunks<<<grid, kThreads, smem, s>>>(
+                    (unsigned)S, (unsigned)B);
+    const auto kernel = B == 1 ? &closure_round_chunks<false>
+                               : &closure_round_chunks<true>;
+    kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const uint4*>(tb), static_cast<const uint8_t*>(mft),
         static_cast<uint4*>(out), S, P, nchunk);
   } else {
-    closure_round_cells<<<(unsigned)S, 32, smem, s>>>(
+    const auto kernel = B == 1 ? &closure_round_cells<false>
+                               : &closure_round_cells<true>;
+    kernel<<<dim3((unsigned)S, (unsigned)B), 32, smem, s>>>(
         static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(mft),
         static_cast<uint8_t*>(out), S, P, C);
   }

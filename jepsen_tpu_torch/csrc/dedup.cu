@@ -21,6 +21,16 @@
 // XOR over a set, so the outputs are bit-identical to the serial loop's.
 // H = table_size(N) is at least 2N (load factor <= 1/2), so probing ends.
 //
+// Batch. B independent rows of N keys (B x N, row-major) dedup in one
+// call, each row against its own table, with B x F outputs and a count
+// and a digest per row: the vmapped TPU kernel's batch grid axis. The
+// row is the grid's x on the single-block route (one block per row, so
+// the batch fills B SMs where one row fills one) and the grid's y on
+// each of the five launches (per-row tables and tile arrays in one
+// scratch, a scan block per row). Row b of a batched call is exactly the
+// call on row b alone; B = 1 is the unbatched call, and a batched call
+// still counts one or five launches.
+//
 // Two routes; the caller picks by N (wgl_dedup.path):
 //
 //   N <= 8,192: one launch of one block of 1,024 threads, all its state
@@ -39,9 +49,9 @@
 //   on every shape both take, repeating keys or a full frontier
 //   (chip_smoke.py times both).
 //
-//   N > 8,192 (stage B of the escalated passes, and stage A from
-//   F = 16,384): five launches on one stream, with the table in the
-//   caller's scratch:
+//   N > 8,192 (stage B of the escalated passes and of the batch entry at
+//   its F = 1,024, and stage A from F = 16,384): five launches on one
+//   stream, with the table in the caller's scratch:
 //     1. fill     table = EMPTY, first = INT_MAX, out = EMPTY, nw = 0;
 //     2. insert   one thread per key; pos[i] = slot;
 //     3. count    per tile of kTile keys, the number of first
@@ -90,6 +100,7 @@ constexpr int kSingleMaxSmem =
     (2 * kSingleMaxH + 2 * kSingleThreads * (kSinglePerThread | 1)) *
     (int)sizeof(int);
 constexpr int kMaxDevices = 64;
+constexpr int kMaxBatch = 65535;           // grid.y of the five launches
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kCountMix = 0x9E3779B9u;
 
@@ -165,7 +176,13 @@ __device__ __forceinline__ bool is_first(const int* pos, const int* first,
 
 __global__ void __launch_bounds__(kThreads)
 fill_kernel(int* __restrict__ table, int* __restrict__ first, int H,
-            int* __restrict__ out, uint8_t* __restrict__ nw, int F) {
+            int* __restrict__ out, uint8_t* __restrict__ nw, int F,
+            long long stride) {
+  const size_t row = blockIdx.y;
+  table += row * stride;
+  first += row * stride;
+  out += row * F;
+  nw += row * F;
   const int m = H > F ? H : F;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < m;
        i += gridDim.x * kThreads) {
@@ -182,7 +199,12 @@ fill_kernel(int* __restrict__ table, int* __restrict__ first, int H,
 
 __global__ void __launch_bounds__(kThreads)
 insert_kernel(const int* __restrict__ keys, int n, int* table, int* first,
-              int* __restrict__ pos, unsigned mask) {
+              int* __restrict__ pos, unsigned mask, long long stride) {
+  const size_t row = blockIdx.y;
+  keys += row * n;
+  table += row * stride;
+  first += row * stride;
+  pos += row * stride;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int k = keys[i];
@@ -203,7 +225,14 @@ insert_kernel(const int* __restrict__ keys, int n, int* table, int* first,
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const int* __restrict__ pos, const int* __restrict__ first,
              const int* __restrict__ table, int n, int H, int hchunk,
-             int* __restrict__ tile_cnt, int* __restrict__ tile_xor) {
+             int* __restrict__ tile_cnt, int* __restrict__ tile_xor,
+             long long stride) {
+  const size_t row = blockIdx.y;
+  pos += row * stride;
+  first += row * stride;
+  table += row * stride;
+  tile_cnt += row * stride;
+  tile_xor += row * stride;
   const int base = blockIdx.x * kTile;
   unsigned c = 0;
   for (int j = 0; j < kPerThread; ++j) {
@@ -227,7 +256,13 @@ count_kernel(const int* __restrict__ pos, const int* __restrict__ first,
 
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const int* __restrict__ tile_cnt, const int* __restrict__ tile_xor,
-            int tiles, int* __restrict__ tile_off, int* __restrict__ tail) {
+            int tiles, int* __restrict__ tile_off, int* __restrict__ tail,
+            long long stride) {
+  const size_t row = blockIdx.x;
+  tile_cnt += row * stride;
+  tile_xor += row * stride;
+  tile_off += row * stride;
+  tail += row * 2;
   int carry = 0;
   unsigned x = 0;
   for (int b0 = 0; b0 < tiles; b0 += kScanThreads) {
@@ -250,7 +285,14 @@ __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const int* __restrict__ keys, const int* __restrict__ pos,
                const int* __restrict__ first, int n, int F,
                const int* __restrict__ tile_off, int* __restrict__ out,
-               uint8_t* __restrict__ nw) {
+               uint8_t* __restrict__ nw, long long stride) {
+  const size_t row = blockIdx.y;
+  keys += row * n;
+  pos += row * stride;
+  first += row * stride;
+  tile_off += row * stride;
+  out += row * F;
+  nw += row * F;
   // thread t owns kPerThread consecutive keys, so thread order is input
   // order and the block scan ranks the flags in input order
   const int base = blockIdx.x * kTile + threadIdx.x * kPerThread;
@@ -278,6 +320,12 @@ single_block_kernel(const int* __restrict__ keys, int n, int F, int H,
                     int* __restrict__ out, uint8_t* __restrict__ nw,
                     int* __restrict__ tail) {
   extern __shared__ int smem[];
+  // one block per row of the batch
+  const size_t row = blockIdx.x;
+  keys += row * n;
+  out += row * F;
+  nw += row * F;
+  tail += row * 2;
   int* table = smem;
   int* first = smem + H;
   // thread t owns keys [t * per, t * per + per), in input order. Their
@@ -392,25 +440,34 @@ bool single_block_fits(int n, int H) {
 
 int tiles_for(int n) { return (n + kTile - 1) / kTile; }
 
+// Scratch ints of one row on the large path: pos[n], table[H], first[H],
+// and three per-tile arrays.
+long long row_scratch_ints(int n, int H) {
+  return (long long)n + 2LL * H + 3LL * tiles_for(n);
+}
+
 }  // namespace
 
-// Scratch ints the caller allocates for (n, H) on the chosen path: none
-// on the single-block path; else pos[n], table[H], first[H], and three
-// per-tile arrays.
-extern "C" long long jt_dedup_scratch_ints(int n, int H, int single) {
+// Scratch ints the caller allocates for B rows of (n, H) on the chosen
+// path: none on the single-block path; else B rows of pos[n], table[H],
+// first[H], and three per-tile arrays.
+extern "C" long long jt_dedup_scratch_ints(int B, int n, int H, int single) {
   if (single) return 0;
-  return (long long)n + 2LL * H + 3LL * tiles_for(n);
+  return (long long)B * row_scratch_ints(n, H);
 }
 
 // Kernels launched by jt_dedup since the library was loaded.
 extern "C" long long jt_dedup_kernel_launches() { return g_launches.load(); }
 
-// single: 1 for the single-block path (n <= 8,192), 0 for the five
-// launches; the caller picks (jepsen_tpu_torch/checker/wgl_dedup.py).
-extern "C" int jt_dedup(const void* keys, int n, int F, int H, int single,
-                        void* out, void* nw, void* tail, void* scratch,
-                        void* stream) {
-  if (n < 1 || F < 1 || H < 2 || (H & (H - 1)) != 0 || H / 2 < n ||
+// B rows of n keys; out is B x F ints, nw B x F bytes, tail B x 2 ints
+// (count, digest). single: 1 for the single-block path (n <= 8,192), 0
+// for the five launches; the caller picks
+// (jepsen_tpu_torch/checker/wgl_dedup.py).
+extern "C" int jt_dedup(const void* keys, int B, int n, int F, int H,
+                        int single, void* out, void* nw, void* tail,
+                        void* scratch, void* stream) {
+  if (B < 1 || B > kMaxBatch || n < 1 || F < 1 || H < 2 ||
+      (H & (H - 1)) != 0 || H / 2 < n ||
       (single && !single_block_fits(n, H))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -426,13 +483,16 @@ extern "C" int jt_dedup(const void* keys, int n, int F, int H, int single,
     const int per = (n + kSingleThreads - 1) / kSingleThreads;
     const size_t smem = (2 * H + 2 * kSingleThreads * (per | 1)) *
                         sizeof(int);
-    single_block_kernel<<<1, kSingleThreads, smem, s>>>(k, n, F, H, o, w,
+    single_block_kernel<<<B, kSingleThreads, smem, s>>>(k, n, F, H, o, w,
                                                          t);
     ++g_launches;
     return (int)cudaGetLastError();
   }
 
+  // row r's scratch starts at r * stride; the pointers below are row
+  // 0's, and each kernel adds its row's offset
   const int tiles = tiles_for(n);
+  const long long stride = row_scratch_ints(n, H);
   int* pos = static_cast<int*>(scratch);
   int* table = pos + n;
   int* first = table + H;
@@ -443,24 +503,25 @@ extern "C" int jt_dedup(const void* keys, int n, int F, int H, int single,
   const int m = H > F ? H : F;
   int fill_blocks = (m + kThreads - 1) / kThreads;
   if (fill_blocks > 4096) fill_blocks = 4096;
-  fill_kernel<<<fill_blocks, kThreads, 0, s>>>(table, first, H, o, w, F);
+  fill_kernel<<<dim3(fill_blocks, B), kThreads, 0, s>>>(table, first, H, o,
+                                                        w, F, stride);
   ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  insert_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      k, n, table, first, pos, (unsigned)(H - 1));
+  insert_kernel<<<dim3((n + kThreads - 1) / kThreads, B), kThreads, 0, s>>>(
+      k, n, table, first, pos, (unsigned)(H - 1), stride);
   ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int hchunk = (H + tiles - 1) / tiles;
-  count_kernel<<<tiles, kThreads, 0, s>>>(pos, first, table, n, H, hchunk,
-                                          tile_cnt, tile_xor);
+  count_kernel<<<dim3(tiles, B), kThreads, 0, s>>>(
+      pos, first, table, n, H, hchunk, tile_cnt, tile_xor, stride);
   ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_kernel<<<1, kScanThreads, 0, s>>>(tile_cnt, tile_xor, tiles, tile_off,
-                                         t);
+  scan_kernel<<<B, kScanThreads, 0, s>>>(tile_cnt, tile_xor, tiles, tile_off,
+                                         t, stride);
   ++g_launches;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scatter_kernel<<<tiles, kThreads, 0, s>>>(k, pos, first, n, F, tile_off, o,
-                                            w);
+  scatter_kernel<<<dim3(tiles, B), kThreads, 0, s>>>(
+      k, pos, first, n, F, tile_off, o, w, stride);
   ++g_launches;
   return (int)cudaGetLastError();
 }

@@ -209,7 +209,11 @@ def test_attestation_off_skips_the_digests(monkeypatch):
 
 def test_corrupted_staging_raises(monkeypatch):
     """A staged buffer that differs from the host copy is caught by the
-    staged-buffer digest before the walk starts."""
+    staged-buffer digest before the walk starts: one attempt raises, and
+    the recovery ladder of `analysis_gpu` re-stages after each such
+    fault until its budget is spent. The public entry then reports a
+    degraded 'unknown' with the trail: no verdict, and none from the
+    host."""
     real = twgl.stage_steps
 
     def flipped(x, device):
@@ -219,9 +223,15 @@ def test_corrupted_staging_raises(monkeypatch):
         return twgl.Staged(s.host, dev)
 
     monkeypatch.setattr(twgl, "stage_steps", flipped)
+    monkeypatch.setattr(twgl.util, "backoff", lambda: iter([0.0] * 9))
     h = jsynth.register_history(100, concurrency=3, seed=14)
     with pytest.raises(twgl.CorruptDeviceResult, match="staged-buffer"):
-        twgl.analysis_gpu(tmodels.cas_register(), h, device="cpu")
+        twgl._analysis_gpu_once(tmodels.cas_register(), h, device="cpu")
+    a = twgl.analysis_gpu(tmodels.cas_register(), h, device="cpu")
+    assert a["valid?"] == "unknown" and a["degraded"] is True
+    assert a["analyzer"] == "gpu-wgl" and "recovered" not in a
+    assert a["recovery-failed"] == {"faults": ["corrupt"] * 4, "retries": 3}
+    assert "staged-buffer" in a["error"]
 
 
 def test_cpu_run_launches_no_kernel():

@@ -130,6 +130,21 @@ def test_xor_fold_and_wrap_match_numpy():
         == (3 * wgl_dedup.DIGEST_COUNT_MIX) & 0xFFFFFFFF
 
 
+@pytest.mark.parametrize("expand_max", [wgl_dedup.XOR_EXPAND_MAX, 0])
+@pytest.mark.parametrize("shape", [(1000,), (3, 1001), (2, 1), (4, 0)])
+def test_xor_fold_methods_match_numpy(shape, expand_max, monkeypatch):
+    """Both of xor_fold's methods (bit expansion below XOR_EXPAND_MAX
+    elements, folding halves above) on rows of even, odd, unit and zero
+    length."""
+    monkeypatch.setattr(wgl_dedup, "XOR_EXPAND_MAX", expand_max)
+    rng = np.random.default_rng(10)
+    x = rng.integers(-2 ** 31, 2 ** 31 - 1, shape).astype(np.int32)
+    want = np.bitwise_xor.reduce(x.view(np.uint32), axis=-1)
+    got = wgl_dedup.xor_fold(torch.from_numpy(x))
+    assert got.dtype == torch.int64 and got.shape == shape[:-1]
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
 def test_build_command_and_c_interface():
     assert "dedup" in _build.sources()
     cmd = _build.command("dedup", _build.lib_path("dedup"))

@@ -1,7 +1,7 @@
-"""Card-only tests of the PyTorch port: the CUDA kernels (K1, K2) against
-their plain versions, and both engine families on CUDA against the same
-engines on the CPU. Each skips inside the test when no CUDA device is
-present.
+"""Card-only tests of the PyTorch port: the CUDA kernels (K1, K2), scalar
+and batched, against their plain versions, and both engine families and
+the batch entry on CUDA against the same engines on the CPU. Each skips
+inside the test when no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a machine with the
 card and no JAX installed:
@@ -172,7 +172,7 @@ def test_dedup_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         dedup(keys.long(), 8)                         # dtype
     with pytest.raises(ValueError):
-        dedup(keys.view(8, 8), 8)                     # rank
+        dedup(keys.view(2, 4, 8), 8)                  # rank (2-d: batch)
     with pytest.raises(ValueError):
         dedup(keys[::2], 8)                           # not contiguous
     with pytest.raises(ValueError):
@@ -203,3 +203,93 @@ def test_cuda_sort_family_matches_cpu():
                     "closure-rounds", "dedup-launches", "host-syncs",
                     "final-paths"):
             assert g.get(key) == cpu.get(key), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,P", [(4, 3, 0), (4, 4, 1), (4, 5, 2),
+                                   (4, 8, 3), (32, 8, 4), (64, 8, 6),
+                                   (16, 8, 8), (4, 8, 10), (4, 8, 19)])
+def test_batched_closure_round_matches_plain_and_each_row(B, S, P):
+    """One launch for B tables; row b equals the unbatched round on
+    table b, and the plain version's batched round."""
+    _need_cuda()
+    rng = np.random.default_rng(B * 100 + P)
+    t = torch.from_numpy(rng.random((B, S, 1 << P)) < 0.05).cuda()
+    m = torch.from_numpy((rng.random((B, P, S, S)) < 0.15).astype(
+        np.uint8)).cuda()
+    for _ in range(3):
+        before = wgl_closure.LAUNCHES
+        got = closure_round(t, m)
+        assert wgl_closure.LAUNCHES == before + 1
+        want = closure_round_plain(t, m)
+        torch.cuda.synchronize()
+        assert got.shape == t.shape and torch.equal(got, want)
+        for b in (0, B - 1):
+            assert torch.equal(got[b], closure_round(t[b], m[b]))
+        t = got
+    with pytest.raises(ValueError):
+        closure_round(t, m[0])                        # unbatched mft
+    with pytest.raises(ValueError):
+        closure_round(t, m[:B - 1].contiguous() if B > 1 else m[:0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,F", [(32, 2048, 1024), (32, 17408, 1024),
+                                   (3, 77, 16), (4, 8192, 256),
+                                   (4, 8193, 256)])
+def test_batched_dedup_matches_plain_and_each_row(B, N, F):
+    """One (single-block) or five (large route) CUDA launches for B rows;
+    all four outputs of row b equal the unbatched call on row b and the
+    plain version's batched call; edge rows: all EMPTY, all distinct,
+    heavy duplicates."""
+    _need_cuda()
+    rng = np.random.default_rng(B + N)
+    k = rng.integers(0, N // 3 + 1, (B, N))
+    k[rng.random((B, N)) < 0.4] = -1
+    k[0] = -1
+    k[1] = rng.permutation(N)
+    k[-1] = rng.choice([0, 7, 2 ** 31 - 1], N)
+    keys = torch.from_numpy(k.astype(np.int32)).cuda()
+    dedup(keys, F)
+    torch.cuda.synchronize()
+    before = wgl_dedup.cuda_launches()
+    got = dedup(keys, F)
+    torch.cuda.synchronize()
+    assert wgl_dedup.cuda_launches() - before == (
+        1 if N <= wgl_dedup.SINGLE_BLOCK_MAX_N else 5)
+    want = dedup_plain(keys, F)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    for b in range(B):
+        for a, o in zip(got, dedup(keys[b].contiguous(), F)):
+            assert torch.equal(a[b], o)
+    if N <= wgl_dedup.SINGLE_BLOCK_MAX_N:
+        for a, b in zip(wgl_dedup.launch(keys, F, "five-launch"), want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_batch_matches_cpu_on_both_families():
+    _need_cuda()
+    reg = models.cas_register()
+    dense = [synth.register_history(200, concurrency=c, values=5,
+                                    crash_rate=0.005, seed=30 + i)
+             for i, c in enumerate((2, 3, 4, 4, 5, 3))]
+    dense[2] = synth.corrupt(dense[2], value=5)
+    cnt = [synth.counter_history(200, seed=40 + i) for i in range(5)]
+    cnt[3] = synth.corrupt(cnt[3], value=999)   # S past the dense cap
+    for model, hs, kw, k1, k2 in [(reg, dense, {}, True, False),
+                                  (models.counter(), cnt, {"slots": 16},
+                                   False, True)]:
+        b1, b2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        g = wgl.analysis_gpu_batch(model, hs, **kw)
+        assert (wgl_closure.LAUNCHES > b1) == k1
+        assert (wgl_dedup.LAUNCHES > b2) == k2
+        c = wgl.analysis_gpu_batch(model, hs, device="cpu", **kw)
+        assert any(r["valid?"] is False for r in g)
+        for a, b in zip(g, c):
+            assert a["device"] == "cuda" and b["device"] == "cpu"
+            for key in ("valid?", "op-index", "max-frontier", "dedup",
+                        "analyzer", "batch-walk"):
+                assert a.get(key) == b.get(key), key

@@ -182,7 +182,7 @@ def test_attest_gate_reads_the_same_env_var(monkeypatch):
 _GUARD = r"""
 import sys
 import jepsen_tpu_torch
-from jepsen_tpu_torch import carry, models
+from jepsen_tpu_torch import _platform, carry, independent, models, util
 from jepsen_tpu_torch.checker import (abft, linear, synth, wgl,
                                       wgl_closure, wgl_dedup)
 h = synth.register_history(120, concurrency=4, crash_rate=0.03, seed=1)
@@ -196,6 +196,16 @@ srt = linear.linearizable(models.cas_register(), device="cpu",
                           chunk_entries=40).check({}, synth.corrupt(h), {})
 assert srt["analyzer"] == "gpu-wgl" and srt["dedup"] == "pallas-hash", srt
 assert srt["valid?"] is False and "op-index" in srt, srt
+keys = [synth.register_history(40, concurrency=3, seed=s) for s in range(3)]
+keys[1] = synth.corrupt(keys[1], value=5)
+rs = wgl.analysis_gpu_batch(models.cas_register(), keys, device="cpu")
+assert [r["valid?"] for r in rs] == [True, False, True], rs
+ops = [dict(o, value=independent.ktuple(k, o["value"]),
+            process=o["process"] + 10 * k)
+       for k, h in enumerate(keys) for o in h.ops]
+ind = independent.checker(linear.linearizable(
+    models.cas_register(), device="cpu")).check({}, ops, {})
+assert ind["failures"] == [1], ind
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

@@ -189,7 +189,7 @@ def test_bit_31_masks_sort_as_unsigned():
     states = torch.tensor([0, 0, 0, 0], dtype=torch.int32)
     valid = torch.tensor([True, True, True, True])
     origin = torch.tensor([False, False, True, True])
-    m, s, v, new, ovf, _ = k._dedup_lex(masks, states, valid, origin)
+    m, s, v, new, ovf, _ = k._dedup(masks, states, valid, origin)
     assert m[:, 0].tolist() == [0, 1, -2 ** 31, -2 ** 31]
     assert v.tolist() == [True, True, True, False]
     assert new.tolist() == [True, False, False, False] and not bool(ovf)
