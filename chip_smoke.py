@@ -49,7 +49,16 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      ladder's split); then hold verdicts, culprit ops, counts and each
      group's final batched carry against the port's CPU path, and trace
      the first 300 lockstep steps of each batch's largest group;
-  7. fail if any result other than the injected run's carries a
+  7. the Elle phase: the batched SCC classifier on random 0/1 buckets
+     (e = 8 to 1,024) against its CPU path and its numpy mirror, timed;
+     the north-star list-append history (100,000 txns), valid with no
+     classifier call, then with 64 injected G1c cycles, equal to the CPU
+     path's result; the 10,000-txn rw-register history, plain and with
+     the realtime and process graphs; three disjoint 4,000-node rings
+     (G0, G-single, G2-item) in one 4,096-wide bucket, timed beside its
+     bound, and 1,000-node rings against the CPU path; the G1c history
+     again under an injected OOM (one retry, the same result);
+  8. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -128,6 +137,18 @@ K2_MATRIX = [(512, 256, "stage"), (2304, 256, "stage"),
              (8192, 256, "stage"), (8193, 256, "stage"),
              (2048, 1024, "frontier"), (8192, 4096, "frontier"),
              (4352, 256, "frontier")]
+
+# the Elle phase: the classifier's (e, B) buckets on random blocks; the
+# north-star list-append history (BASELINE config 5, bench.py:697) with
+# 64 injected G1c cycles; the rw-register history (BASELINE config 3,
+# bench sections 3_elle_wr_10k and addgraphs_wr_10k); three disjoint
+# rings per size (a pure ww ring, one rw edge, two rw edges)
+ELLE_BUCKETS = [(8, 64), (64, 16), (256, 8), (1024, 2)]
+ELLE_APPEND_TXNS, ELLE_G1C = 100_000, 64
+ELLE_WR_TXNS = 10_000
+ELLE_RING, ELLE_RING_SMALL = 4_000, 1_000
+ELLE_FLAGS = ("G0", "G1c", "G-single", "G2-item")
+
 
 def log(*a):
     print(*a, flush=True)
@@ -1005,6 +1026,274 @@ def check_run(label, r, launches, expect) -> None:
         raise AssertionError(f"{label}: no K2 launch on the hash route")
 
 
+def elle_bucket(e, b, rng, density=0.4):
+    """(ww, wr, rw) float32 0/1 stacks, each entry set with probability
+    density / e, no self-loops: mostly sparse blocks, some cyclic."""
+    mats = []
+    for _ in range(3):
+        m = (rng.random((b, e, e)) < density / e).astype(np.float32)
+        m[:, np.arange(e), np.arange(e)] = 0.0
+        mats.append(m)
+    return tuple(mats)
+
+
+def elle_bound(kernels, e, b) -> dict:
+    """The least time the card could take for one classifier call on a
+    (b, e, e) bucket: the larger of its products' operations over the
+    float32 rate outside the tensor cores (the products run in float32,
+    TF32 being off by default) and its bytes (three float32 stacks read
+    once; four bool flags and an int64 residue per block written) over
+    HBM bandwidth. A block takes 3 * ceil(log2 e) squarings and three
+    more products, 2 e^3 operations each; the residues and
+    elementwise work are O(e^2) a product and left out."""
+    products = 3 * kernels._steps(e) + 3
+    ops = b * products * 2 * e ** 3
+    nbytes = 3 * b * e * e * 4 + 12 * b
+    t_o, t_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_o, t_b) * 1e3,
+                bound_by="operations" if t_o >= t_b else "bytes",
+                products_per_block=products, ops=ops, bytes=nbytes)
+
+
+def elle_time(kernels, stacks, dev, iters) -> tuple[float, float]:
+    """Card time of one classifier call on a bucket by CUDA events, and
+    the largest residue of that call (0, or the products were wrong)."""
+    e = stacks[0].shape[-1]
+    args = [torch.from_numpy(x).to(dev) for x in stacks]
+    steps = kernels._steps(e)
+    *_flags, res = kernels._flags_batch(*args, steps)
+    worst = int(res.abs().max().item())
+    ms = time_ms(lambda: kernels._flags_batch(*args, steps), iters,
+                 warmup=1)
+    return ms, worst
+
+
+def elle_rings(n) -> tuple[int, dict, list]:
+    """Three disjoint n-node rings, their edges, and the per-block flags
+    their construction gives: a pure ww ring (G0, and so G1c), a ring
+    with one rw edge (G-single), a ring with two (G2-item)."""
+    edges = {}
+    for r, rw_at in enumerate(((), (n // 3,), (n // 4, 3 * n // 4))):
+        for k in range(n):
+            edges[(r * n + k, r * n + (k + 1) % n)] = \
+                {"rw"} if k in rw_at else {"ww"}
+    want = [(True, True, False, False), (False, False, True, False),
+            (False, False, False, True)]
+    return 3 * n, edges, want
+
+
+def same_elle(a, b, label) -> None:
+    """Exact equality of two analyze_edges results (numpy arrays by
+    dtype and value)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{label}: keys differ")
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            ok = (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                  and x.dtype == y.dtype and np.array_equal(x, y))
+        else:
+            ok = x == y
+        if not ok:
+            raise AssertionError(f"{label}: {k} differs")
+
+
+class ElleRecorder:
+    """Wraps `_classify_batches` to keep each call's buckets and flags
+    (the wrapped call still counts its launches)."""
+
+    def __init__(self, kernels):
+        self.kernels, self.real = kernels, kernels._classify_batches
+        self.calls = []
+
+    def __enter__(self):
+        def record(buckets, **kw):
+            flags = self.real(buckets, **kw)
+            self.calls.append((buckets, flags))
+            return flags
+
+        self.kernels._classify_batches = record
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels._classify_batches = self.real
+
+
+def phase_elle_classifier(dev, kernels) -> list:
+    """Step 1: random buckets on the card against the CPU path and the
+    numpy mirror, flags identical and residue 0, timed."""
+    rng = np.random.default_rng(SEED + 8)
+    rows = []
+    for e, b in ELLE_BUCKETS:
+        buckets = {e: elle_bucket(e, b, rng)}
+        before = kernels.LAUNCHES
+        got = kernels._classify_batches(buckets, device=dev)[e]
+        if kernels.LAUNCHES != before + 1:
+            raise AssertionError(f"elle bucket e={e}: a retry happened")
+        t = time.perf_counter()
+        cpu = kernels._classify_batches(buckets, device="cpu")[e]
+        cpu_s = time.perf_counter() - t
+        mirror = kernels._classify_batches_host(buckets)[e]
+        for name, g, c, m in zip(ELLE_FLAGS, got, cpu, mirror):
+            if not (np.array_equal(g, c) and np.array_equal(g, m)):
+                raise AssertionError(f"elle bucket e={e} B={b}: {name} "
+                                     f"differs (cuda {g}, cpu {c}, "
+                                     f"mirror {m})")
+        ms, worst = elle_time(kernels, buckets[e], dev, 20)
+        if worst:
+            raise AssertionError(f"elle bucket e={e}: residue {worst}")
+        row = dict(e=e, B=b, ms=ms, cpu_s=cpu_s, residue=worst,
+                   flags_set=[int(f.sum()) for f in got],
+                   **elle_bound(kernels, e, b))
+        rows.append(row)
+        log(f"elle classifier e={e} B={b}: flags identical on CUDA, the "
+            f"CPU path and the numpy mirror (set per flag "
+            f"{row['flags_set']}), residue 0; card {ms:.6f} ms a call, "
+            f"bound {row['bound_ms']:.6f} ms by {row['bound_by']}; CPU "
+            f"path {cpu_s:.3f} s")
+    return rows
+
+
+def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
+    """Steps 2-6 of the Elle phase (step 1: phase_elle_classifier)."""
+    out = {"buckets": phase_elle_classifier(dev, kernels)}
+
+    # 2. the north-star list-append history: valid, no classifier call
+    t = time.perf_counter()
+    eh = synth.append_history(ELLE_APPEND_TXNS, seed=SEED)
+    gen_s = time.perf_counter() - t
+    kernels.LAUNCHES = 0
+    t = time.perf_counter()
+    r = list_append.check(eh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if r["valid?"] is not True or r["txn-count"] != ELLE_APPEND_TXNS \
+            or kernels.LAUNCHES != 0:
+        raise AssertionError(f"append 100k: {r['valid?']} "
+                             f"{r['anomaly-types']}, {kernels.LAUNCHES} "
+                             f"classifier calls")
+    out["append_valid"] = dict(wall_s=wall, generate_s=gen_s, launches=0)
+    log(f"elle list-append {ELLE_APPEND_TXNS} txns (seed {SEED}): valid, "
+        f"0 classifier calls, wall {wall:.3f} s (history made in "
+        f"{gen_s:.3f} s)")
+
+    # 3. the same history with 64 injected G1c cycles, against the CPU
+    bad = synth.inject_append_cycles(eh, ELLE_G1C, "G1c")
+    kernels.LAUNCHES = 0
+    with ElleRecorder(kernels) as rec:
+        t = time.perf_counter()
+        g = list_append.check(bad)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    shapes = {e: list(s[0].shape) for bk, _f in rec.calls
+              for e, s in bk.items()}
+    if g["valid?"] is not False or "G1c" not in g["anomaly-types"] \
+            or kernels.LAUNCHES != 1:
+        raise AssertionError(f"append + G1c: {g['valid?']} "
+                             f"{g['anomaly-types']}, {kernels.LAUNCHES} "
+                             f"classifier calls")
+    t = time.perf_counter()
+    c = list_append.check(bad, device="cpu")
+    cpu_s = time.perf_counter() - t
+    if c != g:
+        raise AssertionError("append + G1c: the CPU path's result differs")
+    out["append_g1c"] = dict(wall_s=wall, cpu_s=cpu_s, launches=1,
+                             buckets=shapes,
+                             anomaly_types=g["anomaly-types"])
+    log(f"elle list-append + {ELLE_G1C} G1c: invalid "
+        f"{g['anomaly-types']}, 1 classifier call on bucket(s) [B, e, e] "
+        f"{shapes}, wall {wall:.3f} s; the CPU path's result dict is equal "
+        f"(certificates included, {cpu_s:.3f} s)")
+
+    # 4. rw-register, plain and with the realtime and process graphs
+    wh = synth.wr_history(ELLE_WR_TXNS, seed=SEED)
+    out["wr"] = {}
+    for label, graphs in (("plain", ()), ("graphs", ("realtime",
+                                                      "process"))):
+        kernels.LAUNCHES = 0
+        t = time.perf_counter()
+        r = wr.check(wh, additional_graphs=graphs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if r["valid?"] is not True or r["txn-count"] != ELLE_WR_TXNS:
+            raise AssertionError(f"wr {label}: {r['valid?']} "
+                                 f"{r['anomaly-types']}")
+        out["wr"][label] = dict(wall_s=wall, launches=kernels.LAUNCHES)
+        log(f"elle rw-register {ELLE_WR_TXNS} txns {label} {graphs}: valid, "
+            f"{kernels.LAUNCHES} classifier calls, wall {wall:.3f} s")
+
+    # 5. large SCCs: three rings in one bucket, flags by construction
+    out["rings"] = {}
+    for n in (ELLE_RING, ELLE_RING_SMALL):
+        nodes, edges, want = elle_rings(n)
+        kernels.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with ElleRecorder(kernels) as rec:
+            t = time.perf_counter()
+            res = kernels.analyze_edges(nodes, edges)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        (buckets, flags), = rec.calls
+        (e, stacks), = buckets.items()
+        labels = res["scc-labels"]
+        labs = sorted({int(labels[r * n]) for r in range(3)})
+        got = [tuple(bool(f[ix]) for f in flags[e])
+               for ix in range(stacks[0].shape[0])]
+        by_ring = [got[labs.index(int(labels[r * n]))] for r in range(3)]
+        if kernels.LAUNCHES != 1 or by_ring != want \
+                or any(any(x) for x in got[3:]) \
+                or not all(res[k] for k in ELLE_FLAGS):
+            raise AssertionError(f"rings n={n}: flags {got}, "
+                                 f"{kernels.LAUNCHES} classifier calls")
+        ms, worst = elle_time(kernels, stacks, dev, 3)
+        if worst:
+            raise AssertionError(f"rings n={n}: residue {worst}")
+        row = dict(nodes=n, bucket=list(stacks[0].shape), wall_s=wall,
+                   ms=ms, peak_gb=peak_gb, residue=worst,
+                   **elle_bound(kernels, e, stacks[0].shape[0]))
+        if n == ELLE_RING_SMALL:
+            t = time.perf_counter()
+            same_elle(res, kernels.analyze_edges(nodes, edges,
+                                                 device="cpu"),
+                      f"rings n={n}")
+            row["cpu_s"] = time.perf_counter() - t
+        out["rings"][n] = row
+        log(f"elle rings 3 x {n} nodes: bucket [B, e, e] {row['bucket']}, "
+            f"per-ring flags (G0, G1c, G-single, G2-item) {by_ring}, "
+            f"residue 0; analyze_edges wall {wall:.3f} s, card "
+            f"{ms:.3f} ms a classifier call, bound {row['bound_ms']:.3f} ms "
+            f"by {row['bound_by']} ({row['ops'] / 1e12:.3f} T operations, "
+            f"{row['products_per_block']} products a block), peak "
+            f"{peak_gb:.3f} GiB"
+            + (f"; equal to the CPU path ({row['cpu_s']:.3f} s)"
+               if "cpu_s" in row else ""))
+
+    # 6. an injected OOM on step 3: one retry, the same result
+    os.environ[platform.FAULT_INJECT_ENV] = "oom@elle:1"
+    platform.reset_fault_injection()
+    kernels.LAUNCHES = 0
+    try:
+        t = time.perf_counter()
+        o = list_append.check(bad)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        dispatches = platform._fault_seq.get("elle")
+    finally:
+        del os.environ[platform.FAULT_INJECT_ENV]
+        platform.reset_fault_injection()
+    if o != g or kernels.LAUNCHES != 1 or dispatches != 2:
+        raise AssertionError(f"injected OOM: result equal {o == g}, "
+                             f"{kernels.LAUNCHES} classifier calls, "
+                             f"{dispatches} dispatches")
+    out["oom"] = dict(wall_s=wall, dispatches=dispatches)
+    log(f"elle injected oom@elle:1: recovered after one retry (2 "
+        f"dispatches, 1 classifier call), the same result, wall "
+        f"{wall:.3f} s")
+    log("elle: " + json.dumps(out, default=str))
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -1021,6 +1310,8 @@ def main() -> int:
     from jepsen_tpu_torch import _build, _platform, independent, models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+    from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
+    from jepsen_tpu_torch.checker.elle import list_append, wr
     from jepsen_tpu_torch.checker.linear import linearizable
 
     dev = torch.device("cuda")
@@ -1151,6 +1442,10 @@ def main() -> int:
                         independent, linearizable, _platform, carry_to_numpy)
     phase_done("batch path")
 
+    # -- phase 7: Elle ------------------------------------------------------------
+    elle = phase_elle(dev, synth, elle_kernels, list_append, wr, _platform)
+    phase_done("elle")
+
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
            or m.startswith("jepsen_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1216,7 +1511,7 @@ def main() -> int:
         write_report(args.out, {
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
-            "profiles": profiles, "batch": batch,
+            "profiles": profiles, "batch": batch, "elle": elle,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -16,7 +16,9 @@ kernel `csrc/closure_round.cu`, and the sort frontier, whose hash dedup
 is the hand-written Hopper kernel `csrc/dedup.cu`; the batched check of
 many histories (`checker.wgl.analysis_gpu_batch`, both kernels with a
 batch axis) behind the independent checker (`independent`); and the
-recovery ladder with fault injection (`_platform`) around both entries.
+recovery ladder with fault injection (`_platform`) around both entries;
+and Elle's transactional-cycle checks (`checker.elle`: list-append and
+rw-register, their SCC classifier batched on the card).
 """
 
 __version__ = "0.1.0"

@@ -218,8 +218,9 @@ def _clauses(kind_is_bitflip: bool):
 
 def maybe_inject_fault(site: str) -> None:
     """Called just before each recovery-aware device dispatch. Sites in
-    use: 'offline' (wgl.analysis_gpu) and 'batch'
-    (wgl.analysis_gpu_batch). The n-th dispatch on a site named by a
+    use: 'offline' (wgl.analysis_gpu), 'batch' (wgl.analysis_gpu_batch)
+    and 'elle' (elle.kernels._classify_batches, once per bucket
+    attempt). The n-th dispatch on a site named by a
     ``kind@site:n`` clause raises InjectedFault(kind); n counts every
     dispatch since reset_fault_injection(), so a retry moves past the
     clause and the fault fires once, like a real transient."""
@@ -235,7 +236,8 @@ def maybe_inject_fault(site: str) -> None:
 
 def maybe_corrupt(site: str, arr):
     """Called on each host-staged buffer just before it is copied to the
-    device. A ``bitflip@site:n`` clause flips one bit in a COPY of the
+    device (on the 'elle' site, the ww stack of each bucket attempt). A
+    ``bitflip@site:n`` clause flips one bit in a COPY of the
     n-th staged buffer on that site: the caller ships the copy while
     its canonical host buffer, and the digest computed from it, stay
     intact — a silent DMA/HBM flip. Returns the array to ship (the

@@ -7,8 +7,10 @@ the host computes it over the canonical numpy data, the device over its
 own copy, and a mismatch raises `CorruptDeviceResult`.
 
   * **Staged-buffer digests.** A position-weighted wrap-around int32
-    digest of the step buffer: `digest_host` over the numpy original,
-    `digest_device` over the tensor the kernels read.
+    digest of a staged buffer (the WGL step buffer, the Elle
+    classifier's float32 adjacency stacks, by bit pattern):
+    `digest_host` over the numpy original, `digest_device` over the
+    tensor the device reads.
   * **Carry digests.** `carry_digest_host` recomputes an engine's
     on-device carry digest (`wgl.DenseKernel.digest`,
     `wgl.SortKernel.digest`) from a fetched carry; `verify_carry` also

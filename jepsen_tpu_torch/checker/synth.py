@@ -9,10 +9,11 @@ is always a legal linearization), with real overlap between processes and
 optional crashed ops. `corrupt` then breaks a valid history in a way the
 checker must catch (stale read).
 
-The port's own copy of the register, counter and unordered-queue
-generators of `jepsen_tpu/checker/synth.py` (the port imports nothing of
-the JAX package); tests/test_torch_host.py holds the two copies to the
-same histories.
+The port's own copy of the register, counter, unordered-queue and
+transaction (list-append, rw-register) generators of
+`jepsen_tpu/checker/synth.py` (the port imports nothing of
+the JAX package); tests/test_torch_host.py and tests/test_torch_elle.py
+hold the two copies to the same histories.
 """
 
 from __future__ import annotations
@@ -206,6 +207,141 @@ def corrupt(hist: History, seed: int = 7, value: Any = 10 ** 6) -> History:
     # (NIL aside), so this must be caught
     ops[i]["value"] = value
     return History(ops)
+
+
+def _txn_history(n_txns: int, concurrency: int, seed: int,
+                 make_txn) -> History:
+    """Shared scheduler for synthetic transaction histories: one slot per
+    process, txns applied serially at their invoke point (a legal
+    serialization) with real inter-process overlap. make_txn(rng) returns
+    the applied micro-op list (reads filled in)."""
+    rng = random.Random(seed)
+    ops: list[dict] = []
+    t = 0
+    pending: dict[int, dict] = {}
+    emitted = 0
+
+    def tick() -> int:
+        nonlocal t
+        t += rng.randint(1, 10)
+        return t
+
+    while emitted < n_txns or pending:
+        slot = rng.randrange(concurrency)
+        if slot in pending:
+            comp = pending.pop(slot)
+            comp["time"] = tick()
+            ops.append(comp)
+            continue
+        if emitted >= n_txns:
+            for s in sorted(pending):
+                comp = pending.pop(s)
+                comp["time"] = tick()
+                ops.append(comp)
+            break
+        txn = make_txn(rng)
+        inv = {"type": "invoke", "f": "txn",
+               "value": [[f, k, None] if f == "r" else [f, k, v]
+                         for f, k, v in txn],
+               "process": slot, "time": tick()}
+        ops.append(inv)
+        pending[slot] = {**inv, "type": "ok", "value": txn}
+        emitted += 1
+    return History(ops)
+
+
+def append_history(n_txns: int, concurrency: int = 10,
+                   active_keys: int = 5, max_txn_len: int = 4,
+                   appends_per_key: int = 32,
+                   seed: int = 45100) -> History:
+    """A valid-by-construction list-append transaction history at
+    north-star scale (BASELINE config 5: 100k txns). Keys rotate out
+    after `appends_per_key` appends so read prefixes — and hence graph
+    build cost — stay bounded (the reference's elle generator rotates
+    keys the same way)."""
+    store: dict[int, list] = {}
+    counters: dict[int, int] = {}
+    state = {"next_key": active_keys}
+
+    def make_txn(rng):
+        txn = []
+        for _ in range(rng.randint(1, max_txn_len)):
+            k = rng.randrange(max(0, state["next_key"] - active_keys),
+                              state["next_key"])
+            if rng.random() < 0.5:
+                v = counters.get(k, 0) + 1
+                counters[k] = v
+                store.setdefault(k, []).append(v)
+                txn.append(["append", k, v])
+                if v >= appends_per_key:
+                    state["next_key"] += 1
+            else:
+                txn.append(["r", k, list(store.get(k, []))])
+        return txn
+
+    return _txn_history(n_txns, concurrency, seed, make_txn)
+
+
+def inject_append_cycles(hist: History, n_cycles: int = 1,
+                         anomaly: str = "G1c",
+                         seed: int = 7,
+                         key_base: int = 10 ** 9) -> History:
+    """Append `n_cycles` disjoint two-transaction anomaly cycles on fresh
+    keys to a (valid) list-append history — each becomes one nontrivial
+    SCC, exercising the batched device classification. anomaly: 'G1c'
+    (write-read cycle) or 'G-single' (write skew with one rw)."""
+    rng = random.Random(seed)
+    ops = [dict(o) for o in hist.ops]
+    t = 1 + max((o.get("time", 0) for o in ops), default=0)
+    base = key_base  # key space far above the generator's
+    p1, p2 = 10 ** 6, 10 ** 6 + 1
+    for c in range(n_cycles):
+        kx, ky = base + 2 * c, base + 2 * c + 1
+        if anomaly == "G1c":
+            # T1 appends x and reads y=[1]; T2 appends y and reads x=[1]
+            t1 = [["append", kx, 1], ["r", ky, [1]]]
+            t2 = [["append", ky, 1], ["r", kx, [1]]]
+        else:
+            # T1 appends x,y; T2 reads x=[1], y=[] (one anti-dependency)
+            t1 = [["append", kx, 1], ["append", ky, 1]]
+            t2 = [["r", kx, [1]], ["r", ky, []]]
+        for p, txn in ((p1, t1), (p2, t2)):
+            ops.append({"type": "invoke", "f": "txn", "value": txn,
+                        "process": p, "time": t})
+            t += rng.randint(1, 3)
+            ops.append({"type": "ok", "f": "txn", "value": txn,
+                        "process": p, "time": t})
+            t += rng.randint(1, 3)
+    return History(ops)
+
+
+def wr_history(n_txns: int, concurrency: int = 10, active_keys: int = 5,
+               max_txn_len: int = 4, writes_per_key: int = 32,
+               seed: int = 45100) -> History:
+    """A valid-by-construction rw-register transaction history
+    (BASELINE config 3 shape: 10k txns). Writes unique per key via
+    per-key counters; keys rotate like `append_history`."""
+    store: dict[int, Any] = {}
+    counters: dict[int, int] = {}
+    state = {"next_key": active_keys}
+
+    def make_txn(rng):
+        txn = []
+        for _ in range(rng.randint(1, max_txn_len)):
+            k = rng.randrange(max(0, state["next_key"] - active_keys),
+                              state["next_key"])
+            if rng.random() < 0.5:
+                v = counters.get(k, 0) + 1
+                counters[k] = v
+                store[k] = v
+                txn.append(["w", k, v])
+                if v >= writes_per_key:
+                    state["next_key"] += 1
+            else:
+                txn.append(["r", k, store.get(k)])
+        return txn
+
+    return _txn_history(n_txns, concurrency, seed, make_txn)
 
 
 def _slotted_history(n_ops: int, concurrency: int, seed: int,

@@ -33,6 +33,7 @@ import numpy as np
 
 # Op types
 INVOKE = "invoke"
+OK = "ok"
 FAIL = "fail"
 INFO = "info"
 
@@ -57,12 +58,20 @@ def is_invoke(o: dict) -> bool:
     return o["type"] == INVOKE
 
 
+def is_ok(o: dict) -> bool:
+    return o["type"] == OK
+
+
 def is_fail(o: dict) -> bool:
     return o["type"] == FAIL
 
 
 def is_info(o: dict) -> bool:
     return o["type"] == INFO
+
+
+def is_completion(o: dict) -> bool:
+    return o["type"] in (OK, FAIL, INFO)
 
 
 def is_client_op(o: dict) -> bool:

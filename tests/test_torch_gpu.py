@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1, K2), scalar
-and batched, against their plain versions, and both engine families and
-the batch entry on CUDA against the same engines on the CPU. Each skips
-inside the test when no CUDA device is present.
+and batched, against their plain versions, both engine families and the
+batch entry on CUDA against the same engines on the CPU, and the Elle
+classifier on CUDA against its CPU path. Each skips inside the test when
+no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a machine with the
 card and no JAX installed:
@@ -16,6 +17,8 @@ import torch
 from jepsen_tpu_torch import models
 from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
 from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
+from jepsen_tpu_torch.checker.elle import list_append as elle_append
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
                                                   closure_round_plain)
 from jepsen_tpu_torch.checker.wgl_dedup import dedup, dedup_plain
@@ -293,3 +296,77 @@ def test_cuda_batch_matches_cpu_on_both_families():
             for key in ("valid?", "op-index", "max-frontier", "dedup",
                         "analyzer", "batch-walk"):
                 assert a.get(key) == b.get(key), key
+
+
+def _elle_bucket(e, b, rng, density=0.4):
+    """(ww, wr, rw) float32 0/1 stacks, each entry set with probability
+    density / e, no self-loops."""
+    mats = []
+    for _ in range(3):
+        m = (rng.random((b, e, e)) < density / e).astype(np.float32)
+        m[:, np.arange(e), np.arange(e)] = 0.0
+        mats.append(m)
+    return tuple(mats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,b", [(8, 64), (64, 16), (256, 8), (1024, 2)])
+def test_cuda_elle_classifier_matches_cpu(e, b):
+    _need_cuda()
+    buckets = {e: _elle_bucket(e, b, np.random.default_rng(e))}
+    before = elle_kernels.LAUNCHES
+    got = elle_kernels._classify_batches(buckets, device="cuda")
+    assert elle_kernels.LAUNCHES == before + 1      # no retry
+    want = elle_kernels._classify_batches(buckets, device="cpu")
+    for g, w in zip(got[e], want[e]):
+        assert g.dtype == np.bool_ and np.array_equal(g, w)
+    *flags, res = elle_kernels._flags_batch(
+        *(torch.from_numpy(x).cuda() for x in buckets[e]),
+        elle_kernels._steps(e))
+    assert res.cpu().tolist() == [0] * b
+    for f, w in zip(flags, want[e]):
+        assert np.array_equal(f.cpu().numpy(), w)
+
+
+@pytest.mark.gpu
+def test_cuda_elle_residue_stays_zero_at_4096_under_tf32():
+    """The caller's TF32 setting changes neither the flags nor the
+    residue: every product has 0/1 operands. One 4,096-node block: a
+    ring with one rw edge and random chords."""
+    _need_cuda()
+    e, rng = 4096, np.random.default_rng(4096)
+    ww, wr, rw = _elle_bucket(e, 1, rng, density=0.2)
+    ring = np.arange(e)
+    ww[0, ring, (ring + 1) % e] = 1.0
+    ww[0, 17, 18], rw[0, 17, 18] = 0.0, 1.0
+    args = [torch.from_numpy(x).cuda() for x in (ww, wr, rw)]
+    steps = elle_kernels._steps(e)
+    old = torch.get_float32_matmul_precision()
+    try:
+        runs = {}
+        for prec in ("highest", "high"):
+            torch.set_float32_matmul_precision(prec)
+            *flags, res = elle_kernels._flags_batch(*args, steps)
+            runs[prec] = ([f.cpu().tolist() for f in flags],
+                          res.cpu().tolist())
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert runs["high"] == runs["highest"]
+    assert runs["high"][1] == [0]
+    assert runs["high"][0][2] == [True]                 # G-single
+
+
+@pytest.mark.gpu
+def test_cuda_list_append_check_matches_cpu():
+    _need_cuda()
+    h = synth.inject_append_cycles(synth.append_history(2000, seed=5), 12,
+                                   "G1c")
+    h = synth.inject_append_cycles(h, 5, "G-single", seed=11,
+                                   key_base=2 * 10 ** 9)
+    for graphs in ((), ("realtime", "process")):
+        before = elle_kernels.LAUNCHES
+        g = elle_append.check(h, additional_graphs=graphs)
+        assert elle_kernels.LAUNCHES > before
+        c = elle_append.check(h, additional_graphs=graphs, device="cpu")
+        assert g == c and g["valid?"] is False
+        assert {"G1c", "G-single"} <= set(g["anomaly-types"])

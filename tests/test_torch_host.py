@@ -1,7 +1,8 @@
 """The port's host modules against the JAX package's: its own copies of
 history, models, synth and the host oracle give the same values, its
 engine choice agrees, it resolves devices without falling back, and it
-never imports jax or jepsen_tpu."""
+never imports jax or jepsen_tpu (a fresh interpreter runs linearizability,
+batch, independent, list-append and rw-register checks to show it)."""
 
 import itertools
 import os
@@ -206,6 +207,19 @@ ops = [dict(o, value=independent.ktuple(k, o["value"]),
 ind = independent.checker(linear.linearizable(
     models.cas_register(), device="cpu")).check({}, ops, {})
 assert ind["failures"] == [1], ind
+from jepsen_tpu_torch import txn
+from jepsen_tpu_torch.checker import elle
+from jepsen_tpu_torch.checker.elle import graphs, kernels, list_append
+from jepsen_tpu_torch.checker.elle import wr as elle_wr
+ah = synth.inject_append_cycles(synth.append_history(300, seed=2), 3, "G1c")
+ra = list_append.check(ah, device="cpu", additional_graphs=("realtime",))
+assert ra["valid?"] is False and "G1c" in ra["anomaly-types"], ra
+assert ra["anomalies"]["G1c"][0]["cycle"], ra
+rw = elle.rw_register_checker(device="cpu").check(
+    {}, synth.wr_history(300, seed=2), {})
+assert rw["valid?"] is True and rw["txn-count"] == 300, rw
+assert elle_wr.check(synth.wr_history(200, seed=3), device="cpu",
+                     additional_graphs=("process",))["valid?"] is True
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
