@@ -58,7 +58,21 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      (G0, G-single, G2-item) in one 4,096-wide bucket, timed beside its
      bound, and 1,000-node rings against the CPU path; the G1c history
      again under an injected OOM (one retry, the same result);
-  8. fail if any result other than the injected runs' carries a
+  8. the streaming-and-tier phase, five runs at full size: the
+     adversarial history streamed on the dense engine (16 slots, K1 at
+     (8, 16)); a register history with a phantom read streamed op by op
+     on the sort engine's hash route (K2) until the violation shows; the
+     dense stream again with a checkpoint every 2 chunks under a device
+     loss injected at its midpoint chunk (one retry, the same result);
+     the 10,000-txn rw-register history through WrStream; and the
+     headline at tier 'screen' (sample 0 and 1) and under the
+     competition race. Every kernel's launch count is set to 0 just
+     before each stream and read just after (K1 and K2 must launch);
+     each WGL stream's final carry is held against the offline walk of
+     its engine on the card, each result against the CPU path's (the
+     dense stream on a 400-op history of the same generator), and feed,
+     tail and offline walls are printed;
+  9. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -102,9 +116,11 @@ BUDGET_CHUNK = 1024
 # multiples of 8
 K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
              (8, 7), (8, 14), (8, 19), (16, 7), (30, 8), (8, 9), (256, 10),
-             (24, 11), (512, 12), (8, 13), (8, 15), (64, 16), (8, 17),
-             (16, 18)]
-K1_TIMED = [(8, 7), (8, 14), (8, 19)]
+             (24, 11), (512, 12), (8, 13), (8, 15), (64, 16), (8, 16),
+             (8, 17), (16, 18)]
+# the main path's shapes (headline, adversarial, at-cap), then the dense
+# stream's (8, 16)
+K1_TIMED = [(8, 7), (8, 14), (8, 19), (8, 16)]
 PROFILE_STEPS = 1_500
 # the batch path (bench.py:section_config4's hazelcast shape): 100 keys
 # of register_history(500, concurrency=4, values=5, crash_rate=0.005,
@@ -148,6 +164,36 @@ ELLE_APPEND_TXNS, ELLE_G1C = 100_000, 64
 ELLE_WR_TXNS = 10_000
 ELLE_RING, ELLE_RING_SMALL = 4_000, 1_000
 ELLE_FLAGS = ("G0", "G1c", "G-single", "G2-item")
+
+# the streaming-and-tier phase (bench.py's streaming and recovery
+# sections at N_OPS = 10,000): the adversarial history streamed on the
+# dense engine with the register's state range declared up front and a
+# concurrency hint of 12 (16 slots: K1 at (8, 16)); the register history
+# corrupted by a phantom read of 10**6 streamed on the sort engine op by
+# op until the violation shows, with the phantom inside the declared
+# range so that the config packs at 8 slots and the dedup is the hash
+# route (K2); the dense stream again with a checkpoint every 2 chunks
+# and a device loss injected at its midpoint chunk; the rw-register
+# history through WrStream; the headline history at tier 'screen' and
+# under the competition race. The CPU path repeats each stream; the
+# dense one only on the ops the card's full-size stream had been fed
+# when it dispatched its first STREAM_CPU_DENSE_CHUNKS chunks (the
+# carries there must be equal, and both prefixes, finished, give equal
+# results and final carries), since the plain closure round at 2^16
+# columns costs the CPU some 20 ms a round
+STREAM_CHUNK = 1024
+STREAM_DENSE = dict(engine="dense", state_range=(-1, 4), concurrency_hint=12,
+                    chunk_entries=STREAM_CHUNK)
+STREAM_ABORT_HIST = dict(n_ops=10_000, concurrency=5, values=5,
+                         crash_rate=0.0, seed=SEED)
+STREAM_ABORT = dict(engine="sort", state_range=(-1, 10 ** 6), slots=8,
+                    chunk_entries=STREAM_CHUNK)
+STREAM_CPU_DENSE_CHUNKS = 1
+# the streams' busy share: the first STREAM_PROFILE_OPS ops of the dense
+# and the sort stream, fed and finished, under torch.profiler
+STREAM_PROFILE_OPS = 3_000
+STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device", "host-syncs",
+                   "trace-id")
 
 
 def log(*a):
@@ -1294,6 +1340,329 @@ def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
     return out
 
 
+def stream_run(streaming, model, hist, device, abort=False, snap=None,
+               **kw):
+    """One stream: feed every op (or, with abort=True, op by op until the
+    stream reports a violation), then finish. Returns the stream, its
+    result, the ops fed, and the feed and tail (finish) walls, each
+    ending in a synchronise when the stream is on the card. With
+    snap=n, also the ops fed and the carry on the host when the stream
+    had first dispatched n chunks (None when it never did), else
+    None."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    s = streaming.WglStream(model, device=device, **kw)
+    t = time.perf_counter()
+    fed = 0
+    shot = None
+    for op in hist.ops:
+        s.feed(op)
+        fed += 1
+        if snap is not None and shot is None and s.chunks >= snap:
+            shot = (fed, s.chunks, s.carry_host())
+        if abort and s.violation:
+            break
+    sync()
+    feed_s = time.perf_counter() - t
+    t = time.perf_counter()
+    r = s.finish()
+    sync()
+    return s, r, fed, feed_s, time.perf_counter() - t, shot
+
+
+def stream_offline_walk(wgl, carry_to_numpy, model, hist, s, device):
+    """The stream's engine (family, F, P, pack and dedup route) walking
+    the whole merged history offline in one range: its final carry and
+    its wall."""
+    ops = wgl.encode_ops_for_model(model, hist)
+    steps = wgl.build_steps(ops, s.p)
+    if s.engine == "dense":
+        lo, S, P = s._dense_shape()
+        k = wgl.DenseKernel(model.device_model, lo, S, P, device)
+    else:
+        k = wgl.SortKernel(model.device_model, s.frontier, s.p, s._pack,
+                           wgl.dedup_engine(s.frontier, s.p, s._pack),
+                           device)
+    t = time.perf_counter()
+    carry = k.run_range(wgl.stage_steps(steps.x, device), steps.n,
+                        k.init_carry(model.device_state()))
+    torch.cuda.synchronize()
+    return carry_to_numpy(carry), time.perf_counter() - t
+
+
+def same_results(label, a, b, skip=STREAM_VOLATILE) -> None:
+    for key in sorted(set(a) | set(b)):
+        if key not in skip and a.get(key) != b.get(key):
+            raise AssertionError(f"{label}: {key} {a.get(key)} != "
+                                 f"{b.get(key)}")
+
+
+def same_carry(label, a, b) -> None:
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: carries of {len(a)} and {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{label}: carry element {i} differs")
+
+
+def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+                 streaming, screen, linear, wr, platform, carry_to_numpy,
+                 cpu_headline) -> dict:
+    """The streaming-and-tier phase: five runs at full size on the card,
+    each against the CPU path and (the WGL streams) against the offline
+    walk of the same engine, with every kernel's launch count set to 0
+    just before each stream and read just after."""
+    reg = models.cas_register()
+    out = {}
+
+    def card_stream(label, hist, expect, abort=False, walk=None, snap=None,
+                    **kw):
+        """The stream on the card, its final carry against the offline
+        walk of its engine (`walk`: one already made of the same
+        history and engine); with snap=n, its carry after its first n
+        chunks is kept under out[label]['snapshot']."""
+        wgl_closure.LAUNCHES = 0
+        wgl_dedup.LAUNCHES = 0
+        s, r, fed, feed_s, tail_s, shot = stream_run(
+            streaming, reg, hist, dev, abort=abort, snap=snap, **kw)
+        k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        if walk is None:
+            walk = stream_offline_walk(wgl, carry_to_numpy, reg, hist, s,
+                                       dev)
+        same_carry(f"{label} vs the offline walk", s.carry_host(), walk[0])
+        rec = dict(valid=r["valid?"], op_index=r.get("op-index"),
+                   fed=fed, ops=len(hist.ops), feed_s=feed_s,
+                   tail_s=tail_s, offline_walk_s=walk[1],
+                   chunks=r["chunks"], checkpoints=s.checkpoint_seq,
+                   slots=s.p, engine=s.engine, dedup=r["dedup"],
+                   k1_launches=k1, k2_launches=k2,
+                   closure_rounds=r["closure-rounds"],
+                   dedup_launches=r["dedup-launches"],
+                   host_syncs=r["host-syncs"],
+                   violation_at_op=r.get("violation-at-op"),
+                   recovered=r.get("recovered"))
+        log(f"stream {label}: valid?={r['valid?']} op-index="
+            f"{r.get('op-index')} fed {fed}/{len(hist.ops)} ops, feed "
+            f"{feed_s:.3f} s, tail {tail_s:.3f} s, offline walk "
+            f"{walk[1]:.3f} s, {r['chunks']} chunks, {s.checkpoint_seq} "
+            f"checkpoints, engine {s.engine} P={s.p} dedup {r['dedup']}, "
+            f"K1 launches {k1}, K2 launches {k2}, host syncs "
+            f"{r['host-syncs']}, recovered {r.get('recovered')}; final "
+            f"carry equals the offline walk's")
+        if r["valid?"] is not expect \
+                or s.device.type != torch.device(dev).type \
+                or r["device"] != str(s.device):
+            raise AssertionError(f"{label}: {r['valid?']} on {r['device']}")
+        if k1 != (r["closure-rounds"] if s.engine == "dense" else 0) \
+                or k2 != r["dedup-launches"]:
+            raise AssertionError(f"{label}: K1 {k1} / K2 {k2} launches for "
+                                 f"{r['closure-rounds']} rounds and "
+                                 f"{r['dedup-launches']} hash dedups")
+        out[label] = rec
+        if shot is not None:
+            rec["snapshot"] = shot
+        return s, r, walk
+
+    def cpu_agrees(label, hist, s, r, abort=False, **kw):
+        """The same stream on the CPU path: the same result dict and the
+        same final carry."""
+        t = time.perf_counter()
+        sc, c, *_ = stream_run(streaming, reg, hist, "cpu", abort=abort,
+                               **kw)
+        out[label].update(cpu_s=time.perf_counter() - t,
+                          cpu_ops=len(hist.ops))
+        same_results(f"{label} card vs CPU", r, c)
+        same_carry(f"{label} card vs CPU", s.carry_host(), sc.carry_host())
+        log(f"stream {label}: the CPU path agrees on {len(hist.ops)} "
+            f"history ops, final carry included "
+            f"({out[label]['cpu_s']:.3f} s)")
+
+    # 1. the dense stream: K1 at (8, 16); the CPU path on the prefix the
+    # card's stream had been fed when it dispatched its first chunk(s)
+    adv = synth.adversarial_register_history(**ADVERSARIAL)
+    s, dense_result, dense_walk = card_stream(
+        "dense", adv, True, snap=STREAM_CPU_DENSE_CHUNKS, **STREAM_DENSE)
+    if s.p != 16 or out["dense"]["k1_launches"] <= 0 \
+            or "snapshot" not in out["dense"]:
+        raise AssertionError(f"dense stream: P={s.p}, "
+                             f"{out['dense']['k1_launches']} K1 launches, "
+                             f"{s.chunks} chunks")
+    snap_ops, snap_chunks, snap_carry = out["dense"].pop("snapshot")
+    adv_cut = type(adv)(adv.ops[:snap_ops])
+    t = time.perf_counter()
+    sc, rc_cpu, *_, shot = stream_run(streaming, reg, adv_cut, "cpu",
+                                      snap=snap_chunks, **STREAM_DENSE)
+    if shot is None or shot[:2] != (snap_ops, snap_chunks):
+        raise AssertionError(f"dense stream: the CPU path dispatched "
+                             f"{shot and shot[:2]}, the card "
+                             f"{(snap_ops, snap_chunks)}")
+    same_carry("dense: the full-size stream after its first "
+               f"{snap_chunks} chunk(s) vs the CPU path", snap_carry,
+               shot[2])
+    s_cut, rc, *_ = stream_run(streaming, reg, adv_cut, dev, **STREAM_DENSE)
+    same_results("dense prefix card vs CPU", rc, rc_cpu)
+    same_carry("dense prefix card vs CPU", s_cut.carry_host(),
+               sc.carry_host())
+    out["dense"].update(cpu_s=time.perf_counter() - t, cpu_ops=snap_ops,
+                        cpu_chunks=snap_chunks)
+    log(f"stream dense: the full-size stream's carry after its first "
+        f"{snap_chunks} chunk(s) ({snap_ops} of {len(adv.ops)} history ops) "
+        f"equals the CPU path's; finished there, the prefix gives the same "
+        f"result and final carry on the card and the CPU "
+        f"({out['dense']['cpu_s']:.3f} s)")
+
+    def stream_prefix(hist, **kw):
+        """A function streaming the first n ops of `hist` on the card,
+        fed and finished (the profile's walk)."""
+        return lambda n: stream_run(streaming, reg,
+                                    type(hist)(hist.ops[:n]), dev, **kw)
+
+    out["dense"]["profile"] = pr = profile_walk(
+        stream_prefix(adv, **STREAM_DENSE), STREAM_PROFILE_OPS)
+    log(f"profile stream dense, first {STREAM_PROFILE_OPS} ops: wall "
+        f"{pr['wall_s']:.4f} s, device busy {pr['device_busy_s']:.4f} s "
+        f"({100 * pr['busy_share']:.2f}%), {pr['kernel_launches']} kernel "
+        f"launches; top {pr['top']}")
+
+    # 2. the sort stream, fed until the violation shows: K2
+    plain = synth.register_history(**STREAM_ABORT_HIST)
+    bad = synth.corrupt(plain, seed=11)
+    bad_at = next(i for i, (a, b) in enumerate(zip(plain.ops, bad.ops))
+                  if a != b)
+    s, r, _walk = card_stream("sort-abort", bad, False, abort=True,
+                              **STREAM_ABORT)
+    rec = out["sort-abort"]
+    rec["violation_injected_at_op"] = bad_at
+    if rec["dedup"] != "pallas-hash" or rec["k2_launches"] <= 0 \
+            or not rec["fed"] < len(bad.ops) \
+            or not isinstance(rec["op_index"], int):
+        raise AssertionError(f"sort-abort: {rec}")
+    cpu_agrees("sort-abort", bad, s, r, abort=True, **STREAM_ABORT)
+    abort_result = r
+    rec["profile"] = pr = profile_walk(stream_prefix(bad, **STREAM_ABORT),
+                                       STREAM_PROFILE_OPS)
+    log(f"profile stream sort-abort, first {STREAM_PROFILE_OPS} ops: wall "
+        f"{pr['wall_s']:.4f} s, device busy {pr['device_busy_s']:.4f} s "
+        f"({100 * pr['busy_share']:.2f}%), {pr['kernel_launches']} kernel "
+        f"launches; top {pr['top']}")
+
+    # 3. the dense stream under a device loss at its midpoint chunk
+    mid = max(2, dense_result["chunks"] // 2)
+    platform.reset_fault_injection()
+    os.environ[platform.FAULT_INJECT_ENV] = \
+        f"device-lost@stream-chunk:{mid}"
+    try:
+        s, r, _walk = card_stream("dense-recovery", adv, True,
+                                  walk=dense_walk,
+                                  **dict(STREAM_DENSE, checkpoint_every=2))
+    finally:
+        del os.environ[platform.FAULT_INJECT_ENV]
+        platform.reset_fault_injection()
+    if (r.get("recovered") or {}).get("faults") != ["device-lost"] \
+            or r["recovered"]["retries"] != 1:
+        raise AssertionError(f"dense-recovery: {r.get('recovered')}")
+    out["dense-recovery"]["fault_at_chunk"] = mid
+    same_results("dense-recovery vs the unfaulted stream", r, dense_result,
+                 skip=STREAM_VOLATILE + ("recovered", "attested",
+                                         "closure-rounds"))
+
+    # 4. the rw-register stream
+    wh = synth.wr_history(ELLE_WR_TXNS, seed=SEED)
+    res = {}
+    for where in (dev, "cpu"):
+        ws = streaming.WrStream(device=where)
+        t = time.perf_counter()
+        for op in wh.ops:
+            ws.feed(op)
+        feed_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res[str(where)] = (ws.finish(), feed_s, time.perf_counter() - t)
+    (gw, feed_s, tail_s), (cw, *_) = res[str(dev)], res["cpu"]
+    same_results("wr stream card vs CPU", gw, cw)
+    t = time.perf_counter()
+    off = wr.check(wh, device=dev)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t
+    for key in ("valid?", "anomaly-types", "anomalies", "txn-count"):
+        if gw[key] != off[key]:
+            raise AssertionError(f"wr stream: {key} differs from wr.check")
+    out["wr"] = dict(valid=gw["valid?"], txns=gw["txn-count"],
+                     feed_s=feed_s, tail_s=tail_s, offline_s=off_s)
+    log(f"stream wr: valid?={gw['valid?']} {gw['txn-count']} txns, feed "
+        f"{feed_s:.3f} s, tail {tail_s:.3f} s, offline wr.check "
+        f"{off_s:.3f} s; the CPU path and wr.check agree")
+
+    # 5. the headline at tier 'screen', and the competition race
+    head = synth.register_history(**HEADLINE)
+    tier = {}
+    for sample in (0, 1):
+        test = {"tier": "screen", "screen-sample": sample}
+        t = time.perf_counter()
+        g = linear.linearizable(reg, device=dev).check(test, head, {})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if sample == 0:
+            c = linear.linearizable(reg, device="cpu").check(test, head, {})
+        else:
+            # the escalated full check: the CPU path's headline check
+            # (the agreement phase's) with the CPU's screen and pricing
+            sc = screen.screen_history(reg, head)
+            price = screen.price_escalation(reg, head)
+            esc, why = screen.should_escalate(sc, sample=1,
+                                              cost=price["cost"])
+            c = dict(cpu_headline, tier=1,
+                     escalated=screen.escalation_record(sc, why, price))
+        same_results(f"tier sample {sample}", g, c,
+                     skip=STREAM_VOLATILE + ("attested",))
+        tier[sample] = dict(valid=g["valid?"], wall_s=wall,
+                            escalated=g.get("escalated"),
+                            screened=g.get("screened", False))
+        log(f"tier screen, sample {sample}: valid?={g['valid?']} "
+            f"escalated={g.get('escalated')} wall {wall:.3f} s; the CPU "
+            f"path agrees")
+    if tier[0]["escalated"] is not None or tier[1]["escalated"] is None \
+            or tier[1]["escalated"]["why"] != "sampled":
+        raise AssertionError(f"tier: {tier}")
+    t = time.perf_counter()
+    race = linear.linearizable(reg, algorithm="competition",
+                               device=dev).check(
+        {}, head, {})
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t
+    winner = race.get("competition-winner")
+    # the winner's side alone on the CPU path: the host search, or the
+    # CPU path's device search (the agreement phase's headline check)
+    t = time.perf_counter()
+    if winner == "host":
+        alone = linear.analysis_host(reg, head)
+        alone_s = time.perf_counter() - t
+        skip = ("competition-winner", "duration-ms")
+    elif winner == "gpu":
+        alone = linear._truncate(dict(cpu_headline))
+        alone_s = cpu_headline["duration-ms"] / 1e3
+        skip = ("competition-winner", "attested") + STREAM_VOLATILE
+    else:
+        raise AssertionError(f"race: winner {winner!r}")
+    same_results(f"race (won by {winner}) vs its side alone on the CPU",
+                 race, alone, skip=skip)
+    # the loser is cancelled and the race returns with the winner: the
+    # sides share the interpreter's lock, so the winner may run at half
+    # its own pace, and no more than that is allowed for
+    if race_s > 4 * alone_s + 5.0:
+        raise AssertionError(f"race: {race_s:.3f} s against {alone_s:.3f} "
+                             f"s for its winner alone")
+    out["tier"] = tier
+    out["race"] = dict(valid=race["valid?"], wall_s=race_s,
+                       winner=winner, winner_alone_s=alone_s,
+                       analyzer=race.get("analyzer"))
+    log(f"race: valid?={race['valid?']} winner {winner} "
+        f"({race.get('analyzer')}) wall {race_s:.3f} s, its side alone on "
+        f"the CPU {alone_s:.3f} s; the result equals that side's on every "
+        f"key but {', '.join(skip)}")
+    no_stamps("streams", [dense_result, abort_result, gw])
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -1309,7 +1678,8 @@ def main() -> int:
         return 1
     from jepsen_tpu_torch import _build, _platform, independent, models
     from jepsen_tpu_torch.carry import carry_to_numpy
-    from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+    from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
+                                          wgl, wgl_closure, wgl_dedup)
     from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
     from jepsen_tpu_torch.checker.elle import list_append, wr
     from jepsen_tpu_torch.checker.linear import linearizable
@@ -1381,23 +1751,36 @@ def main() -> int:
     phase_done("main path")
 
     # -- agreement with the port's CPU path -----------------------------------
+    # the headline at full size (its CPU result also stands for the tier
+    # phase's escalated check); the others on 1,000-op histories of the
+    # same generators (the adversarial one under the sort engine on
+    # 2,000), the forced-dense adversarial one on 700 ops (its plain
+    # closure rounds at 2^14 columns set the CPU path's pace; the
+    # front-loaded crashed writes keep it at P = 14)
     reg = models.cas_register()
     adv_small = synth.adversarial_register_history(
         **dict(ADVERSARIAL, n_ops=2_000))
+    adv_dense = synth.adversarial_register_history(
+        **dict(ADVERSARIAL, n_ops=700))
+    head_small = synth.register_history(**dict(HEADLINE, n_ops=1_000))
     sort_small = dict(engine="sort", frontier=1024, max_frontier=1024)
     agree = [("headline", *hists["headline"], {}),
-             ("corrupted", *hists["corrupted"], {}),
-             ("adversarial-2k-dense", reg, adv_small, {"engine": "dense"}),
-             ("phantom", *hists["phantom"], {}),
-             ("counter-2k", models.counter(),
-              synth.counter_history(**dict(COUNTER, n_ops=2_000)), {}),
+             ("corrupted-1k", reg,
+              synth.corrupt(head_small, value=HEADLINE["values"]), {}),
+             ("adversarial-700-dense", reg, adv_dense, {"engine": "dense"}),
+             ("phantom-1k", reg, synth.corrupt(head_small), {}),
+             ("counter-1k", models.counter(),
+              synth.counter_history(**dict(COUNTER, n_ops=1_000)), {}),
              ("adversarial-2k-sort", reg, adv_small, sort_small)]
+    cpu_results = {}
     for label, model, hist, kw in agree:
+        t0 = time.perf_counter()
         g = results.get(label) or linearizable(model, **kw).check(
             {}, hist, {})
         t = time.perf_counter()
         c = linearizable(model, device="cpu", **kw).check({}, hist, {})
         cpu_s = time.perf_counter() - t
+        cpu_results[label] = c
         for key in ("valid?", "op-index", "max-frontier", "frontier-size",
                     "dedup", "analyzer", "dense-shape", "closure-rounds",
                     "dedup-launches", "host-syncs"):
@@ -1413,7 +1796,8 @@ def main() -> int:
         log(f"{label}: GPU and CPU agree (verdict {c['valid?']}, "
             f"op-index {c.get('op-index')}, max-frontier "
             f"{c['max-frontier']}, {c['analyzer']} {c['dedup']}, counts, "
-            f"final carry of {len(cg)} elements; CPU path {cpu_s:.3f} s)")
+            f"final carry of {len(cg)} elements; CPU path {cpu_s:.3f} s, "
+            f"label {time.perf_counter() - t0:.3f} s)")
     phase_done("agreement with the CPU path")
 
     # -- where the time goes: the device's busy share ------------------------
@@ -1446,6 +1830,13 @@ def main() -> int:
     elle = phase_elle(dev, synth, elle_kernels, list_append, wr, _platform)
     phase_done("elle")
 
+    # -- phase 8: streaming, the tier and the race ------------------------
+    streams = phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+                           streaming, screen, linear, wr, _platform,
+                           carry_to_numpy, cpu_results["headline"])
+    phase_done("streaming, tier and race")
+    log(f"phases: {sum(phase_s.values()):.1f} s in all")
+
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
            or m.startswith("jepsen_tpu.") for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1466,6 +1857,11 @@ def main() -> int:
         "bound_by": k1_main["bound_by"],
         "library_ms": None,
         "shape": [k1_main["S"], k1_main["P"]],
+        "stream_launches": streams["dense"]["k1_launches"]
+        + streams["dense-recovery"]["k1_launches"],
+        "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
+        "stream_shape_ms": k1["shapes"][3]["ms"],
+        "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
         "real_table_ms": k1_real["ms"],
         "real_table_bound_ms": k1_real["bound_ms"],
         "shapes": k1["shapes"],
@@ -1484,6 +1880,7 @@ def main() -> int:
         # flags, no digest): no PyTorch call computes K2's
         "library_ms": None,
         "unique_ms": k2_main["unique_ms"],
+        "stream_launches": streams["sort-abort"]["k2_launches"],
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -1512,6 +1909,7 @@ def main() -> int:
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
             "profiles": profiles, "batch": batch, "elle": elle,
+            "streams": streams,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -20,14 +20,17 @@ dispatch, and either the `JEPSEN_TPU_FAULT_INJECT` env knob (``kind@site:n``
 — raise an InjectedFault of `kind` at the n-th dispatch on `site`; a
 ``bitflip@site:n`` clause flips one bit of the n-th staged buffer on
 `site` through `maybe_corrupt`) or the monkeypatchable `fault_hook` /
-`corrupt_hook` make each bucket reproducible on the CPU. The JAX
-package's ordered `FaultSchedule` and its chaos `probe` belong to the
-service and are not ported yet.
+`corrupt_hook` make each bucket reproducible on the CPU. An ordered
+`FaultSchedule` (`install_fault_schedule`) expresses what the env knob
+cannot, such as "a fault one staging into the recovery replay"; every
+injection, and the streams' fault and replay events, reach `probe`.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import os
+import threading
 
 import torch
 
@@ -166,6 +169,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def pin_device(device=None) -> torch.device:
+    """`resolve_device`, with a CUDA device's index made explicit. Work
+    handed to another thread (a stream's feeding thread, the competition
+    race) must name its card: PyTorch's current device is per thread,
+    and a new thread starts on the default one."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def attest_enabled(override=None) -> bool:
     """Is ABFT attestation on? An explicit option beats the
     JEPSEN_TPU_ATTEST env gate (default ON; =0 opts out)."""
@@ -195,10 +209,150 @@ _fault_seq: dict[str, int] = {}
 _corrupt_seq: dict[str, int] = {}
 
 
+class FaultEvent:
+    """One scheduled fault: raise/flip `kind` at the `after`-th hit on a
+    site matching `site` (fnmatch pattern: ``stream-chunk*`` matches
+    every stream), counted from the moment the event ARMS. The first
+    event arms at install; each later event arms when its predecessor
+    fires, so triggers are relative."""
+
+    __slots__ = ("kind", "site", "after")
+
+    def __init__(self, kind: str, site: str, after: int = 1):
+        if after < 1:
+            raise ValueError(f"after must be >= 1, got {after}")
+        self.kind = kind
+        self.site = site
+        self.after = int(after)
+
+    def __repr__(self) -> str:
+        return f"{self.kind}@{self.site}:{self.after}"
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "site": self.site,
+                "after": self.after}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FaultEvent":
+        return cls(d["kind"], d["site"], int(d.get("after", 1)))
+
+
+class FaultSchedule:
+    """An ordered list of FaultEvents, advanced by the injection shim.
+
+    Unlike the env knob's clauses, which all count the same absolute
+    per-site counters, schedule events arm strictly in order: event i+1
+    starts counting hits only once event i fired. ``bitflip`` events
+    consume staging hits (maybe_corrupt); every other kind consumes
+    dispatch hits (maybe_inject_fault). Thread-safe. `fired` records
+    (kind, site, after) per fired event."""
+
+    def __init__(self, events):
+        self.events = [e if isinstance(e, FaultEvent)
+                       else FaultEvent.from_dict(e) for e in events]
+        self._lock = threading.Lock()
+        self._i = 0             # guarded-by: _lock
+        self._hits = 0          # hits on the armed event's site
+        self.fired: list = []   # guarded-by: _lock
+
+    @classmethod
+    def from_clauses(cls, clauses) -> "FaultSchedule":
+        """Build from ``kind@site:n`` strings (the env-knob grammar, but
+        ordered: n counts hits after the previous clause fired)."""
+        events = []
+        for clause in clauses:
+            clause = clause.strip()
+            if not clause:
+                continue
+            kind, _, rest = clause.partition("@")
+            site, _, after = rest.partition(":")
+            events.append(FaultEvent(kind, site, int(after or 1)))
+        return cls(events)
+
+    def done(self) -> bool:
+        with self._lock:
+            return self._i >= len(self.events)
+
+    def remaining(self) -> int:
+        with self._lock:
+            return len(self.events) - self._i
+
+    def _advance(self, site: str, staging: bool):
+        """One hit on `site`. Returns the armed event when it fires
+        (the caller raises or flips outside the lock), else None."""
+        with self._lock:
+            if self._i >= len(self.events):
+                return None
+            evt = self.events[self._i]
+            if (evt.kind == BITFLIP_KIND) != staging:
+                return None
+            if not fnmatch.fnmatch(site, evt.site):
+                return None
+            self._hits += 1
+            if self._hits < evt.after:
+                return None
+            self._i += 1
+            self._hits = 0
+            self.fired.append((evt.kind, site, evt.after))
+            return evt
+
+    def on_dispatch(self, site: str) -> None:
+        evt = self._advance(site, staging=False)
+        if evt is not None:
+            probe("inject", kind=evt.kind, site=site, source="schedule")
+            raise InjectedFault(evt.kind, site, evt.after)
+
+    def on_staging(self, site: str, arr):
+        evt = self._advance(site, staging=True)
+        if evt is None:
+            return arr
+        probe("corrupt", kind=evt.kind, site=site, source="schedule")
+        return flip_bit(arr)
+
+
+# the installed schedule, if any (tests only)
+_schedule: FaultSchedule | None = None
+
+
+def install_fault_schedule(
+        schedule: "FaultSchedule | None") -> "FaultSchedule | None":
+    """Install (or clear, with None) the process-wide fault schedule.
+    Returns the previous one. reset_fault_injection() also clears it."""
+    global _schedule
+    prev, _schedule = _schedule, schedule
+    return prev
+
+
+def current_fault_schedule() -> "FaultSchedule | None":
+    return _schedule
+
+
+# fn(event: dict) -> None; None = probes are free (one attribute check)
+probe_hook = None
+
+
+def probe(event: str, **info) -> None:
+    """Emit one probe event ({"event": ..., **info}) to the installed
+    hook: injections, and the streams' faults and replays. Never
+    raises: a broken observer must not take the pipeline down."""
+    hook = probe_hook
+    if hook is None:
+        return
+    d = {"event": event}
+    d.update(info)
+    try:
+        hook(d)
+    except Exception:  # noqa: BLE001 — observability must not break us
+        pass
+
+
 def reset_fault_injection() -> None:
-    """Zero the per-site dispatch and staging counters."""
+    """Zero the per-site dispatch and staging counters and drop any
+    installed schedule."""
+    global _schedule
     _fault_seq.clear()
     _corrupt_seq.clear()
+    _schedule = None
 
 
 def _clauses(kind_is_bitflip: bool):
@@ -218,25 +372,34 @@ def _clauses(kind_is_bitflip: bool):
 
 def maybe_inject_fault(site: str) -> None:
     """Called just before each recovery-aware device dispatch. Sites in
-    use: 'offline' (wgl.analysis_gpu), 'batch' (wgl.analysis_gpu_batch)
-    and 'elle' (elle.kernels._classify_batches, once per bucket
-    attempt). The n-th dispatch on a site named by a
-    ``kind@site:n`` clause raises InjectedFault(kind); n counts every
-    dispatch since reset_fault_injection(), so a retry moves past the
-    clause and the fault fires once, like a real transient."""
+    use: 'offline' (wgl.analysis_gpu), 'batch' (wgl.analysis_gpu_batch),
+    'stream-chunk' (streaming.WglStream: each chunk dispatch and each
+    slice of a recovery replay; a stream built with another
+    `fault_site` uses that name) and 'elle'
+    (elle.kernels._classify_batches, once per bucket attempt). The n-th
+    dispatch on a site named by a ``kind@site:n`` clause raises
+    InjectedFault(kind); n counts every dispatch since
+    reset_fault_injection(), so a retry moves past the clause and the
+    fault fires once, like a real transient. An installed
+    FaultSchedule is consulted before the env knob."""
     n = _fault_seq.get(site, 0) + 1
     _fault_seq[site] = n
     hook = fault_hook
     if hook is not None:
         hook(site)
+    sched = _schedule
+    if sched is not None:
+        sched.on_dispatch(site)
     for kind, tsite, seq in _clauses(False):
         if tsite == site and n == seq:
+            probe("inject", kind=kind, site=site, source="env")
             raise InjectedFault(kind, site, n)
 
 
 def maybe_corrupt(site: str, arr):
     """Called on each host-staged buffer just before it is copied to the
-    device (on the 'elle' site, the ww stack of each bucket attempt). A
+    device (on the 'elle' site, the ww stack of each bucket attempt; on
+    'stream-chunk', each chunk's step buffer). A
     ``bitflip@site:n`` clause flips one bit in a COPY of the
     n-th staged buffer on that site: the caller ships the copy while
     its canonical host buffer, and the digest computed from it, stay
@@ -249,8 +412,14 @@ def maybe_corrupt(site: str, arr):
         out = hook(site, arr)
         if out is not None:
             return out
-    for _kind, tsite, seq in _clauses(True):
+    sched = _schedule
+    if sched is not None:
+        out = sched.on_staging(site, arr)
+        if out is not arr:
+            return out
+    for kind, tsite, seq in _clauses(True):
         if tsite == site and n == seq:
+            probe("corrupt", kind=kind, site=site, source="env")
             return flip_bit(arr)
     return arr
 

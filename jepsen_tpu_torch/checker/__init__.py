@@ -1,8 +1,10 @@
 """Checker core: the protocol, the validity lattice and the crash-safe
 check.
 
-Counterpart of `jepsen_tpu/checker/__init__.py`, cut to what the
-linearizability and independent checkers need. A checker is any object
+Counterpart of `jepsen_tpu/checker/__init__.py` (without the re-exports
+of the workload checkers, which the port does not have): the validity
+lattice (true < :unknown < false), the exception-absorbing `check_safe`,
+the parallel `compose` and `concurrency_limit`. A checker is any object
 with ``check(test, history, opts) -> result-dict``; results carry a
 ``'valid?'`` key which is True, False, or the string ``'unknown'``.
 Plain functions ``f(test, history, opts)`` are adapted by `coerce`.
@@ -10,11 +12,13 @@ Plain functions ``f(test, history, opts)`` are adapted by `coerce`.
 
 from __future__ import annotations
 
+import threading
 import traceback
 from typing import Any, Callable, Mapping
 
 from .._platform import classify_backend_error
 from ..history import History, history
+from ..util import bounded_pmap
 
 UNKNOWN = "unknown"
 
@@ -61,6 +65,26 @@ def coerce(c) -> Checker:
     raise TypeError(f"not a checker: {c!r}")
 
 
+class _Noop(Checker):
+    def check(self, test, hist, opts):
+        return None
+
+
+def noop() -> Checker:
+    """A checker that returns nothing (reference checker.clj:68-72)."""
+    return _Noop()
+
+
+class _UnbridledOptimism(Checker):
+    def check(self, test, hist, opts):
+        return {"valid?": True}
+
+
+def unbridled_optimism() -> Checker:
+    """Everything is awesome (reference checker.clj:118-122)."""
+    return _UnbridledOptimism()
+
+
 def checker_name(checker) -> str:
     """A human-readable name for a checker, for error attribution."""
     c = checker
@@ -92,3 +116,74 @@ def check_safe(checker, test, hist, opts=None, name=None) -> dict:
                     "error": traceback.format_exc()}
         return {"valid?": UNKNOWN, "checker": cname,
                 "error": traceback.format_exc()}
+
+
+class Compose(Checker):
+    """Runs a map of named checkers (in parallel) and merges validity
+    (reference checker.clj:87-99).
+
+    Device-fault outcomes are summarized across the composition:
+    'recovered-checkers' names sub-checkers whose results carry a
+    recovery trail (the device faulted and the verdict was recovered),
+    'degraded-checkers' those that lost their verdict to faults past the
+    recovery budget. Tiered-verification outcomes likewise:
+    'screened-checkers' names sub-checkers whose verdict came from the
+    tier-1 screen alone, 'escalated-checkers' those the screen escalated
+    to a full search, and 'attested-checkers' those whose device results
+    carried (and passed) ABFT attestation."""
+
+    def __init__(self, checker_map: Mapping[str, Any]):
+        self.checkers = {k: coerce(c) for k, c in checker_map.items()}
+
+    def check(self, test, hist, opts):
+        hist = history(hist)
+        items = list(self.checkers.items())
+        results = bounded_pmap(
+            lambda kv: (kv[0], check_safe(kv[1], test, hist, opts,
+                                          name=kv[0])),
+            items, max_workers=8)
+        out: dict = dict(results)
+        out["valid?"] = merge_valid(
+            r.get("valid?", True) for _, r in results if r is not None)
+
+        def names(pred) -> list:
+            return sorted(k for k, r in results
+                          if isinstance(r, dict) and pred(r))
+
+        # a recovery trail is a dict ({'faults': ..., 'retries': ...});
+        # workload checkers reuse the 'recovered' key for other payloads
+        for key, pred in (
+                ("recovered-checkers",
+                 lambda r: isinstance(r.get("recovered"), dict)),
+                ("degraded-checkers", lambda r: r.get("degraded")),
+                ("screened-checkers",
+                 lambda r: r.get("screened") and not r.get("escalated")),
+                ("escalated-checkers",
+                 lambda r: isinstance(r.get("escalated"), dict)),
+                ("attested-checkers",
+                 lambda r: isinstance(r.get("attested"), dict))):
+            found = names(pred)
+            if found:
+                out[key] = found
+        return out
+
+
+def compose(checker_map: Mapping[str, Any]) -> Checker:
+    return Compose(checker_map)
+
+
+class ConcurrencyLimit(Checker):
+    """Bounds concurrent executions of a checker with a fair semaphore
+    (reference checker.clj:101-116)."""
+
+    def __init__(self, limit: int, checker):
+        self.sem = threading.Semaphore(limit)
+        self.checker = coerce(checker)
+
+    def check(self, test, hist, opts):
+        with self.sem:
+            return self.checker.check(test, hist, opts)
+
+
+def concurrency_limit(limit: int, checker) -> Checker:
+    return ConcurrencyLimit(limit, checker)

@@ -14,9 +14,8 @@ Anomaly specs accept Adya shorthand: 'G1' expands to G1a+G1b+G1c, 'G2'
 to G-single+G2-item (matching `tests/cycle/wr.clj:31-45`'s taxonomy).
 
 Every checker here runs on CUDA unless built with ``device="cpu"``.
-Not ported yet: a `mesh` (the multi-GPU slice), `RWRegisterChecker`'s
-screen tier and its reuse of streamed results (the streaming slice),
-and the transaction generators (the generator port).
+Not ported yet: a `mesh` (the multi-GPU slice) and the transaction
+generators (the generator port).
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from __future__ import annotations
 from typing import Iterable
 
 from .. import Checker
+from ...history import history as _history
 from . import graphs, kernels, list_append, wr  # noqa: F401
 
 _EXPANSIONS = {
@@ -66,17 +66,16 @@ class ListAppendChecker(Checker):
 class RWRegisterChecker(Checker):
     """Checker adapter over wr.check (reference
     `tests/cycle/wr.clj:14-54`; `:additional-graphs` per its lines
-    17-26).
+    17-26). device: where the classifier runs (None = CUDA).
 
-    The JAX package's adapter honors the test map's 'tier' knob: at tier
-    'screen' its O(n) screen (`checker/screen.py`) decides whether the
-    full search runs at all, and it reuses a result its streaming
-    pipeline already produced ('streamed-results'). Both arrive with the
-    port's streaming slice (ROADMAP Queue 1 item 3); until then a test
-    map asking for the screen tier raises NotImplementedError rather
-    than running a different check, and streamed results are not read:
-    the full offline check runs. Checkers with additional precedence
-    graphs always run the full search, as in the JAX package."""
+    Honors the test map's 'tier' knob: at tier 'screen' the O(n)
+    WrScreen (single-pass anomalies + exact SCC cycle existence — see
+    checker/screen.py) decides whether the full classification and
+    certificate search runs at all. Checkers with additional precedence
+    graphs always run the full search: the screen's SCC pass covers only
+    the dependency edges. A result or screen verdict the online pipeline
+    already produced for this history ('streamed-results',
+    `checker/streaming.py`) is reused."""
 
     def __init__(self, anomalies=("G0", "G1", "G2"), mesh=None,
                  additional_graphs=(), device=None):
@@ -87,12 +86,50 @@ class RWRegisterChecker(Checker):
         self.device = device
 
     def check(self, test, hist, opts):
-        # the JAX package's screen.tier_is_screen
-        if (test or {}).get("tier") in (1, "1", "screen") \
+        from .. import screen as _screen
+        if _screen.tier_is_screen((test or {}).get("tier")) \
                 and not self.additional_graphs:
-            raise NotImplementedError(
-                "the screen tier is not ported yet: it arrives with the "
-                "streaming slice (ROADMAP Queue 1 item 3)")
+            return self._tier1(test, hist)
+        return self._full_check(test, hist)
+
+    def _tier1(self, test, hist):
+        from .. import screen as _screen
+        sc = self._streamed_screen(test, hist) \
+            or _screen.screen_wr(hist, anomalies=self.anomalies)
+        sample = (test or {}).get("screen-sample")
+        if sample is None:
+            sample = _screen.DEFAULT_SAMPLE
+        esc, why = _screen.should_escalate(sc, sample=float(sample))
+        if not esc:
+            out = dict(sc)
+            out["tier"] = 1
+            return out
+        full = self._full_check(test, hist)
+        full["escalated"] = _screen.escalation_record(sc, why)
+        full["tier"] = 1
+        return full
+
+    def _streamed_screen(self, test, hist):
+        r = ((test or {}).get("streamed-results") or {}) \
+            .get("screen-wr")
+        if not r or not r.get("screened"):
+            return None
+        if r.get("history-len") != len(_history(hist).client_ops()):
+            return None
+        return dict(r)
+
+    def _full_check(self, test, hist):
+        # a result the online pipeline already streamed during the run
+        # (checker/streaming.WrStream) is reused instead of rebuilding
+        # the graph — guarded on covering the same history AND asking
+        # the same question: a sibling checker with additional graphs
+        # or a different anomaly set must run its own (offline) search
+        r = ((test or {}).get("streamed-results") or {}).get("elle-wr")
+        if r and not self.additional_graphs \
+                and r.get("checked-anomalies") == sorted(self.anomalies) \
+                and r.get("history-len") == len(
+                    _history(hist).client_ops()):
+            return dict(r)
         return wr.check(hist, self.anomalies,
                         additional_graphs=self.additional_graphs,
                         device=self.device)

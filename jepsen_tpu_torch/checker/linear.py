@@ -16,19 +16,26 @@ already linearized).
   * the history is linearizable iff a configuration survives every entry.
 
 `Linearizable` routes models with a device form to the port's GPU engine
-(`wgl.analysis_gpu`) and everything else to this oracle; the independent
-checker hands its per-key subhistories to the batch entry
-(`wgl.analysis_gpu_batch`) with the same options.
+(`wgl.analysis_gpu`) and everything else to this oracle, or races the
+two (algorithm 'competition'); at tier 'screen' it runs the O(n)
+screen first (`checker/screen.py`). The independent checker hands its
+per-key subhistories to the batch entry (`wgl.analysis_gpu_batch`) with
+the same options.
 """
 
 from __future__ import annotations
 
+import atexit
+import logging
+import threading
 import time as _time
 
 from .. import models as m
 from ..history import DeviceEncodingError, History, \
     history as as_history, is_fail, is_info, is_invoke
 from . import Checker, UNKNOWN
+
+log = logging.getLogger(__name__)
 
 def _prepare(hist: History):
     """Lower an indexed client history to a list of entries:
@@ -236,11 +243,32 @@ class Linearizable(Checker):
                 package runs unchanged
       'auto'  — gpu when the model has a device form and the history fits
                 its device encoding, else host
+      'competition' — the host search raced against the device search
+                (`_compete`); the first definite verdict wins and names
+                its side in 'competition-winner' ("host" or "gpu")
       'linear'/'wgl' — accepted aliases (reference names) for 'auto'.
 
-    Extra keyword options flow straight to `wgl.analysis_gpu`: device
-    ('cuda' by default; 'cpu' runs the plain PyTorch path), engine,
-    dense_slot_cap, chunk_entries, budget_s, explain, frontier,
+    On a definite invalid verdict with an op-index, writes the failure
+    neighborhood to linear.svg in the test's store directory (the
+    reference renders knossos analyses the same way,
+    checker.clj:205-212).
+
+    Two options are this checker's own:
+
+      tier='full'|'screen'|1 — tiered verification (checker/screen.py).
+                     'screen' runs the O(n) invariant screen first and
+                     the full search only on suspicion or a sampled
+                     fraction; a screen pass returns a screened verdict,
+                     an escalated result carries 'escalated' with the
+                     screen's suspicion and the cost-model pricing. The
+                     test map's 'tier' applies when unset here.
+      screen_sample float — sampled-escalation fraction for clean
+                     histories at tier 1 (default screen.DEFAULT_SAMPLE;
+                     the test map's 'screen-sample').
+
+    The other keyword options flow straight to `wgl.analysis_gpu`:
+    device ('cuda' by default; 'cpu' runs the plain PyTorch path),
+    engine, dense_slot_cap, chunk_entries, budget_s, explain, frontier,
     max_frontier, slot_overflow_fallback, and max_recovery_retries (the
     recovery ladder's budget of classified device faults; the test
     map's 'max-recovery-retries' applies when it is unset here). Under
@@ -248,6 +276,10 @@ class Linearizable(Checker):
     `wgl.analysis_gpu_batch` (device, engine, dense_slot_cap,
     chunk_entries, budget_s, frontier, max_frontier, slots,
     max_recovery_retries; an option it does not take raises).
+
+    A verdict the online pipeline already produced for this history
+    (the test map's 'streamed-results', `checker/streaming.py`) is
+    reused instead of searching again.
     """
 
     def __init__(self, model: m.Model, algorithm: str = "auto", **opts):
@@ -258,22 +290,75 @@ class Linearizable(Checker):
         self.opts = opts
 
     def check(self, test, hist, opts):
+        from . import screen as _screen
+        tier = self.opts.get("tier", (test or {}).get("tier"))
+        if _screen.tier_is_screen(tier):
+            return self._tier1(test, hist, opts)
         return self._full_check(test, hist, opts)
 
+    def _tier1(self, test, hist, opts):
+        """The tiered pipeline: O(n) screen every history; run the full
+        device search only on suspicion or a deterministic sampled
+        fraction, priced through wgl.select_engine's cost model."""
+        from . import screen as _screen
+        sc = self._streamed_screen(test, hist) \
+            or _screen.screen_history(self.model, hist)
+        price = _screen.price_escalation(self.model, hist)
+        sample = self.opts.get("screen_sample")
+        if sample is None:
+            sample = (test or {}).get("screen-sample")
+        if sample is None:
+            sample = _screen.DEFAULT_SAMPLE
+        esc, why = _screen.should_escalate(
+            sc, sample=float(sample),
+            cost=price["cost"] if price else None)
+        if not esc:
+            out = dict(sc)
+            out["tier"] = 1
+            return out
+        full = self._full_check(test, hist, opts)
+        full["escalated"] = _screen.escalation_record(sc, why, price)
+        full["tier"] = 1
+        return full
+
+    def _streamed_screen(self, test, hist) -> dict | None:
+        """A screen verdict the online pipeline already produced
+        (maybe_online's 'screen-linear' target), reused under the same
+        coverage guards as _streamed_result."""
+        r = ((test or {}).get("streamed-results") or {}) \
+            .get("screen-linear")
+        if not r or not r.get("screened"):
+            return None
+        if r.get("model") != repr(self.model):
+            return None
+        if r.get("history-len") != len(as_history(hist).client_ops()):
+            return None
+        return dict(r)
+
     def _full_check(self, test, hist, opts):
+        streamed = self._streamed_result(test, hist)
+        if streamed is not None:
+            # same post-processing as an offline verdict: a definite
+            # invalid still renders its linear.svg failure neighborhood
+            _write_svg(test, opts, streamed, hist)
+            return streamed
         algo = self.algorithm
         if algo in ("linear", "wgl"):
             algo = "auto"
         elif algo in ("tpu", "tpu-wgl"):
             algo = "gpu"
-        if algo not in ("auto", "gpu", "host"):
+        if algo not in ("auto", "gpu", "host", "competition"):
             raise ValueError(f"unknown linearizability algorithm {algo!r}")
         kw = dict(self.opts)
+        kw.pop("tier", None)           # tier knobs are this checker's,
+        kw.pop("screen_sample", None)  # not the device engine's
         mrr = (test or {}).get("max-recovery-retries")
         if mrr is not None:
             kw.setdefault("max_recovery_retries", mrr)
         a = None
-        if algo in ("auto", "gpu"):
+        if algo == "competition" and self.model.device_model is not None:
+            a = self._compete(hist, kw)
+        elif algo in ("auto", "gpu", "competition"):
             if self.model.device_model is not None:
                 from .wgl import analysis_gpu
                 try:
@@ -289,7 +374,156 @@ class Linearizable(Checker):
         if a is None:
             a = analysis_host(self.model, hist,
                               budget_s=self.opts.get("budget_s"))
-        return _truncate(a)
+        a = _truncate(a)
+        _write_svg(test, opts, a, hist)
+        return a
+
+    def _streamed_result(self, test, hist) -> dict | None:
+        """A verdict already produced by the online pipeline (stashed
+        under test['streamed-results']), reused instead of re-searching
+        the same history, but only when it is definite and demonstrably
+        covers this history (same client op count) AND this checker's
+        model (a Compose can hold several Linearizable checkers). An
+        'unknown' streamed verdict (frontier cap) re-checks offline."""
+        r = ((test or {}).get("streamed-results") or {}).get("linear")
+        if not r or r.get("valid?") not in (True, False):
+            return None
+        if r.get("model") != repr(self.model):
+            return None
+        if r.get("history-len") != len(as_history(hist).client_ops()):
+            return None
+        return _truncate(dict(r))
+
+    def _compete(self, hist, base_opts: dict | None = None) -> dict:
+        """Race the host search against the device search; the first
+        definitive (non-'unknown') verdict returns at once, and the loser
+        is cancelled: the host search stops before its next event, the
+        device search before its next step. A loser still running when
+        the interpreter exits is joined then (`_join_racers`), so no
+        search is left inside a device call at teardown.
+
+        The JAX package turns an exception on either side into an
+        'unknown'. Here the device side's failures stay visible: a device
+        search that raises (a kernel that does not build or launch, a
+        fault the ladder does not classify) before the race is decided
+        cancels the host search and re-raises, so a broken kernel never
+        comes back as a host verdict; one that ends degraded past its
+        recovery budget leaves its error on the result under
+        'device-error'; one that fails after the host has won is logged.
+        The device side runs in its own thread, where PyTorch's current
+        device is the default one, so the device is resolved here and
+        passed explicitly."""
+        import queue as _queue
+
+        from .._platform import pin_device
+        from .wgl import analysis_gpu
+
+        cancel = threading.Event()
+        results: _queue.Queue = _queue.Queue()
+        decided = threading.Lock()
+        done = []   # set (under `decided`) once the race has returned
+
+        def run(name, fn):
+            try:
+                r, exc = fn(), None
+            except Exception as e:  # noqa: BLE001 — loser may die racing
+                r, exc = {"valid?": UNKNOWN, "error": repr(e)}, e
+            finally:
+                _racer_done()
+            with decided:
+                if done:
+                    if name == "gpu" and exc is not None:
+                        log.warning("competition: the device search failed "
+                                    "after the race was decided: %r", exc)
+                    return
+                results.put((name, r, exc if name == "gpu" else None))
+
+        opts = dict(base_opts if base_opts is not None else self.opts)
+        opts["device"] = pin_device(opts.get("device"))
+        opts["explain"] = False  # explain after the race, not during it
+        # on slot overflow the device path would duplicate the racing
+        # host thread's search: make it concede instead
+        opts["slot_overflow_fallback"] = False
+        threads = [
+            threading.Thread(
+                target=run, daemon=True,
+                args=("host", lambda: analysis_host(
+                    self.model, hist, cancel=cancel.is_set))),
+            threading.Thread(
+                target=run, daemon=True,
+                args=("gpu", lambda: analysis_gpu(
+                    self.model, hist, cancel=cancel.is_set, **opts))),
+        ]
+        for t in threads:
+            _racer_start(t, cancel)
+        a = device_error = None
+        try:
+            for _ in threads:
+                name, r, exc = results.get()
+                if exc is not None:
+                    raise exc
+                if name == "gpu" and r.get("degraded"):
+                    device_error = r.get("error")
+                if r.get("valid?") != UNKNOWN:
+                    r["competition-winner"] = name
+                    a = r
+                    break
+                a = r
+        finally:
+            with decided:
+                done.append(True)
+            cancel.set()
+        if device_error is not None and a.get("competition-winner"):
+            a["device-error"] = device_error
+        if a.get("valid?") is False and not a.get("final-paths") \
+                and "op-index" in a:
+            ex = explain_failure(self.model, hist, a["op-index"])
+            if ex is not None:
+                a["configs"] = ex["configs"]
+                a["final-paths"] = ex["final-paths"]
+        return a  # or, both indefinite, the second 'unknown'
+
+
+# The threads of every race still running, with their race's cancel:
+# the loser of a decided race runs on until its next poll of `cancel`.
+_RACERS: dict = {}
+_RACERS_LOCK = threading.Lock()
+
+
+def _racer_start(t: threading.Thread, cancel: threading.Event) -> None:
+    with _RACERS_LOCK:
+        _RACERS[t] = cancel
+    t.start()
+
+
+def _racer_done() -> None:
+    with _RACERS_LOCK:
+        _RACERS.pop(threading.current_thread(), None)
+
+
+@atexit.register
+def _join_racers(timeout_s: float = 60.0) -> None:
+    """Cancel and join every race thread still running, before the
+    interpreter tears down the device under it. A loser stops at its
+    next poll; one that polls for none of timeout_s (a hung device call)
+    is left behind rather than hanging the exit."""
+    with _RACERS_LOCK:
+        racers = list(_RACERS.items())
+    for _, cancel in racers:
+        cancel.set()
+    deadline = _time.monotonic() + timeout_s
+    for t, _ in racers:
+        t.join(max(0.0, deadline - _time.monotonic()))
+
+
+def _write_svg(test, opts, a: dict, hist) -> None:
+    """linear.svg for a definite invalid verdict (explain.py); an
+    unwritable store is not a checking failure."""
+    from .explain import write_failure_svg
+    try:
+        write_failure_svg(test or {}, opts, a, hist)
+    except OSError:
+        pass
 
 
 def _truncate(a: dict) -> dict:

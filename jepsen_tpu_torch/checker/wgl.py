@@ -61,7 +61,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import util
+from .. import telemetry as _telemetry, util
 from .._platform import (FAULT_COMPILE, FAULT_DEVICE_LOST, FAULT_OOM,
                          CorruptDeviceResult, attest_enabled,
                          classify_backend_error, guarded_fetch,
@@ -75,6 +75,18 @@ from . import abft, wgl_dedup
 from .wgl_closure import closure_round
 
 log = logging.getLogger(__name__)
+
+# -- telemetry (the JAX package's metric names and labels) -------------------
+# Per-chunk latency by dispatch site (streaming observes site='stream'),
+# and the kernels' build and warm-up latency.
+_M_CHUNK = _telemetry.histogram(
+    "jepsen_tpu_wgl_chunk_seconds",
+    "Device chunk dispatch + lagged-sync latency",
+    ("site", "family"))
+_M_COMPILE = _telemetry.histogram(
+    "jepsen_tpu_wgl_compile_seconds",
+    "Kernel build (trace/cache miss) and warm-up compile latency",
+    ("family", "stage"))
 
 # Event kinds (host-side stream construction)
 E_INVOKE = 0
@@ -484,6 +496,16 @@ class _Engine:
 
     device: torch.device
     syncs: int
+    # a zero-arg callable polled before each step of a walk (the
+    # competition race's loser stops there); a walk it stops leaves
+    # `interrupted` set and its carry undecided
+    cancel = None
+    interrupted = False
+
+    def _cancelled(self) -> bool:
+        if self.cancel is not None and self.cancel():
+            self.interrupted = True
+        return self.interrupted
 
     def fetch(self, t: torch.Tensor, site: str = "device-sync"):
         """Read a tensor's value on the host (one device sync, bounded by
@@ -507,6 +529,16 @@ class _Engine:
         """The whole search in one call: init + walk + summarize."""
         return self.summarize(
             self.run_range(xs, n_steps, self.init_carry(init_state)))
+
+    def check_stream_chunk(self, xs: Staged, n: int, carry) -> tuple:
+        """The streaming entry: `xs` holds only this chunk's steps (padded
+        to the chunk's length), so the walk runs steps [0, n) with the
+        carry's event count rebased to 0, and the count comes back added
+        to the carry's own. A growing history streams through one shape
+        and ships each step once. Every other carry element is the
+        walk's, as in the JAX package's `check_stream_chunk`."""
+        out = self.run_range(xs, n, (self._i32(0),) + tuple(carry[1:]))
+        return (out[0] + carry[0],) + tuple(out[1:])
 
     # -- batch entries: jax.vmap of the entries above ---------------------
     #
@@ -673,7 +705,7 @@ class DenseKernel(_Engine):
         x, xd = xs.host, xs.dev
         # the dense table caps P well below 31, so the completion mask
         # is one non-negative int32 word: row = [rm, slot, f, a, b]
-        while e < stop and count > 0:
+        while e < stop and count > 0 and not self._cancelled():
             rm, s = int(x[e, 0]), int(x[e, 1])
             if rm:
                 # survivors hold every returned bit; the new config is
@@ -1023,7 +1055,7 @@ class SortKernel(_Engine):
         slots = torch.stack([slot_f, slot_a, slot_b])           # (3, P)
         occ = occ.clone()
         x, xd = xs.host, xs.dev
-        while e < stop and count > 0:
+        while e < stop and count > 0 and not self._cancelled():
             s = int(x[e, W])
             if x[e, :W].any():
                 # completion: survivors linearized every returned op;
@@ -1255,6 +1287,22 @@ class EngineDecision:
     dedup: str                  # DEDUP_* (sort family's dedup engine)
     reason: str
     costs: dict                 # modeled per-history element-ops
+
+
+def engine_variant(dec: EngineDecision) -> str:
+    """The variant a decision runs: 'dense', or the sort family at its
+    resolved dedup route ('hash' for the hash dedup, K2; 'sort' for the
+    stable sorts) — the JAX package's calibration vocabulary."""
+    if dec.family == "dense":
+        return "dense"
+    return "hash" if dec.dedup == DEDUP_PALLAS else "sort"
+
+
+def engine_cost(dec: EngineDecision) -> float:
+    """The chosen engine's modeled element-ops: the one place the
+    family/dedup -> costs-key mapping lives (the screen's escalation
+    pricing reads it)."""
+    return float(dec.costs.get(engine_variant(dec)) or 0.0)
 
 
 def _family_costs(S: int, p_dense: int, p_sort: int, F: int,
@@ -1601,7 +1649,7 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
     chunk_entries-step chunks with the carry between them, the host
     reading each chunk's liveness one chunk late. budget_s caps wall
     time across passes (past it an undecided search is 'unknown');
-    cancel is polled between chunks. explain: on an invalid verdict,
+    cancel is polled before every step of the walk. explain: on an invalid verdict,
     re-run the host oracle on the prefix ending at the culprit op for
     configs and final-paths.
 
@@ -1630,6 +1678,7 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
     xs = stage_steps(maybe_corrupt("offline", steps.x), dev)
     F = frontier
     k = pl.kernel(dev, F)
+    k.cancel = cancel
     kernels = [k]
     att_info = None
     if attest_enabled():
@@ -1645,6 +1694,7 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
             ok, death, overflow, max_count, att = k.check(xs, steps.n,
                                                           init_state)
             _check_att(att, "offline")
+            timed_out = cancelled = k.interrupted
         else:
             carry = k.init_carry(init_state)
             e = 0
@@ -1653,6 +1703,9 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
                 maybe_inject_fault("offline")
                 prev, carry = carry, k.check_chunk(xs, stop, carry)
                 e = stop
+                if k.interrupted:
+                    timed_out = cancelled = True
+                    break
                 if k.fetch(prev[-2]) == 0:
                     carry = prev   # it died last chunk: definite
                     break
@@ -1681,11 +1734,14 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
         overflow = overflow or timed_out
         if ok or not overflow or F >= max_frontier or timed_out:
             break
-        if budget_s is not None and _time.monotonic() - t0 > budget_s:
+        over = budget_s is not None and _time.monotonic() - t0 > budget_s
+        if over or (cancel is not None and cancel()):
             timed_out = True
+            cancelled = not over
             break
         F *= 4   # invalid + overflow: the witness may have been dropped
         k = pl.kernel(dev, F)
+        k.cancel = cancel
         kernels.append(k)
     out = {
         "valid?": True if ok else "unknown" if overflow else False,

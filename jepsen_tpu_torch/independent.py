@@ -105,7 +105,10 @@ def subhistories(hist, ks) -> dict:
     return {k: History(ops) for k, ops in out.items()}
 
 
-_DEVICE_ALGORITHMS = ("auto", "gpu", "tpu", "linear", "wgl", "tpu-wgl")
+# 'competition' batches too, as in the JAX package: one batched device
+# walk decides every key, with nothing for a host search to race
+_DEVICE_ALGORITHMS = ("auto", "gpu", "tpu", "linear", "wgl", "competition",
+                      "tpu-wgl")
 
 
 class IndependentChecker(Checker):

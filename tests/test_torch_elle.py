@@ -513,11 +513,17 @@ def test_mesh_and_screen_tier_raise(clean_faults):
     for cls in (ListAppendChecker, RWRegisterChecker):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             cls(mesh=object(), device=CPU)
+    # the screen tier no longer raises: it is the JAX package's screen
+    # (its result dict, duration aside), escalating when sampled
     for tier in ("screen", 1, "1"):
-        with pytest.raises(NotImplementedError, match="streaming slice"):
-            RWRegisterChecker(device=CPU).check({"tier": tier}, ops, {})
-        r = tcheck_safe(RWRegisterChecker(device=CPU), {"tier": tier}, ops)
-        assert r["valid?"] == "unknown" and "streaming slice" in r["error"]
+        for sample in (0, 1):
+            test = {"tier": tier, "screen-sample": sample}
+            t = RWRegisterChecker(device=CPU).check(test, ops, {})
+            j = JRWRegister().check(test, jhistory(ops), {})
+            assert t["tier"] == j["tier"] == 1
+            assert ("escalated" in t) is ("escalated" in j) is (sample == 1)
+            assert {k: v for k, v in t.items() if k != "duration-ms"} == \
+                {k: v for k, v in j.items() if k != "duration-ms"}
 
 
 def test_entries_default_to_cuda_and_raise_without_it(clean_faults):

@@ -1,8 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1, K2), scalar
 and batched, against their plain versions, both engine families and the
-batch entry on CUDA against the same engines on the CPU, and the Elle
-classifier on CUDA against its CPU path. Each skips inside the test when
-no CUDA device is present.
+batch entry on CUDA against the same engines on the CPU, the Elle
+classifier on CUDA against its CPU path, and the online streams, the
+tiered check and the competition race on CUDA against the CPU path.
+Each skips inside the test when no CUDA device is present.
 
 This file imports nothing of JAX, so it also runs on a machine with the
 card and no JAX installed:
@@ -10,13 +11,16 @@ card and no JAX installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from jepsen_tpu_torch import models
+from jepsen_tpu_torch import _platform, models
 from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
-from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
+                                      wgl, wgl_closure, wgl_dedup)
 from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
 from jepsen_tpu_torch.checker.elle import list_append as elle_append
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
@@ -370,3 +374,124 @@ def test_cuda_list_append_check_matches_cpu():
         c = elle_append.check(h, additional_graphs=graphs, device="cpu")
         assert g == c and g["valid?"] is False
         assert {"G1c", "G-single"} <= set(g["anomaly-types"])
+
+
+_STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device",
+                    "host-syncs")
+
+
+def _stream_both(hist, **kw):
+    """The same stream on CUDA and on the CPU: (cuda result, cpu result,
+    the CUDA stream, K1 launches, K2 launches) — the launch counts of
+    the CUDA run only."""
+    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    s = streaming.WglStream(models.cas_register(), **kw)
+    for op in hist.ops:
+        s.feed(op)
+    g = s.finish()
+    torch.cuda.synchronize()
+    launches = (wgl_closure.LAUNCHES - k1, wgl_dedup.LAUNCHES - k2)
+    c = streaming.stream_check(models.cas_register(), hist, device="cpu",
+                               **kw)
+    return g, c, s, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["dense", "sort"])
+def test_cuda_stream_matches_cpu_and_launches_its_kernel(engine):
+    _need_cuda()
+    h = synth.register_history(800, concurrency=5, crash_rate=0.005,
+                               seed=21)
+    for hist in (h, synth.corrupt(h, seed=21, value=4)):
+        g, c, s, (k1, k2) = _stream_both(
+            hist, engine=engine, state_range=(-1, 4), chunk_entries=128,
+            checkpoint_every=2)
+        assert g["device"].startswith("cuda")
+        for key in set(g) | set(c):
+            if key not in _STREAM_VOLATILE:
+                assert g.get(key) == c.get(key), key
+        if engine == "dense":
+            assert k1 == g["closure-rounds"] > 0 and k2 == 0
+        else:
+            assert g["dedup"] == "pallas-hash"
+            assert k2 == g["dedup-launches"] > 0 and k1 == 0
+
+
+@pytest.mark.gpu
+def test_cuda_stream_recovers_an_injected_device_loss(monkeypatch):
+    _need_cuda()
+    monkeypatch.setattr(_platform, "fault_hook", None)
+    _platform.reset_fault_injection()
+    monkeypatch.setenv("JEPSEN_TPU_FAULT_INJECT",
+                       "device-lost@stream-chunk:3")
+    h = synth.register_history(800, concurrency=5, crash_rate=0.0,
+                               seed=22)
+    g = streaming.stream_check(models.cas_register(), h, engine="dense",
+                               state_range=(-1, 4), chunk_entries=128,
+                               checkpoint_every=2)
+    _platform.reset_fault_injection()
+    monkeypatch.delenv("JEPSEN_TPU_FAULT_INJECT")
+    c = streaming.stream_check(models.cas_register(), h, engine="dense",
+                               state_range=(-1, 4), chunk_entries=128,
+                               checkpoint_every=2, device="cpu")
+    assert g["recovered"]["faults"] == ["device-lost"]
+    assert g["valid?"] is c["valid?"] is True
+    assert g["chunks"] == c["chunks"]
+
+
+@pytest.mark.gpu
+def test_cuda_tier_and_race_match_cpu():
+    _need_cuda()
+    # crashed writes at the generator's default rate (pending for the
+    # rest of the history)
+    h = synth.register_history(300, concurrency=4, seed=5)
+    bad = synth.corrupt(h, seed=5)
+    assert any(o["type"] == "info" for o in h.ops)
+    for hist in (h, bad):
+        for sample in (0, 1):
+            test = {"tier": "screen", "screen-sample": sample}
+            g = linear.linearizable(models.cas_register()).check(
+                test, hist, {})
+            c = linear.linearizable(models.cas_register(),
+                                    device="cpu").check(test, hist, {})
+            for key in ("valid?", "tier", "escalated", "op-index",
+                        "screened", "suspicion"):
+                assert g.get(key) == c.get(key), key
+    assert screen.screen_history(models.cas_register(), bad)["valid?"] \
+        is False
+    # the race returns its winner's result at the winner's pace, and its
+    # loser stops once the verdict is in; the third history's sort walk
+    # is long, its host search about a second
+    for hist in (h, bad, synth.register_history(400, concurrency=5,
+                                                seed=23)):
+        t0 = time.perf_counter()
+        g = linear.linearizable(models.cas_register(),
+                                algorithm="competition").check({}, hist, {})
+        race_s = time.perf_counter() - t0
+        host = linear.analysis_host(models.cas_register(), hist)
+        assert g["valid?"] is host["valid?"]
+        t0 = time.perf_counter()
+        if g["competition-winner"] == "host":
+            alone = linear.analysis_host(models.cas_register(), hist)
+        else:
+            assert g["competition-winner"] == "gpu"
+            alone = wgl.analysis_gpu(models.cas_register(), hist,
+                                     explain=False,
+                                     slot_overflow_fallback=False)
+            if alone["valid?"] is False and "op-index" in alone:
+                ex = linear.explain_failure(models.cas_register(), hist,
+                                            alone["op-index"])
+                if ex is not None:
+                    alone["configs"] = ex["configs"]
+                    alone["final-paths"] = ex["final-paths"]
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+        alone = linear._truncate(alone)
+        for key in sorted(set(g) | set(alone)):
+            if key not in ("competition-winner", "duration-ms"):
+                assert g.get(key) == alone.get(key), key
+        assert race_s < 4 * alone_s + 5.0, (race_s, alone_s)
+        deadline = time.monotonic() + 10.0
+        for t in list(linear._RACERS):
+            t.join(max(0.0, deadline - time.monotonic()))
+        assert not any(t.is_alive() for t in list(linear._RACERS))

@@ -2,7 +2,8 @@
 history, models, synth and the host oracle give the same values, its
 engine choice agrees, it resolves devices without falling back, and it
 never imports jax or jepsen_tpu (a fresh interpreter runs linearizability,
-batch, independent, list-append and rw-register checks to show it)."""
+batch, independent, list-append and rw-register checks, a tiered check,
+the competition race and a stream to show it)."""
 
 import itertools
 import os
@@ -220,6 +221,26 @@ rw = elle.rw_register_checker(device="cpu").check(
 assert rw["valid?"] is True and rw["txn-count"] == 300, rw
 assert elle_wr.check(synth.wr_history(200, seed=3), device="cpu",
                      additional_graphs=("process",))["valid?"] is True
+from jepsen_tpu_torch import telemetry, trace
+from jepsen_tpu_torch.checker import (compose, explain, perf, screen,
+                                      streaming)
+tier = linear.linearizable(models.cas_register(), device="cpu").check(
+    {"tier": "screen", "screen-sample": 1}, synth.corrupt(h), {})
+assert tier["tier"] == 1 and tier["escalated"]["why"] == "suspicion", tier
+assert tier["valid?"] is False, tier
+race = linear.linearizable(models.cas_register(), algorithm="competition",
+                           device="cpu").check({}, h, {})
+assert race["valid?"] is True and race["competition-winner"], race
+st = streaming.stream_check(models.cas_register(), synth.corrupt(h, value=5),
+                            device="cpu", chunk_entries=64,
+                            state_range=(-1, 5), engine="dense")
+assert st["valid?"] is False and st["streamed"], st
+assert st["op-index"] == bad["op-index"], (st, bad)
+sw = screen.screen_wr(synth.wr_history(200, seed=3))
+assert sw["valid?"] is True, sw
+cmp = compose({"lin": linear.linearizable(models.cas_register(),
+                                          device="cpu")}).check({}, h, {})
+assert cmp["valid?"] is True, cmp
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
