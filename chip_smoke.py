@@ -30,7 +30,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      under a wall-time budget), with every kernel's launch count set to 0
      just before and read just after; then hold verdicts, culprit ops,
      counts and final carries against the port's own CPU path, and trace
-     the first 1,500 steps of four walks with torch.profiler for the
+     the first 1,000 steps of four walks with torch.profiler for the
      device's busy share;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
@@ -70,9 +70,23 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      before each stream and read just after (K1 and K2 must launch);
      each WGL stream's final carry is held against the offline walk of
      its engine on the card, each result against the CPU path's (the
-     dense stream on a 400-op history of the same generator), and feed,
-     tail and offline walls are printed;
-  9. fail if any result other than the injected runs' carries a
+     dense stream through the first chunk of its full-size run), and feed,
+     tail and offline walls are printed (the dense stream's CPU check
+     runs in a worker process meanwhile);
+  9. the verification service on the card: one VerificationService, 16
+     streams of a 1,000-op register history fed from 16 threads (streams
+     0-7 dense, K1; 8-15 packed sort on the hash route, K2; streams 5 and
+     13 invalid), every kernel's launch count set to 0 just before the
+     16-stream run and read just after, each stream's own K1/K2 counts
+     adding up to them, each result equal to the stream alone on the card
+     and on the CPU path (in worker processes; the dense streams on their
+     first 400 history ops, three chunks and a checkpoint); the wall and
+     ops/s at 1, 4 and 16 streams, the device's busy share of a
+     16-stream run, a rerun with a device loss on stream 3 and an OOM on
+     stream 11 on the default adaptive service (both recover, every
+     sibling equal to its clean run), a drain and a resume of stream 0,
+     and two ServiceClients over the socket with /metrics and /healthz;
+ 10. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -122,6 +136,9 @@ K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
 # stream's (8, 16)
 K1_TIMED = [(8, 7), (8, 14), (8, 19), (8, 16)]
 PROFILE_STEPS = 1_500
+# the profile phase traces the first 1,000 steps of its walks (1,500
+# until the service phase needed its time)
+PROFILE_WALK_STEPS = 1_000
 # the batch path (bench.py:section_config4's hazelcast shape): 100 keys
 # of register_history(500, concurrency=4, values=5, crash_rate=0.005,
 # seed=1000 + i), keys 7, 42 and 77 with one read set to 5 (one past the
@@ -194,6 +211,38 @@ STREAM_CPU_DENSE_CHUNKS = 1
 STREAM_PROFILE_OPS = 3_000
 STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device", "host-syncs",
                    "trace-id")
+# the service phase (bench.py's service section, bench.py:762-902, at a
+# size that reaches both kernels): one VerificationService on the card and
+# 16 streams of register_history(1_000, concurrency=5, values=5,
+# crash_rate=0.0005, seed=300 + i), fed from 16 threads; streams 0-7 dense
+# (engine 'auto', state range [-1, 4], concurrency hint 5: S = 8, P = 16,
+# K1), streams 8-15 packed sort on the hash route (state range
+# [-1, 10**6], 8 slots: K2); streams 5 and 13 invalid by one read changed
+# to 4 and to 999 (corrupt seeds 31 and 2: the changed reads are history
+# ops 38 and 159). A checkpoint every 2 chunks; chunks of 64 steps, the
+# bench's: the default 1,024 gives these 743-step histories one chunk,
+# too few for a drain after a first checkpoint or a fault at a third
+# dispatch
+SERVICE_STREAMS = 16
+SERVICE_HIST = dict(n_ops=1_000, concurrency=5, values=5, crash_rate=0.0005)
+SERVICE_SEED = 300
+SERVICE_BAD = {5: (31, 4), 13: (2, 999)}     # stream -> (corrupt seed, value)
+SERVICE_CHUNK = 64
+SERVICE_CKPT = 2
+SERVICE_COUNTS = (1, 4, 16)
+SERVICE_FAULTS = "device-lost@stream-chunk/s3:3,oom@stream-chunk/s11:3"
+# the CPU path takes the dense streams' first 400 history ops (three
+# chunks, a checkpoint after the second; the plain closure round at 2^16
+# columns costs the CPU some 25 ms), the sort streams' whole histories,
+# in worker processes beside the card's runs
+SERVICE_CPU_DENSE_OPS = 400
+# the busy share's run: 16 streams of each history's first 600 ops (a
+# profile of the whole 16-stream run reads 1.14M device events)
+SERVICE_PROFILE_OPS = 600
+SERVICE_TIMING = ("duration-ms", "tail-latency-ms", "violation-at-op")
+SERVICE_COUNT_KEYS = ("closure-rounds", "dedup-launches", "host-syncs")
+CPU_WORKERS = 2
+CPU_WORKER_THREADS = 3
 
 
 def log(*a):
@@ -1370,6 +1419,38 @@ def stream_run(streaming, model, hist, device, abort=False, snap=None,
     return s, r, fed, feed_s, time.perf_counter() - t, shot
 
 
+def cpu_worker_init() -> None:
+    """A worker process of the CPU checks: a share of the host's cores."""
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_dense_prefix(snap_ops: int, snap_chunks: int) -> tuple:
+    """Phase 8's dense stream on the CPU path, in a worker process: the
+    first snap_ops history ops, its carry when it first dispatched
+    snap_chunks chunks, finished. Returns the result, the final carry,
+    the snapshot and the seconds it took."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checker import streaming, synth
+    t = time.perf_counter()
+    adv = synth.adversarial_register_history(**ADVERSARIAL)
+    cut = type(adv)(adv.ops[:snap_ops])
+    sc, rc, *_, shot = stream_run(streaming, models.cas_register(), cut,
+                                  "cpu", snap=snap_chunks, **STREAM_DENSE)
+    return rc, sc.carry_host(), shot, time.perf_counter() - t
+
+
+def cpu_abort_stream() -> tuple:
+    """Phase 8's early-abort stream on the CPU path, in a worker process:
+    its result, final carry, history ops and the seconds it took."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.checker import streaming, synth
+    t = time.perf_counter()
+    bad = synth.corrupt(synth.register_history(**STREAM_ABORT_HIST), seed=11)
+    sc, c, *_ = stream_run(streaming, models.cas_register(), bad, "cpu",
+                           abort=True, **STREAM_ABORT)
+    return c, sc.carry_host(), len(bad.ops), time.perf_counter() - t
+
+
 def stream_offline_walk(wgl, carry_to_numpy, model, hist, s, device):
     """The stream's engine (family, F, P, pack and dedup route) walking
     the whole merged history offline in one range: its final carry and
@@ -1407,11 +1488,12 @@ def same_carry(label, a, b) -> None:
 
 def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
                  streaming, screen, linear, wr, platform, carry_to_numpy,
-                 cpu_headline) -> dict:
+                 cpu_headline, pool) -> dict:
     """The streaming-and-tier phase: five runs at full size on the card,
     each against the CPU path and (the WGL streams) against the offline
     walk of the same engine, with every kernel's launch count set to 0
-    just before each stream and read just after."""
+    just before each stream and read just after. The dense stream's CPU
+    check runs in a worker process of `pool` beside the card's runs."""
     reg = models.cas_register()
     out = {}
 
@@ -1463,20 +1545,6 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
             rec["snapshot"] = shot
         return s, r, walk
 
-    def cpu_agrees(label, hist, s, r, abort=False, **kw):
-        """The same stream on the CPU path: the same result dict and the
-        same final carry."""
-        t = time.perf_counter()
-        sc, c, *_ = stream_run(streaming, reg, hist, "cpu", abort=abort,
-                               **kw)
-        out[label].update(cpu_s=time.perf_counter() - t,
-                          cpu_ops=len(hist.ops))
-        same_results(f"{label} card vs CPU", r, c)
-        same_carry(f"{label} card vs CPU", s.carry_host(), sc.carry_host())
-        log(f"stream {label}: the CPU path agrees on {len(hist.ops)} "
-            f"history ops, final carry included "
-            f"({out[label]['cpu_s']:.3f} s)")
-
     # 1. the dense stream: K1 at (8, 16); the CPU path on the prefix the
     # card's stream had been fed when it dispatched its first chunk(s)
     adv = synth.adversarial_register_history(**ADVERSARIAL)
@@ -1489,27 +1557,29 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
                              f"{s.chunks} chunks")
     snap_ops, snap_chunks, snap_carry = out["dense"].pop("snapshot")
     adv_cut = type(adv)(adv.ops[:snap_ops])
-    t = time.perf_counter()
-    sc, rc_cpu, *_, shot = stream_run(streaming, reg, adv_cut, "cpu",
-                                      snap=snap_chunks, **STREAM_DENSE)
-    if shot is None or shot[:2] != (snap_ops, snap_chunks):
-        raise AssertionError(f"dense stream: the CPU path dispatched "
-                             f"{shot and shot[:2]}, the card "
-                             f"{(snap_ops, snap_chunks)}")
-    same_carry("dense: the full-size stream after its first "
-               f"{snap_chunks} chunk(s) vs the CPU path", snap_carry,
-               shot[2])
+    # the CPU path on the prefix runs in a worker process while the card
+    # goes on with the phase; its result is held at the phase's end
+    cpu_dense = pool.submit(cpu_dense_prefix, snap_ops, snap_chunks)
     s_cut, rc, *_ = stream_run(streaming, reg, adv_cut, dev, **STREAM_DENSE)
-    same_results("dense prefix card vs CPU", rc, rc_cpu)
-    same_carry("dense prefix card vs CPU", s_cut.carry_host(),
-               sc.carry_host())
-    out["dense"].update(cpu_s=time.perf_counter() - t, cpu_ops=snap_ops,
-                        cpu_chunks=snap_chunks)
-    log(f"stream dense: the full-size stream's carry after its first "
-        f"{snap_chunks} chunk(s) ({snap_ops} of {len(adv.ops)} history ops) "
-        f"equals the CPU path's; finished there, the prefix gives the same "
-        f"result and final carry on the card and the CPU "
-        f"({out['dense']['cpu_s']:.3f} s)")
+
+    def dense_prefix_agrees():
+        rc_cpu, cpu_carry, shot, cpu_s = cpu_dense.result()
+        if shot is None or shot[:2] != (snap_ops, snap_chunks):
+            raise AssertionError(f"dense stream: the CPU path dispatched "
+                                 f"{shot and shot[:2]}, the card "
+                                 f"{(snap_ops, snap_chunks)}")
+        same_carry("dense: the full-size stream after its first "
+                   f"{snap_chunks} chunk(s) vs the CPU path", snap_carry,
+                   shot[2])
+        same_results("dense prefix card vs CPU", rc, rc_cpu)
+        same_carry("dense prefix card vs CPU", s_cut.carry_host(), cpu_carry)
+        out["dense"].update(cpu_s=cpu_s, cpu_ops=snap_ops,
+                            cpu_chunks=snap_chunks)
+        log(f"stream dense: the full-size stream's carry after its first "
+            f"{snap_chunks} chunk(s) ({snap_ops} of {len(adv.ops)} history "
+            f"ops) equals the CPU path's; finished there, the prefix gives "
+            f"the same result and final carry on the card and the CPU "
+            f"({cpu_s:.3f} s in a worker process)")
 
     def stream_prefix(hist, **kw):
         """A function streaming the first n ops of `hist` on the card,
@@ -1537,8 +1607,19 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
             or not rec["fed"] < len(bad.ops) \
             or not isinstance(rec["op_index"], int):
         raise AssertionError(f"sort-abort: {rec}")
-    cpu_agrees("sort-abort", bad, s, r, abort=True, **STREAM_ABORT)
-    abort_result = r
+    # the same stream on the CPU path, in a worker process: the same
+    # result dict and the same final carry, held at the phase's end
+    abort_cpu = pool.submit(cpu_abort_stream)
+    abort_result, abort_carry = r, s.carry_host()
+
+    def abort_agrees():
+        c, cpu_carry, n_ops, cpu_s = abort_cpu.result()
+        out["sort-abort"].update(cpu_s=cpu_s, cpu_ops=n_ops)
+        same_results("sort-abort card vs CPU", abort_result, c)
+        same_carry("sort-abort card vs CPU", abort_carry, cpu_carry)
+        log(f"stream sort-abort: the CPU path agrees on {n_ops} history "
+            f"ops, final carry included ({cpu_s:.3f} s in a worker "
+            f"process)")
     rec["profile"] = pr = profile_walk(stream_prefix(bad, **STREAM_ABORT),
                                        STREAM_PROFILE_OPS)
     log(f"profile stream sort-abort, first {STREAM_PROFILE_OPS} ops: wall "
@@ -1660,6 +1741,417 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
         f"the CPU {alone_s:.3f} s; the result equals that side's on every "
         f"key but {', '.join(skip)}")
     no_stamps("streams", [dense_result, abort_result, gw])
+    dense_prefix_agrees()
+    abort_agrees()
+    return out
+
+
+def service_stream_kw(i: int) -> dict:
+    """Stream i's WglStream options, as the service builds it."""
+    kw = dict(chunk_entries=SERVICE_CHUNK, checkpoint_every=SERVICE_CKPT)
+    if i < SERVICE_STREAMS // 2:
+        kw.update(engine="auto", state_range=(-1, 4), concurrency_hint=5)
+    else:
+        kw.update(engine="sort", state_range=(-1, 10 ** 6), slots=8)
+    return kw
+
+
+def service_spec(service, model, i: int) -> dict:
+    """Stream i's targets spec, the wire form of `service_stream_kw`."""
+    kw = service_stream_kw(i)
+    sp = {"kind": "wgl", "model": service.model_spec(model),
+          "chunk-entries": kw["chunk_entries"],
+          "checkpoint-every": kw["checkpoint_every"],
+          "engine": kw["engine"], "state-range": list(kw["state_range"])}
+    if "slots" in kw:
+        sp["slots"] = kw["slots"]
+    if "concurrency_hint" in kw:
+        sp["concurrency-hint"] = kw["concurrency_hint"]
+    return {"linear": sp}
+
+
+def service_history(synth, store, i: int) -> list:
+    """Stream i's history ops in the journal's wire form."""
+    h = synth.register_history(**SERVICE_HIST, seed=SERVICE_SEED + i)
+    if i in SERVICE_BAD:
+        cs, value = SERVICE_BAD[i]
+        h = synth.corrupt(h, seed=cs, value=value)
+    return [json.loads(json.dumps(op, default=store._json_default))
+            for op in h.ops]
+
+
+def solo_stream(streaming, model, ops, i, device) -> tuple:
+    """Stream i alone (`streaming.stream_check`'s walk, keeping the
+    stream): its result, final carry and wall."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    t = time.perf_counter()
+    s = streaming.WglStream(model, device=device, **service_stream_kw(i))
+    for op in ops:
+        s.feed(op)
+    r = s.finish()
+    sync()
+    return r, s.carry_host(), time.perf_counter() - t
+
+
+def cpu_service_stream(i: int) -> tuple:
+    """Stream i of the service phase on the CPU path, in a worker
+    process: the dense streams' first SERVICE_CPU_DENSE_OPS history
+    ops, the sort streams' whole history."""
+    from jepsen_tpu_torch import models, store
+    from jepsen_tpu_torch.checker import streaming, synth
+    ops = service_history(synth, store, i)
+    if i < SERVICE_STREAMS // 2:
+        ops = ops[:SERVICE_CPU_DENSE_OPS]
+    return solo_stream(streaming, models.cas_register(), ops, i, "cpu")
+
+
+def service_run(service, model, dev, hists, idx, profile=False) -> dict:
+    """One VerificationService on the card serving streams idx, each fed
+    from its own thread through offer / seal / result. Returns the
+    results, each stream's feed-to-verdict latency, the wall (ending in
+    a synchronise), the final status, and with profile=True the device
+    time of every kernel in a torch.profiler trace (CUDA activity only:
+    16 threads' host events would swamp the trace)."""
+    import threading
+    svc = service.VerificationService(device=dev)
+    for i in idx:
+        svc.admit(f"s{i}", service_spec(service, model, i))
+    res, lat = {}, {}
+
+    def feed(i):
+        t = time.perf_counter()
+        for op in hists[i]:
+            svc.offer(f"s{i}", op)
+        svc.seal(f"s{i}")
+        res[i] = svc.result(f"s{i}", timeout_s=600)
+        lat[i] = time.perf_counter() - t
+
+    ths = [threading.Thread(target=feed, args=(i,)) for i in idx]
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    t = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("service: a feeding thread hung")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    out = {"results": res, "lat": lat, "wall": wall, "status": svc.status()}
+    svc.stop()
+    if prof is not None:
+        from torch.autograd import DeviceType
+        prof.stop()
+        t = time.perf_counter()
+        ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+        out["device_busy_s"], out["device_events"] = sum(ns) / 1e9, len(ns)
+        out["trace_read_s"] = time.perf_counter() - t
+    for i in idx:
+        if "linear" not in res.get(i, {}):
+            raise AssertionError(f"service stream s{i}: no verdict "
+                                 f"({res.get(i)})")
+    return out
+
+
+def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
+                  service, store, telemetry, platform, pool) -> dict:
+    """Phase 9: the verification service on the card. Sixteen streams
+    (8 dense, K1; 8 packed sort, K2) in one service, each result held
+    against the stream alone on the card and on the CPU path (the CPU
+    path in worker processes of `pool`); every kernel's launch count set
+    to 0 just before the 16-stream run and read just after, each
+    stream's own counts adding up to them; throughput at 1, 4 and 16
+    streams; the device's busy share of a 16-stream run; the isolation
+    run (a device loss on stream 3, an OOM on stream 11); a drain and a
+    resume; the socket with two ServiceClients, and /metrics and
+    /healthz."""
+    import tempfile
+    import threading
+    import urllib.request
+    model = models.cas_register()
+    n = SERVICE_STREAMS
+    dense = range(n // 2)
+    hists = [service_history(synth, store, i) for i in range(n)]
+    total_ops = sum(len(h) for h in hists)
+    cpu_jobs = {i: pool.submit(cpu_service_stream, i) for i in range(n)}
+    out = {"streams": n, "ops": total_ops, "chunk": SERVICE_CHUNK,
+           "section_s": {}}
+    mark = [time.perf_counter()]
+
+    def section(label):
+        now = time.perf_counter()
+        out["section_s"][label] = now - mark[0]
+        mark[0] = now
+
+    def strip(r, extra=()):
+        """The result as the wire carries it (canonical JSON), without
+        the timing fields and `extra`."""
+        return json.loads(json.dumps(
+            {k: v for k, v in r.items()
+             if k not in SERVICE_TIMING + tuple(extra)},
+            default=store._json_default, sort_keys=True))
+
+    def same(label, a, b, extra=()):
+        same_results(label, strip(a, extra), strip(b, extra), skip=())
+
+    # each stream alone on the card (the first runs warm the kernels)
+    solo, solo_s = {}, {}
+    for i in range(n):
+        solo[i], _carry, solo_s[i] = solo_stream(streaming, model, hists[i],
+                                                 i, dev)
+        want = i not in SERVICE_BAD
+        if solo[i]["valid?"] is not want:
+            raise AssertionError(f"s{i} alone: valid? {solo[i]['valid?']}")
+    section("alone")
+    log(f"service: 16 streams alone on the card: "
+        f"{sum(solo_s.values()):.3f} s in all (s0 {solo_s[0]:.3f} s, s8 "
+        f"{solo_s[8]:.3f} s)")
+
+    # throughput at 1, 4 and 16 streams; the 16-stream run is the main
+    # path's: every kernel's count set to 0 just before, read just after
+    scaling = {}
+    for m in SERVICE_COUNTS:
+        idx = ([0] if m == 1 else [0, 1, 8, 9] if m == 4 else list(range(n)))
+        if m == n:
+            wgl_closure.LAUNCHES = 0
+            wgl_dedup.LAUNCHES = 0
+        run = service_run(service, model, dev, hists, idx)
+        if m == n:
+            launches = {"closure_round": wgl_closure.LAUNCHES,
+                        "dedup": wgl_dedup.LAUNCHES}
+            clean = run
+        ops = sum(len(hists[i]) for i in idx)
+        scaling[m] = {"wall_s": run["wall"], "ops": ops,
+                      "ops_per_s": ops / run["wall"],
+                      "stream_s": {f"s{i}": run["lat"][i] for i in idx}}
+        for i in idx:
+            same(f"service s{i} ({m} streams) vs alone on the card",
+                 run["results"][i]["linear"], solo[i])
+        log(f"service: {m} stream(s) {idx}: wall {run['wall']:.3f} s, "
+            f"{ops} history ops, {ops / run['wall']:.1f} ops/s; every "
+            f"result equals its stream alone on the card")
+    out["scaling"] = scaling
+    section("1, 4 and 16 streams")
+    res = {i: clean["results"][i]["linear"] for i in range(n)}
+    k1 = sum(res[i]["closure-rounds"] for i in dense)
+    k2 = sum(r["dedup-launches"] for r in res.values())
+    for i in range(n):
+        r = res[i]
+        if i in dense and (r["analyzer"] != "gpu-wgl-dense-streaming"
+                           or r["closure-rounds"] <= 0
+                           or r["dedup-launches"] != 0):
+            raise AssertionError(f"s{i}: not a dense stream on K1: {r}")
+        if i not in dense and (r["dedup"] != "pallas-hash"
+                               or r["dedup-launches"] <= 0):
+            raise AssertionError(f"s{i}: not a hash stream on K2: {r}")
+    if (k1, k2) != (launches["closure_round"], launches["dedup"]):
+        raise AssertionError(f"service: streams count K1 {k1} / K2 {k2}, "
+                             f"the kernels {launches}")
+    st = clean["status"]
+    if any(v["state"] != "verdict" for v in st["streams"].values()) \
+            or st["budget"]["capacity"] != st["budget"]["initial"]:
+        raise AssertionError(f"service status: {st['budget']} "
+                             f"{[v['state'] for v in st['streams'].values()]}")
+    out["launches"] = launches
+    out["per_stream"] = {f"s{i}": {
+        "valid": res[i]["valid?"], "op_index": res[i].get("op-index"),
+        "engine": "dense" if i in dense else res[i]["dedup"],
+        "chunks": res[i]["chunks"], "k1": res[i]["closure-rounds"]
+        if i in dense else 0, "k2": res[i]["dedup-launches"],
+        "host_syncs": res[i]["host-syncs"], "alone_s": solo_s[i],
+        "served_s": clean["lat"][i]} for i in range(n)}
+    out["calibration"] = st["calibration"]
+    out["budget"] = st["budget"]
+    out["isolation_overhead"] = {
+        f"s{i}": clean["lat"][i] / solo_s[i] for i in (0, 8)}
+    log(f"service: 16 streams: K1 {launches['closure_round']} launches "
+        f"(streams 0-7), K2 {launches['dedup']} (streams 8-15), each "
+        f"stream's own counts adding up to them; every stream in verdict, "
+        f"budget at its initial capacity; s0 served {clean['lat'][0]:.3f} "
+        f"s against {solo_s[0]:.3f} s alone "
+        f"({out['isolation_overhead']['s0']:.2f}x), s8 {clean['lat'][8]:.3f}"
+        f" s against {solo_s[8]:.3f} s "
+        f"({out['isolation_overhead']['s8']:.2f}x); p95 chunk walk "
+        f"{st['budget']['p95-chunk-latency-s']} s, p95 wait for the walk "
+        f"{st['budget']['p95-walk-wait-s']} s; calibration "
+        f"{st['calibration']['coefficients']}")
+
+    # the device's busy share: 16 streams of each history's first
+    # SERVICE_PROFILE_OPS ops, once unprofiled and once under the profiler
+    heads = [h[:SERVICE_PROFILE_OPS] for h in hists]
+    bare = service_run(service, model, dev, heads, list(range(n)))
+    prof = service_run(service, model, dev, heads, list(range(n)),
+                       profile=True)
+    section("profile")
+    out["profile"] = {"ops": SERVICE_PROFILE_OPS, "wall_s": bare["wall"],
+                      "profiled_wall_s": prof["wall"],
+                      "trace_read_s": prof["trace_read_s"],
+                      "device_busy_s": prof["device_busy_s"],
+                      "busy_share": prof["device_busy_s"] / bare["wall"],
+                      "device_events": prof["device_events"]}
+    log(f"service profile, 16 streams of {SERVICE_PROFILE_OPS} ops: device "
+        f"busy {prof['device_busy_s']:.4f} s of the unprofiled wall "
+        f"{bare['wall']:.3f} s ({100 * out['profile']['busy_share']:.2f}%)"
+        f", {prof['device_events']} device events")
+
+    # isolation: a device loss on stream 3, an OOM on stream 11
+    platform.reset_fault_injection()
+    os.environ[platform.FAULT_INJECT_ENV] = SERVICE_FAULTS
+    try:
+        iso = service_run(service, model, dev, hists, list(range(n)))
+    finally:
+        del os.environ[platform.FAULT_INJECT_ENV]
+        platform.reset_fault_injection()
+    for i in range(n):
+        r = iso["results"][i]["linear"]
+        if i in (3, 11):
+            want = ["device-lost"] if i == 3 else ["oom"]
+            if (r.get("recovered") or {}).get("faults") != want:
+                raise AssertionError(f"s{i}: recovered {r.get('recovered')}")
+            same(f"isolation: s{i} recovered vs its clean run", r, res[i],
+                 ("recovered", "attested") + SERVICE_COUNT_KEYS)
+        else:
+            same(f"isolation: sibling s{i} vs its clean run", r, res[i])
+    section("isolation")
+    out["isolation"] = {"wall_s": iso["wall"],
+                        "s3": iso["results"][3]["linear"]["recovered"],
+                        "s11": iso["results"][11]["linear"]["recovered"],
+                        "budget": iso["status"]["budget"]}
+    log(f"service isolation: s3 {out['isolation']['s3']}, s11 "
+        f"{out['isolation']['s11']}, same verdicts; the 14 siblings equal "
+        f"their clean runs on the adaptive service (budget "
+        f"{iso['status']['budget']}); wall {iso['wall']:.3f} s")
+
+    # drain and resume: stream 0 with a store dir
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "svc", "s0")
+        os.makedirs(run_dir)
+        with open(os.path.join(run_dir, "journal.jsonl"), "w") as fh:
+            for op in hists[0]:
+                fh.write(json.dumps(op) + "\n")
+        svc = service.VerificationService(device=dev)
+        svc.admit("s0", service_spec(service, model, 0), store_dir=run_dir)
+        for op in hists[0][:len(hists[0]) // 2]:
+            svc.offer("s0", op)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            w = svc._worker("s0")
+            if w.targets["linear"]._ckpt is not None and w.q.empty():
+                break
+            time.sleep(0.01)
+        t = time.perf_counter()
+        svc.drain()
+        drain_s = time.perf_counter() - t
+        svc.stop()
+        ck = store.load_service_resume(run_dir)["checkpoints"]["linear"]
+        import gzip
+        with gzip.open(os.path.join(run_dir, "history.jsonl.gz"), "wt") as fh:
+            for op in hists[0]:
+                fh.write(json.dumps(op) + "\n")
+        t = time.perf_counter()
+        svc2 = service.VerificationService(device=dev)
+        name = svc2.resume(run_dir)
+        r = svc2.result(name, timeout_s=600)["linear"]
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        from_chunk = svc2.status()["streams"][name]["chunks"]["linear"][
+            "resumed-from-chunk"]
+        svc2.stop()
+    if from_chunk != ck["chunks"] or ck["chunks"] < 1:
+        raise AssertionError(f"resume: from chunk {from_chunk}, manifest "
+                             f"{ck['chunks']}")
+    same("drain and resume of s0 vs its clean run", r, res[0],
+         SERVICE_COUNT_KEYS)
+    section("drain and resume")
+    out["drain"] = {"drain_s": drain_s, "resume_to_verdict_s": resume_s,
+                    "checkpoint_chunk": ck["chunks"],
+                    "uninterrupted_s": clean["lat"][0]}
+    log(f"service drain: s0 drained in {drain_s:.4f} s at chunk "
+        f"{ck['chunks']}; a fresh service resumed it to the clean verdict "
+        f"in {resume_s:.3f} s")
+
+    # the socket: two ServiceClients, /metrics and /healthz
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = service.VerificationService(device=dev)
+        addr = svc.serve("127.0.0.1:0")
+        msrv = telemetry.serve_metrics(0, healthz=svc.status)
+        try:
+            got = {}
+
+            def client(i):
+                c = service.ServiceClient(
+                    addr, {"name": f"sock-s{i}", "start-time": "0",
+                           "store-dir": tmp},
+                    spec=service_spec(service, model, i), device=dev)
+                for op in hists[i]:
+                    c.offer(op)
+                got[i] = c.finalize()
+                c.close()
+
+            ths = [threading.Thread(target=client, args=(i,)) for i in (1, 9)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=600)
+            url = f"http://127.0.0.1:{msrv.server_address[1]}"
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as f:
+                text = f.read().decode()
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as f:
+                health = json.loads(f.read())
+        finally:
+            msrv.shutdown()
+            msrv.server_close()
+            svc.stop()
+    for i in (1, 9):
+        same(f"socket: s{i} through a ServiceClient vs in-process",
+             got[i]["linear"], res[i])
+    for name in ("jepsen_tpu_service_stream_events_total",
+                 "jepsen_tpu_service_ops_total"):
+        if name not in text:
+            raise AssertionError(f"/metrics lacks {name}")
+    if sorted(health.get("streams", {})) != ["sock-s1/0", "sock-s9/0"] \
+            or health["calibration"]["platform"] != "cuda":
+        raise AssertionError(f"/healthz: {sorted(health)}")
+    section("socket")
+    out["socket"] = {"streams": sorted(health["streams"]),
+                     "metrics_bytes": len(text)}
+    log("service socket: two ServiceClients (s1 dense, s9 sort) finalize "
+        "to the in-process results; /metrics holds the stream-event and "
+        "ops counters, /healthz returns status()")
+
+    # the CPU path, from the worker processes
+    t = time.perf_counter()
+    for i in range(n):
+        cpu_r, cpu_carry, cpu_s = cpu_jobs[i].result()
+        if i in dense:
+            g, g_carry, _s = solo_stream(streaming, model,
+                                         hists[i][:SERVICE_CPU_DENSE_OPS], i,
+                                         dev)
+        else:
+            g, g_carry = solo[i], None
+        same_results(f"s{i} card vs CPU", g, cpu_r)
+        if g_carry is not None:
+            same_carry(f"s{i} prefix card vs CPU", g_carry, cpu_carry)
+        out["per_stream"][f"s{i}"].update(cpu_s=cpu_s, cpu_ops=len(
+            hists[i][:SERVICE_CPU_DENSE_OPS] if i in dense else hists[i]),
+            cpu_chunks=cpu_r["chunks"])
+    bad5 = cpu_jobs[5].result()[0]
+    if bad5["valid?"] is not False:
+        raise AssertionError(f"s5 prefix on the CPU: {bad5['valid?']}")
+    log(f"service: the CPU path agrees with every stream alone on the card "
+        f"(streams 0-7 on their first {SERVICE_CPU_DENSE_OPS} history ops, "
+        f"chunks {[cpu_jobs[i].result()[0]['chunks'] for i in dense]}, "
+        f"final carries included; 8-15 whole); waited "
+        f"{time.perf_counter() - t:.3f} s for the workers")
+    section("CPU path")
+    log(f"service sections (s): {out['section_s']}")
+    no_stamps("service", [res[i] for i in range(n)])
     return out
 
 
@@ -1676,7 +2168,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from jepsen_tpu_torch import _build, _platform, independent, models
+    from jepsen_tpu_torch import (_build, _platform, independent, models,
+                                  service, store, telemetry)
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
                                           wgl, wgl_closure, wgl_dedup)
@@ -1807,12 +2300,12 @@ def main() -> int:
                       ("at-cap-dense", {"engine": "dense"}),
                       ("phantom", {})):
         walk = prefix_walk(wgl, *hists[label], dev, **kw)
-        profiles[label] = pr = profile_walk(walk, PROFILE_STEPS)
-        log(f"profile {label}, first {PROFILE_STEPS} steps: wall "
+        profiles[label] = pr = profile_walk(walk, PROFILE_WALK_STEPS)
+        log(f"profile {label}, first {PROFILE_WALK_STEPS} steps: wall "
             f"{pr['wall_s']:.4f} s, device busy "
             f"{pr['device_busy_s']:.4f} s ({100 * pr['busy_share']:.2f}"
             f"%), {pr['kernel_launches']} kernel launches "
-            f"({pr['kernel_launches'] / PROFILE_STEPS:.1f} per step); top "
+            f"({pr['kernel_launches'] / PROFILE_WALK_STEPS:.1f} per step); top "
             f"{pr['top']}")
     phase_done("profile")
 
@@ -1830,11 +2323,28 @@ def main() -> int:
     elle = phase_elle(dev, synth, elle_kernels, list_append, wr, _platform)
     phase_done("elle")
 
-    # -- phase 8: streaming, the tier and the race ------------------------
-    streams = phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
-                           streaming, screen, linear, wr, _platform,
-                           carry_to_numpy, cpu_results["headline"])
-    phase_done("streaming, tier and race")
+    # the CPU checks of phases 8 and 9 run in worker processes (spawned:
+    # this process holds a CUDA context) beside the card's runs
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS, initializer=cpu_worker_init,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # -- phase 8: streaming, the tier and the race --------------------
+        streams = phase_stream(dev, models, synth, wgl, wgl_closure,
+                               wgl_dedup, streaming, screen, linear, wr,
+                               _platform, carry_to_numpy,
+                               cpu_results["headline"], pool)
+        phase_done("streaming, tier and race")
+
+        # -- phase 9: the verification service ----------------------------
+        svc = phase_service(dev, models, synth, wgl_closure, wgl_dedup,
+                            streaming, service, store, telemetry, _platform,
+                            pool)
+        phase_done("verification service")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -1859,6 +2369,7 @@ def main() -> int:
         "shape": [k1_main["S"], k1_main["P"]],
         "stream_launches": streams["dense"]["k1_launches"]
         + streams["dense-recovery"]["k1_launches"],
+        "service_launches": svc["launches"]["closure_round"],
         "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
         "stream_shape_ms": k1["shapes"][3]["ms"],
         "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
@@ -1881,6 +2392,7 @@ def main() -> int:
         "library_ms": None,
         "unique_ms": k2_main["unique_ms"],
         "stream_launches": streams["sort-abort"]["k2_launches"],
+        "service_launches": svc["launches"]["dedup"],
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -1909,7 +2421,7 @@ def main() -> int:
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
             "profiles": profiles, "batch": batch, "elle": elle,
-            "streams": streams,
+            "streams": streams, "service": svc,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -17,8 +17,13 @@ is the hand-written Hopper kernel `csrc/dedup.cu`; the batched check of
 many histories (`checker.wgl.analysis_gpu_batch`, both kernels with a
 batch axis) behind the independent checker (`independent`); and the
 recovery ladder with fault injection (`_platform`) around both entries;
-and Elle's transactional-cycle checks (`checker.elle`: list-append and
-rw-register, their SCC classifier batched on the card).
+Elle's transactional-cycle checks (`checker.elle`: list-append and
+rw-register, their SCC classifier batched on the card); the tier-1
+screen, the competition race and online streaming checks
+(`checker.screen`, `checker.streaming`); and the persistent
+verification service (`service`, with `calibrate`, `store` and
+`reconnect`), whose daemon runs as ``python -m jepsen_tpu_torch
+service``.
 """
 
 __version__ = "0.1.0"

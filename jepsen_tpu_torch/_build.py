@@ -5,7 +5,11 @@ library with a plain C interface under `build/` at the repository root
 (git-ignored), at first use: ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC``. A library newer than its source is
 reused. `build()` starts one nvcc per source, all at once, and waits for
-them all; `library(name)` builds what it needs and loads it.
+them all; `library(name)` builds what it needs and loads it. Both run
+under one process-wide lock, so threads that reach a kernel first at the
+same time (a service's stream workers) run nvcc at most once per source
+and load one library; the temporary file a compile writes is named by
+process and thread.
 
 Nothing here falls back: a missing nvcc or a failed compile raises
 `KernelCompileError`, which the recovery ladder never retries.
@@ -18,6 +22,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from ._platform import KernelCompileError
@@ -26,6 +31,9 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG.parent / "build"
 GENCODE = "arch=compute_90a,code=sm_90a"
+# serialises build() and library(): a check, a compile and a rename per
+# source, so a second caller finds the first one's library fresh
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -68,7 +76,11 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     fresh library, one nvcc each, started together. Returns each
     compiled source's compiler log (also kept as build/<name>.log);
     raises if any compile fails."""
-    names = sources() if names is None else list(names)
+    with _LOCK:
+        return _build_locked(sources() if names is None else list(names))
+
+
+def _build_locked(names: list[str]) -> dict[str, str]:
     todo = [n for n in names if not _fresh(n)]
     if not todo:
         return {}
@@ -77,7 +89,8 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     procs = {}
     try:
         for n in todo:
-            tmp = BUILD / f"lib{n}.so.{os.getpid()}.tmp"
+            tmp = BUILD / (f"lib{n}.so.{os.getpid()}."
+                           f"{threading.get_ident()}.tmp")
             procs[n] = (tmp, subprocess.Popen(
                 command(n, tmp, cc), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
@@ -101,7 +114,23 @@ def build(names: list[str] | None = None) -> dict[str, str]:
 
 
 @functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+def _load(name: str) -> ctypes.CDLL:
     build([name])
     return ctypes.CDLL(str(lib_path(name)))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed; one
+    build and one load per source however many threads ask at once."""
+    with _LOCK:
+        return _load(name)
+
+
+def _forget() -> None:
+    """Drop every loaded library handle (the device-lost rung), so the
+    next `library` call loads afresh."""
+    with _LOCK:
+        _load.cache_clear()
+
+
+library.cache_clear = _forget

@@ -58,6 +58,7 @@ end.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import logging
 import queue as _queue
@@ -352,6 +353,10 @@ class WglStream:
         # fault_site names this stream's fault-injection/attestation site
         self.auto_pump = bool(auto_pump)
         self.fault_site = fault_site
+        # entered around host-only work inside a device walk (the
+        # ladder's backoff sleep, the blame's host explanation): a
+        # scheduler that grants one walk at a time lends it out there
+        self.host_work: Callable[[], Any] = contextlib.nullcontext
         self.chunk = _wgl._bucket(max(int(chunk_entries), 1), lo=64)
         self.frontier = frontier
         self.max_frontier = max_frontier
@@ -691,7 +696,9 @@ class WglStream:
                     replay = False
                 return fn()
             except RuntimeError as e:
-                if not self._absorb_fault(e, site):
+                with self.host_work():
+                    more = self._absorb_fault(e, site)
+                if not more:
                     return None
                 self._apply_stream_rung(self.faults[-1])
                 replay = restore
@@ -818,8 +825,23 @@ class WglStream:
             return 0
         return self.encoder.available() // self.chunk
 
+    def kernel_key(self):
+        """Identity of the stream's engine shape (family, model, slots,
+        chunk, frontier, packing, device), or None before setup. The
+        service's calibration feed uses it to tell which ONE stream per
+        shape ran it first in this process: that stream's first chunk
+        paid the library load, the CUDA context and the allocator's
+        warm-up (the JAX package's paid the jit compile), so only its
+        sample is left out of the fit."""
+        if self._k is None:
+            return None
+        return (self.engine, self.name, self.p, self.chunk, self.frontier,
+                self._pack is not None, str(self.device))
+
     def pump(self, max_chunks: int | None = None) -> int:
-        """Dispatch up to max_chunks full chunks (None = all)."""
+        """Dispatch up to max_chunks full chunks (None = all): the
+        external-pump entry for a verification service (with
+        auto_pump=False, feed() only encodes)."""
         return self._pump(limit=max_chunks)
 
     def checkpoint_now(self) -> bool:
@@ -1176,10 +1198,12 @@ class WglStream:
             row = int(steps.ret_row[d])
         if row < 0:
             return
-        hist = History(self._client_ops).index()
-        src = int(ops.index[row])
-        op = _wgl._find_op(hist, src)
-        if op is not None:
+        with self.host_work():
+            hist = History(self._client_ops).index()
+            src = int(ops.index[row])
+            op = _wgl._find_op(hist, src)
+            if op is None:
+                return
             out["op"] = op
             out["op-index"] = src
             try:

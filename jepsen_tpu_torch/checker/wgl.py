@@ -61,7 +61,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import telemetry as _telemetry, util
+from .. import calibrate as _calibrate, telemetry as _telemetry, util
 from .._platform import (FAULT_COMPILE, FAULT_DEVICE_LOST, FAULT_OOM,
                          CorruptDeviceResult, attest_enabled,
                          classify_backend_error, guarded_fetch,
@@ -1287,6 +1287,9 @@ class EngineDecision:
     dedup: str                  # DEDUP_* (sort family's dedup engine)
     reason: str
     costs: dict                 # modeled per-history element-ops
+    # measured device-seconds of the compared variants, when a trusted
+    # calibration priced the comparison (None: modeled element-ops)
+    seconds: dict | None = None
 
 
 def engine_variant(dec: EngineDecision) -> str:
@@ -1334,15 +1337,23 @@ def _dense_caps_error(srange, p: int, key=None) -> ValueError:
 def select_engine(srange: tuple[int, int], p_exact: int, n_events: int,
                   *, slots: int | None = None, frontier: int = 256,
                   engine: str = "auto",
-                  dense_slot_cap: int | None = None) -> EngineDecision:
+                  dense_slot_cap: int | None = None,
+                  calibration=None) -> EngineDecision:
     """Pick the engine family for one history shape, by the JAX
     package's cost model as it resolves on its accelerator: the sort
     family is priced at the dedup it will run (the hash dedup where
-    `_hash_gate` admits the shape), with no calibration. The result is
-    the JAX package's `select_engine(..., pallas=True)`.
+    `_hash_gate` admits the shape). The result is the JAX package's
+    `select_engine(..., pallas=True)` given the same calibration.
     engine='dense'/'sort' force a family ('dense' raises when the table
     cannot fit); dense_slot_cap bounds the slot count 'auto' lets the
-    dense table absorb."""
+    dense table absorb.
+
+    calibration: a `jepsen_tpu_torch.calibrate.Calibration` (None = the
+    process-wide active one, usually nothing). When it holds trusted
+    measured coefficients for BOTH compared variants, the dense-vs-sort
+    comparison runs in measured device-seconds instead of modeled
+    element-ops, with the same DENSE_EXACT_BIAS preference for exact
+    verdicts."""
     if engine not in ("auto", "dense", "sort"):
         raise ValueError(f"unknown WGL engine {engine!r}")
     if slots is None:
@@ -1350,7 +1361,15 @@ def select_engine(srange: tuple[int, int], p_exact: int, n_events: int,
     S = _bucket(srange[1] - srange[0] + 1, lo=4)
     costs = _family_costs(S, p_exact, slots, frontier, n_events)
     dedup = dedup_engine(frontier, slots, _pack_params(srange, slots))
-    sort_cost = costs["hash" if dedup == DEDUP_PALLAS else "sort"]
+    sort_variant = "hash" if dedup == DEDUP_PALLAS else "sort"
+    sort_cost = costs[sort_variant]
+    cal = calibration if calibration is not None \
+        else _calibrate.active()
+    seconds = None
+    if cal is not None and cal.ready("dense", sort_variant):
+        seconds = {
+            "dense": cal.seconds("dense", costs["dense"]),
+            sort_variant: cal.seconds(sort_variant, sort_cost)}
     dense = None
     if engine in ("auto", "dense"):
         if dense_slot_cap is not None and p_exact > dense_slot_cap:
@@ -1368,7 +1387,20 @@ def select_engine(srange: tuple[int, int], p_exact: int, n_events: int,
     if engine == "sort" or dense is None:
         why = ("forced" if engine == "sort"
                else f"S={S} x 2^{p_exact} exceeds the dense caps")
-        return EngineDecision("sort", None, dedup, why, costs)
+        return EngineDecision("sort", None, dedup, why, costs, seconds)
+    if seconds is not None:
+        # measured comparison: same exactness bias, ground-truth units
+        dense_v, sort_v = seconds["dense"], seconds[sort_variant]
+        if engine == "dense" or dense_v <= DENSE_EXACT_BIAS * sort_v:
+            why = ("forced" if engine == "dense" else
+                   f"measured dense {dense_v:.3g}s <= "
+                   f"{DENSE_EXACT_BIAS:g}x {dedup} {sort_v:.3g}s")
+            return EngineDecision("dense", dense, DEDUP_NONE, why, costs,
+                                  seconds)
+        return EngineDecision(
+            "sort", None, dedup,
+            f"measured dense {dense_v:.3g}s > {DENSE_EXACT_BIAS:g}x "
+            f"{dedup} {sort_v:.3g}s", costs, seconds)
     if engine == "dense" or \
             costs["dense"] <= DENSE_EXACT_BIAS * sort_cost:
         why = ("forced" if engine == "dense" else
@@ -1698,15 +1730,32 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
         else:
             carry = k.init_carry(init_state)
             e = 0
+            # measured-cost-model feed: modeled element-ops per step
+            # entry, so each chunk's latency pairs with its share of the
+            # decision's modeled cost (both linear in entries)
+            cal_ops_per_entry = engine_cost(decision) / max(steps.n, 1)
+            chunk_i = 0
             while e < steps.n:
+                e0 = e
                 stop = min(e + chunk_entries, steps.n)
                 maybe_inject_fault("offline")
+                t_chunk = _time.monotonic()
                 prev, carry = carry, k.check_chunk(xs, stop, carry)
                 e = stop
                 if k.interrupted:
                     timed_out = cancelled = True
                     break
-                if k.fetch(prev[-2]) == 0:
+                dead = k.fetch(prev[-2]) == 0
+                if chunk_i >= 2:
+                    # the walk reads the host every round, so dt is this
+                    # chunk's own; chunks 0 and 1 stay out of the fit,
+                    # as at the JAX package's site (chunk 0 pays the
+                    # library load and the allocator's warm-up)
+                    _calibrate.observe(engine_variant(decision),
+                                       cal_ops_per_entry * (stop - e0),
+                                       _time.monotonic() - t_chunk)
+                chunk_i += 1
+                if dead:
                     carry = prev   # it died last chunk: definite
                     break
                 # only give up when chunks remain — a search that just

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -60,6 +61,9 @@ from .. import _build
 from .._platform import KernelLaunchError
 
 LAUNCHES = 0    # K1 launches by `closure_round`, and nothing else
+# stream workers launch from several threads: `+=` on a global is not
+# atomic, so the count moves under this lock
+_LAUNCH_LOCK = threading.Lock()
 
 SOURCE = "jepsen_tpu_torch/csrc/closure_round.cu"
 REPLACES = "jepsen_tpu/checker/wgl_pallas.py:58"
@@ -155,5 +159,6 @@ def closure_round(table: torch.Tensor, mft: torch.Tensor) -> torch.Tensor:
     if code != 0:
         raise KernelLaunchError(f"closure_round launch failed: CUDA error "
                                 f"{code} ({err(code).decode()})")
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     return out

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -83,6 +84,9 @@ MAX_VMEM_BYTES = 12 << 20
 DIGEST_COUNT_MIX = -1640531527   # 0x9E3779B9 as int32
 
 LAUNCHES = 0    # K2 launches by `dedup`, and nothing else
+# stream workers launch from several threads: `+=` on a global is not
+# atomic, so the count moves under this lock
+_LAUNCH_LOCK = threading.Lock()
 # the largest N that the single-block route takes (csrc/dedup.cu
 # kSingleMaxN): one CUDA launch per call, five above it
 SINGLE_BLOCK_MAX_N = 8192
@@ -268,7 +272,8 @@ def launch(keys: torch.Tensor, F: int, route: str):
     if code != 0:
         raise KernelLaunchError(f"dedup launch failed: CUDA error {code} "
                                 f"({err(code).decode()})")
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     out = ints[:B * F].view(B, F)
     tail = ints[B * F:B * (F + 2)].view(B, 2)
     if keys.dim() == 1:

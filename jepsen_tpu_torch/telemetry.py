@@ -11,8 +11,10 @@ this module counts them:
     is taken only when a new (metric, label-set) child materializes.
     ``JEPSEN_TPU_METRICS=0`` (or :func:`set_enabled`) turns every
     mutation into a single attribute check.
-  * **Exposition.** :func:`snapshot` (a JSON-able dict) and
-    :func:`prometheus_text` (the Prometheus text format).
+  * **Exposition.** :func:`snapshot` (a JSON-able dict),
+    :func:`prometheus_text` (the Prometheus text format), and
+    :func:`serve_metrics`, an HTTP listener for ``/metrics`` and
+    ``/healthz`` (the verification service's status).
   * **Naming convention.** ``jepsen_tpu_<layer>_<name>_<unit>`` with
     layer in :data:`LAYERS` and unit in :data:`UNITS`; counters end in
     ``_total``. Metric names and labels are the JAX package's, so one
@@ -32,11 +34,12 @@ them.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
 import threading
 import time
-from typing import Iterable
+from typing import Callable, Iterable
 
 # metric-name vocabulary (the JAX package's; keep the sets equal)
 LAYERS = ("wgl", "streaming", "screen", "abft", "service", "trace",
@@ -429,6 +432,61 @@ def reset() -> None:
 # ---------------------------------------------------------------------------
 # HTTP exposition: /metrics (Prometheus text) + /healthz (status JSON)
 # ---------------------------------------------------------------------------
+
+def serve_metrics(port: int, host: str = "127.0.0.1",
+                  registry: Registry | None = None,
+                  healthz: Callable[[], dict] | None = None):
+    """Start a daemon-thread HTTP listener serving ``/metrics``
+    (Prometheus text, content-type text/plain; version=0.0.4) and
+    ``/healthz`` (the JSON from ``healthz()`` — the service passes its
+    ``status()``; default ``{"ok": true}``). Returns the server; port
+    0 picks a free one (``server.server_address[1]``).
+
+    Binds loopback by default, matching the service socket's posture —
+    /healthz carries run names, store paths, and quarantine error
+    tails, none of which belong on every interface unasked. Pass
+    ``host="0.0.0.0"`` (CLI: ``--metrics-host``) to expose to a
+    remote Prometheus deliberately."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    reg = registry if registry is not None else REGISTRY
+
+    class _Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass   # scrapes must not spam stderr
+
+        def _send(self, code: int, body: bytes, ctype: str) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 — http.server API
+            path = self.path.split("?", 1)[0]
+            if path == "/metrics":
+                return self._send(
+                    200, reg.prometheus_text().encode(),
+                    "text/plain; version=0.0.4; charset=utf-8")
+            if path == "/healthz":
+                try:
+                    body = healthz() if healthz is not None \
+                        else {"ok": True}
+                except Exception as e:  # noqa: BLE001 — health must answer
+                    return self._send(
+                        500, json.dumps({"ok": False,
+                                         "error": str(e)}).encode(),
+                        "application/json")
+                return self._send(200, json.dumps(body).encode(),
+                                  "application/json")
+            return self._send(404, b"not found", "text/plain")
+
+    server = ThreadingHTTPServer((host, int(port)), _Handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True,
+                         name="jepsen-metrics")
+    t.start()
+    return server
+
 
 
 # ---------------------------------------------------------------------------

@@ -495,3 +495,123 @@ def test_cuda_tier_and_race_match_cpu():
         for t in list(linear._RACERS):
             t.join(max(0.0, deadline - time.monotonic()))
         assert not any(t.is_alive() for t in list(linear._RACERS))
+
+
+# -- the verification service on the card ------------------------------------------
+
+_SVC_TIMING = ("tail-latency-ms", "duration-ms", "violation-at-op")
+# (history seed, WglStream options): two dense streams (K1) and two packed
+# sort streams on the hash route (K2); one of each made invalid by a read
+# inside the declared range
+_SVC_STREAMS = {
+    "d0": (70, None, dict(engine="auto", state_range=(-1, 4),
+                          concurrency_hint=5)),
+    "d1": (71, 4, dict(engine="auto", state_range=(-1, 4),
+                       concurrency_hint=5)),
+    "s0": (72, None, dict(engine="sort", state_range=(-1, 10 ** 6),
+                          slots=8)),
+    "s1": (73, 999, dict(engine="sort", state_range=(-1, 10 ** 6),
+                         slots=8)),
+}
+
+
+def _svc_hist(seed, bad):
+    # few crashes: 8 slots hold every pending op, so the sort streams
+    # keep their packed keys (and K2) to the end
+    h = synth.register_history(600, concurrency=5, values=5,
+                               crash_rate=0.0005, seed=seed)
+    return synth.corrupt(h, seed=0, value=bad) if bad is not None else h
+
+
+def _svc_solo(hist, kw):
+    s = streaming.WglStream(models.cas_register(), chunk_entries=256,
+                            checkpoint_every=2, **kw)
+    for op in hist.ops:
+        s.feed(op)
+    return s.finish()
+
+
+def _svc_strip(r):
+    return {k: v for k, v in r.items() if k not in _SVC_TIMING}
+
+
+@pytest.mark.gpu
+def test_cuda_concurrent_streams_count_their_own_launches():
+    """Two streams fed from two threads at once, a dense one and a hash
+    one: each result's K1 / K2 counts are its own (equal to the stream
+    alone) and together they are the global counters' change."""
+    _need_cuda()
+    import threading
+    picks = {"d0": _SVC_STREAMS["d0"], "s0": _SVC_STREAMS["s0"]}
+    hists = {n: _svc_hist(sd, bad) for n, (sd, bad, _kw) in picks.items()}
+    alone = {n: _svc_solo(hists[n], picks[n][2]) for n in picks}
+    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    out = {}
+    ths = [threading.Thread(target=lambda n=n: out.__setitem__(
+        n, _svc_solo(hists[n], picks[n][2]))) for n in picks]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    for n in picks:
+        assert _svc_strip(out[n]) == _svc_strip(alone[n]), n
+    assert out["d0"]["closure-rounds"] > 0
+    assert out["s0"]["dedup-launches"] > 0
+    assert wgl_closure.LAUNCHES - k1 == out["d0"]["closure-rounds"]
+    assert wgl_dedup.LAUNCHES - k2 == sum(r["dedup-launches"]
+                                          for r in out.values())
+
+
+@pytest.mark.gpu
+def test_cuda_service_four_streams_match_their_solos():
+    """A VerificationService on the card with 4 streams (2 dense, K1; 2
+    packed sort on the hash route, K2), fed from 4 threads: each result
+    equals the stream alone on the card, and the launches add up."""
+    _need_cuda()
+    import threading
+    from jepsen_tpu_torch import service
+    hists = {n: _svc_hist(sd, bad)
+             for n, (sd, bad, _kw) in _SVC_STREAMS.items()}
+    alone = {n: _svc_solo(hists[n], kw)
+             for n, (_sd, _bad, kw) in _SVC_STREAMS.items()}
+    svc = service.VerificationService()
+    for n, (_sd, _bad, kw) in _SVC_STREAMS.items():
+        spec = {"kind": "wgl", "model": service.model_spec(
+            models.cas_register()), "chunk-entries": 256,
+            "checkpoint-every": 2, "engine": kw["engine"],
+            "state-range": list(kw["state_range"])}
+        if "slots" in kw:
+            spec["slots"] = kw["slots"]
+        if "concurrency_hint" in kw:
+            spec["concurrency-hint"] = kw["concurrency_hint"]
+        svc.admit(n, {"linear": spec})
+    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+
+    def feed(n):
+        for op in hists[n].ops:
+            svc.offer(n, op)
+        svc.seal(n)
+
+    ths = [threading.Thread(target=feed, args=(n,)) for n in hists]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=300)
+    res = {n: svc.result(n, timeout_s=300)["linear"] for n in hists}
+    torch.cuda.synchronize()
+    st = svc.status()
+    svc.stop()
+    for n in hists:
+        assert _svc_strip(res[n]) == _svc_strip(alone[n]), n
+    assert [res[n]["valid?"] for n in sorted(res)] == \
+        [True, False, True, False]
+    assert res["d0"]["analyzer"] == "gpu-wgl-dense-streaming"
+    assert res["s0"]["dedup"] == "pallas-hash"
+    assert wgl_closure.LAUNCHES - k1 == sum(
+        res[n]["closure-rounds"] for n in ("d0", "d1"))
+    assert wgl_dedup.LAUNCHES - k2 == sum(
+        r["dedup-launches"] for r in res.values())
+    assert all(s["state"] == "verdict" for s in st["streams"].values())
+    assert st["calibration"]["platform"] == "cuda"

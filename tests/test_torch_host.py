@@ -241,6 +241,29 @@ assert sw["valid?"] is True, sw
 cmp = compose({"lin": linear.linearizable(models.cas_register(),
                                           device="cpu")}).check({}, h, {})
 assert cmp["valid?"] is True, cmp
+import jepsen_tpu_torch.__main__
+from jepsen_tpu_torch import calibrate, reconnect, service, store
+cal = calibrate.activate(calibrate.Calibration(platform="cpu"))
+svc = service.VerificationService(device="cpu", calibration=cal)
+spec = {"linear": {"kind": "wgl", "model": service.model_spec(
+    models.cas_register()), "chunk-entries": 64, "slots": 8,
+    "frontier": 128, "engine": "sort"}}
+svc.admit("guard", spec)
+for o in synth.corrupt(h, value=5).ops:
+    svc.offer("guard", o)
+svc.seal("guard")
+sr = svc.result("guard", timeout_s=120)["linear"]
+assert sr["valid?"] is False and sr["op-index"] == bad["op-index"], sr
+addr = svc.serve("127.0.0.1:0")
+cl = service.ServiceClient(addr, {"name": "g", "start-time": "1"},
+                           spec=spec, device="cpu")
+for o in h.ops:
+    cl.offer(o)
+fin = cl.finalize()
+assert fin["linear"]["valid?"] is True, fin
+assert svc.status()["calibration"]["platform"] == "cpu"
+svc.stop()
+calibrate.deactivate()
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
@@ -258,8 +281,12 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def test_port_sources_name_no_jax_import():
-    for p in list((REPO / "jepsen_tpu_torch").rglob("*.py")) + \
-            [REPO / "chip_smoke.py"]:
+    paths = list((REPO / "jepsen_tpu_torch").rglob("*.py"))
+    names = {p.relative_to(REPO / "jepsen_tpu_torch").as_posix()
+             for p in paths}
+    assert {"service.py", "calibrate.py", "store.py", "reconnect.py",
+            "__main__.py", "telemetry.py"} <= names
+    for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax")), (p, s)
