@@ -30,7 +30,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      under a wall-time budget), with every kernel's launch count set to 0
      just before and read just after; then hold verdicts, culprit ops,
      counts and final carries against the port's own CPU path, and trace
-     the first 1,000 steps of four walks with torch.profiler for the
+     the first 500 steps of four walks with torch.profiler for the
      device's busy share;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
@@ -47,7 +47,8 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      kernel's launch count set to 0 just before each run and read just
      after; then the dense batch again under an injected OOM (the
      ladder's split); then hold verdicts, culprit ops, counts and each
-     group's final batched carry against the port's CPU path, and trace
+     group's final batched carry against the port's CPU path (run in a
+     worker process from the end of phase 1 on), and trace
      the first 300 lockstep steps of each batch's largest group;
   7. the Elle phase: the batched SCC classifier on random 0/1 buckets
      (e = 8 to 1,024) against its CPU path and its numpy mirror, timed;
@@ -72,7 +73,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      its engine on the card, each result against the CPU path's (the
      dense stream through the first chunk of its full-size run), and feed,
      tail and offline walls are printed (the dense stream's CPU check
-     runs in a worker process meanwhile);
+     runs in a worker process from the end of phase 1 on);
   9. the verification service on the card: one VerificationService, 16
      streams of a 1,000-op register history fed from 16 threads (streams
      0-7 dense, K1; 8-15 packed sort on the hash route, K2; streams 5 and
@@ -86,7 +87,19 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      stream 11 on the default adaptive service (both recover, every
      sibling equal to its clean run), a drain and a resume of stream 0,
      and two ServiceClients over the socket with /metrics and /healthz;
- 10. fail if any result other than the injected runs' carries a
+ 10. the sharded phase: over a one-rank NCCL group on the card,
+     check_batch_sharded of phase 6's hazelcast batch (per_key equal to
+     phase 6's verdicts, the JAX package's group plan, K1 launched),
+     of its counter batch (K2 launched) and of the hazelcast batch again
+     under an injected OOM (the split), list_append.check of phase 7's
+     G1c history over the mesh (equal to phase 7's result), and the
+     closure of a 4,096-node ring with and without the mesh, every
+     collective on CUDA tensors; then four gloo ranks sharing the card,
+     each building both kernels afresh into one directory at once and
+     walking its block of the hazelcast batch through K1 (every rank's
+     result equal to the one-rank run's); dryrun_multichip(4) on the
+     card; and entry() on the card against the CPU path;
+ 11. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -243,6 +256,17 @@ SERVICE_TIMING = ("duration-ms", "tail-latency-ms", "violation-at-op")
 SERVICE_COUNT_KEYS = ("closure-rounds", "dedup-launches", "host-syncs")
 CPU_WORKERS = 2
 CPU_WORKER_THREADS = 3
+# the sharded phase (wgl.py:2424-2767, the Elle mesh path, the graft
+# entries): the batches of phase 6 and the G1c history of phase 7 over a
+# one-rank NCCL group on the card, then the hazelcast batch and the
+# dryrun in four gloo ranks sharing the card; the JAX package's group
+# plan for the hazelcast shape (dense P = 4/6/8/10 with 24/61/12/3 keys)
+SHARDED_RANKS = 4
+SHARDED_GROUPS = [{"family": "dense", "dedup": "dense-table", "keys": k,
+                   "slots": p} for p, k in ((4, 24), (6, 61), (8, 12),
+                                            (10, 3))]
+SHARDED_RING = 4_096
+SHARDED_JOIN_S = 300
 
 
 def log(*a):
@@ -860,6 +884,37 @@ def check_batch(label, rs, rec, bad, dense) -> None:
                              f"{rec['dedup_launches']} hash dedups")
 
 
+BATCH_AGREE_KEYS = ("valid?", "op-index", "max-frontier", "dedup",
+                    "analyzer", "op-count", "batch-walk")
+
+
+def cpu_batch(kind: str) -> tuple:
+    """Phase 6's CPU path in a worker process: the hazelcast ("dense") or
+    the counter ("sort") batch through analysis_gpu_batch on the CPU,
+    with each group walk's final batched carry. It needs nothing of the
+    card's run. Returns each key's compared fields, the carries and the
+    seconds it took."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.carry import carry_to_numpy
+    from jepsen_tpu_torch.checker import synth, wgl
+    t = time.perf_counter()
+    dense, sort = batch_histories(models, synth)
+    model, hists = dense if kind == "dense" else sort
+    carries = []
+    walk = wgl._batch_walk
+
+    def record(*a, **k):
+        carry = walk(*a, **k)
+        carries.append(carry_to_numpy(carry))
+        return carry
+
+    wgl._batch_walk = record
+    rs = wgl.analysis_gpu_batch(model, hists, device="cpu",
+                                slots=BATCH_SLOTS)
+    return ([{k: r.get(k) for k in BATCH_AGREE_KEYS} for r in rs], carries,
+            time.perf_counter() - t)
+
+
 def same_carries(label, a, b) -> None:
     if len(a) != len(b):
         raise AssertionError(f"{label}: {len(a)} group walks vs {len(b)}")
@@ -871,9 +926,11 @@ def same_carries(label, a, b) -> None:
 
 
 def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
-                independent, linearizable, platform, carry_to_numpy) -> dict:
+                independent, linearizable, platform, carry_to_numpy,
+                cpu_batches) -> dict:
     """The batch path at full size on the card, under injection, and
-    against the CPU path."""
+    against the CPU path (`cpu_batches`: futures of `cpu_batch` for
+    "dense" and "sort", run in worker processes since phase 1)."""
     (reg, hz), (counter, cnt) = batch_histories(models, synth)
     kw = dict(slots=BATCH_SLOTS)
     out = {}
@@ -946,27 +1003,22 @@ def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
 
     # the CPU path: verdicts, counts and each walk's final carry
     t0 = time.perf_counter()
-    for label, model, hists, g_rs, g_carries in (
-            ("hazelcast", reg, hz, dense_rs, dense_carries),
-            ("counter", counter, cnt, sort_rs, sort_carries)):
-        t = time.perf_counter()
-        c_rs, _rec, c_carries = run_batch(
-            f"{label} on the CPU",
-            lambda: wgl.analysis_gpu_batch(model, hists, device="cpu", **kw),
-            wgl, wgl_closure, wgl_dedup, carry_to_numpy)
+    for label, kind, g_rs, g_carries in (
+            ("hazelcast", "dense", dense_rs, dense_carries),
+            ("counter", "sort", sort_rs, sort_carries)):
+        c_rs, c_carries, cpu_s = cpu_batches[kind].result()
         for i, (a, b) in enumerate(zip(g_rs, c_rs)):
-            for key in ("valid?", "op-index", "max-frontier", "dedup",
-                        "analyzer", "op-count", "batch-walk"):
+            for key in BATCH_AGREE_KEYS:
                 if a.get(key) != b.get(key):
                     raise AssertionError(f"{label} key {i}: {key} gpu "
                                          f"{a.get(key)} != cpu {b.get(key)}")
         same_carries(label, g_carries, c_carries)
-        out[f"{label}_cpu_s"] = time.perf_counter() - t
+        out[f"{label}_cpu_s"] = cpu_s
         log(f"{label} batch: GPU and CPU agree on every key (verdict, "
             f"op-index, max-frontier, dedup, walk counts) and on the final "
             f"batched carry of each of {len(g_carries)} group walks; CPU "
-            f"path {out[f'{label}_cpu_s']:.3f} s")
-    out["cpu_agreement_s"] = time.perf_counter() - t0
+            f"path {cpu_s:.3f} s in a worker process")
+    out["cpu_agreement_wait_s"] = time.perf_counter() - t0
 
     # where a batched walk's time goes: its largest group's first steps
     out["profiles"] = {}
@@ -1386,6 +1438,8 @@ def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
         f"dispatches, 1 classifier call), the same result, wall "
         f"{wall:.3f} s")
     log("elle: " + json.dumps(out, default=str))
+    # the sharded phase checks the same history over a mesh
+    out["g1c_history"], out["g1c_result"] = bad, g
     return out
 
 
@@ -1424,18 +1478,26 @@ def cpu_worker_init() -> None:
     torch.set_num_threads(CPU_WORKER_THREADS)
 
 
-def cpu_dense_prefix(snap_ops: int, snap_chunks: int) -> tuple:
+def cpu_dense_prefix() -> tuple:
     """Phase 8's dense stream on the CPU path, in a worker process: the
-    first snap_ops history ops, its carry when it first dispatched
-    snap_chunks chunks, finished. Returns the result, the final carry,
-    the snapshot and the seconds it took."""
+    adversarial history fed until the stream first dispatched
+    STREAM_CPU_DENSE_CHUNKS chunks (the snapshot: the ops fed, the
+    chunks and the carry then), and finished there, as a stream of that
+    prefix is. It needs nothing of the card's run. Returns the result,
+    the final carry, the snapshot and the seconds it took."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.checker import streaming, synth
     t = time.perf_counter()
     adv = synth.adversarial_register_history(**ADVERSARIAL)
-    cut = type(adv)(adv.ops[:snap_ops])
-    sc, rc, *_, shot = stream_run(streaming, models.cas_register(), cut,
-                                  "cpu", snap=snap_chunks, **STREAM_DENSE)
+    sc = streaming.WglStream(models.cas_register(), device="cpu",
+                             **STREAM_DENSE)
+    shot = None
+    for fed, op in enumerate(adv.ops, 1):
+        sc.feed(op)
+        if sc.chunks >= STREAM_CPU_DENSE_CHUNKS:
+            shot = (fed, sc.chunks, sc.carry_host())
+            break
+    rc = sc.finish()
     return rc, sc.carry_host(), shot, time.perf_counter() - t
 
 
@@ -1488,12 +1550,13 @@ def same_carry(label, a, b) -> None:
 
 def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
                  streaming, screen, linear, wr, platform, carry_to_numpy,
-                 cpu_headline, pool) -> dict:
+                 cpu_headline, pool, cpu_dense) -> dict:
     """The streaming-and-tier phase: five runs at full size on the card,
     each against the CPU path and (the WGL streams) against the offline
     walk of the same engine, with every kernel's launch count set to 0
     just before each stream and read just after. The dense stream's CPU
-    check runs in a worker process of `pool` beside the card's runs."""
+    check (`cpu_dense`, a future of `cpu_dense_prefix`) and the abort
+    stream's run in worker processes of `pool` beside the card's runs."""
     reg = models.cas_register()
     out = {}
 
@@ -1557,9 +1620,8 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
                              f"{s.chunks} chunks")
     snap_ops, snap_chunks, snap_carry = out["dense"].pop("snapshot")
     adv_cut = type(adv)(adv.ops[:snap_ops])
-    # the CPU path on the prefix runs in a worker process while the card
-    # goes on with the phase; its result is held at the phase's end
-    cpu_dense = pool.submit(cpu_dense_prefix, snap_ops, snap_chunks)
+    # the CPU path on the prefix runs in a worker process (since before
+    # phase 5); its result is held at the phase's end
     s_cut, rc, *_ = stream_run(streaming, reg, adv_cut, dev, **STREAM_DENSE)
 
     def dense_prefix_agrees():
@@ -2155,6 +2217,228 @@ def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
     return out
 
 
+def sharded_rank(build_dir, mesh) -> dict:
+    """One of the four gloo ranks sharing the card: build both kernels
+    afresh into build_dir (the four ranks at once, so the builders race
+    on the same files), then walk this rank's block of the hazelcast
+    batch (dense: K1) and of the counter batch (hash route: K2) through
+    check_batch_sharded. Returns each batch's result, K1 and K2 counts
+    (set to 0 just before its check) and wall, the rank's collectives and
+    what it built."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+    from jepsen_tpu_torch import _build, models
+    from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+    cuda = mesh.device.type == "cuda"
+    _build.BUILD = Path(build_dir)
+    t = time.perf_counter()
+    built = sorted(_build.build()) if cuda else []
+    build_s = time.perf_counter() - t
+    out = dict(device=str(mesh.device), backend=dist.get_backend(),
+               built=built, build_s=build_s)
+    for label, (model, hists) in zip(("hazelcast", "counter"),
+                                     batch_histories(models, synth)):
+        wgl_closure.LAUNCHES = 0
+        wgl_dedup.LAUNCHES = 0
+        t = time.perf_counter()
+        ok, per_key, info = wgl.check_batch_sharded(model, hists, mesh,
+                                                    slots=BATCH_SLOTS,
+                                                    return_info=True)
+        if cuda:
+            torch.cuda.synchronize()
+        out[label] = dict(all_ok=ok, per_key=per_key.tolist(), info=info,
+                          wall_s=time.perf_counter() - t,
+                          k1_launches=wgl_closure.LAUNCHES,
+                          k2_launches=wgl_dedup.LAUNCHES)
+    out["calls"] = {f"{op}/{d}": n for (op, d), n in mesh.calls.items()}
+    return out
+
+
+def ring_adjacency(n) -> np.ndarray:
+    a = np.zeros((n, n), bool)
+    a[np.arange(n), (np.arange(n) + 1) % n] = True
+    return a
+
+
+def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
+                  list_append, platform, parallel, graft_entry, batch, elle,
+                  smi) -> dict:
+    """The sharded phase: check_batch_sharded, the Elle mesh path and the
+    graft entries on the card, over one NCCL rank and four gloo ranks,
+    held against the batch and Elle phases' results."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    (reg, hz), (counter, cnt) = batch_histories(models, synth)
+    want_hz = [v is True for v in batch["dense"]["verdicts"]]
+    want_cnt = [v is True for v in batch["sort"]["verdicts"]]
+    # the machine may have no network interface but the loopback one:
+    # NCCL's and gloo's bootstraps use it
+    for var in ("NCCL_SOCKET_IFNAME", "GLOO_SOCKET_IFNAME"):
+        os.environ.setdefault(var, "lo")
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
+    try:
+        mesh = parallel.init(0, 1, f"file://{tmp}/rendezvous", device=dev)
+        try:
+            out["world1"] = sharded_world1(
+                mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
+                wgl_closure, wgl_dedup, kernels, list_append, platform,
+                elle)
+        finally:
+            dist.destroy_process_group()
+        log(f"sharded one-rank walls ({smi}): " + ", ".join(
+            f"{k} {v['wall_s']:.3f} s" for k, v in out["world1"].items()))
+
+        # four gloo ranks on the one card, each building the kernels
+        t = time.perf_counter()
+        ranks = parallel.spawn(
+            functools.partial(sharded_rank, os.path.join(tmp, "build")),
+            SHARDED_RANKS, device=dev, timeout_s=SHARDED_JOIN_S)
+        wall = time.perf_counter() - t
+        for r, rk in enumerate(ranks):
+            for label in ("hazelcast", "counter"):
+                got, w1 = rk[label], out["world1"][label]
+                if got["per_key"] != w1["per_key"] \
+                        or got["info"] != w1["info"] \
+                        or got["all_ok"] is not False:
+                    raise AssertionError(f"gloo rank {r}: {label} per_key "
+                                         f"or info differ from the one-rank "
+                                         f"run")
+            hz_r, cnt_r = rk["hazelcast"], rk["counter"]
+            if hz_r["k1_launches"] <= 0 or hz_r["k2_launches"] != 0 \
+                    or cnt_r["k2_launches"] <= 0 or rk["backend"] != "gloo" \
+                    or torch.device(rk["device"]).type != dev.type:
+                raise AssertionError(f"gloo rank {r}: {rk}")
+        out["gloo4"] = dict(
+            spawn_wall_s=wall,
+            ranks=[{k: ({kk: vv for kk, vv in v.items()
+                         if kk not in ("per_key", "info")}
+                        if isinstance(v, dict) and "per_key" in v else v)
+                    for k, v in rk.items()} for rk in ranks])
+        for r, rk in enumerate(ranks):
+            log(f"sharded gloo rank {r}/{SHARDED_RANKS} on {rk['device']}: "
+                f"built {rk['built']} in {rk['build_s']:.3f} s, hazelcast "
+                f"{rk['hazelcast']['wall_s']:.3f} s (K1 launches "
+                f"{rk['hazelcast']['k1_launches']}), counter "
+                f"{rk['counter']['wall_s']:.3f} s (K2 launches "
+                f"{rk['counter']['k2_launches']}), collectives "
+                f"{rk['calls']}; per_key and info equal to the one-rank "
+                f"runs")
+        log(f"sharded gloo x{SHARDED_RANKS}: spawn to join {wall:.3f} s "
+            f"({smi})")
+
+        t = time.perf_counter()
+        line = graft_entry.dryrun_multichip(SHARDED_RANKS, device=dev,
+                                            timeout_s=SHARDED_JOIN_S)
+        out["dryrun"] = dict(line=line, wall_s=time.perf_counter() - t)
+        log(f"dryrun_multichip({SHARDED_RANKS}): {line!r}, "
+            f"{out['dryrun']['wall_s']:.3f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the single-device graft entry, against the CPU path
+    fn, args = graft_entry.entry(dev)
+    got = fn(*args)
+    cfn, cargs = graft_entry.entry("cpu")
+    want = cfn(*cargs)
+    if got != want or got[0] is not True:
+        raise AssertionError(f"entry(): {got} != the CPU path's {want}")
+    out["entry"] = list(got)
+    log(f"entry() on the card: {got}, equal to the CPU path's")
+    return out
+
+
+def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
+                   wgl_closure, wgl_dedup, kernels, list_append, platform,
+                   elle) -> dict:
+    """The one-rank NCCL runs of the sharded phase."""
+    out = {}
+
+    def run(label, fn):
+        wgl_closure.LAUNCHES = 0
+        wgl_dedup.LAUNCHES = 0
+        kernels.LAUNCHES = 0
+        calls = collections.Counter(mesh.calls)
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        rec = dict(wall_s=time.perf_counter() - t,
+                   k1_launches=wgl_closure.LAUNCHES,
+                   k2_launches=wgl_dedup.LAUNCHES,
+                   classifier_calls=kernels.LAUNCHES,
+                   collectives={f"{op}/{d}": n for (op, d), n in
+                                (mesh.calls - calls).items()})
+        log(f"sharded {label}: wall {rec['wall_s']:.3f} s, K1 launches "
+            f"{rec['k1_launches']}, K2 launches {rec['k2_launches']}, "
+            f"classifier calls {rec['classifier_calls']}, collectives "
+            f"{rec['collectives']}")
+        return r, rec
+
+    def sharded(model, hists):
+        return wgl.check_batch_sharded(model, hists, mesh, slots=BATCH_SLOTS,
+                                       return_info=True)
+
+    (ok, pk, info), rec = run("hazelcast over 1 NCCL rank",
+                              lambda: sharded(reg, hz))
+    if ok is not False or pk.tolist() != want_hz \
+            or info != {"groups": SHARDED_GROUPS,
+                        "attested": {"steps": 4, "carry": 4}} \
+            or rec["k1_launches"] <= 0 or rec["k2_launches"] != 0:
+        raise AssertionError(f"sharded hazelcast: {ok} {info} {rec}")
+    if not all(k.endswith("/" + dev.type) for k in rec["collectives"]) \
+            or not rec["collectives"]:
+        raise AssertionError(f"collectives off the device: {rec}")
+    out["hazelcast"] = dict(rec, per_key=pk.tolist(), info=info)
+
+    (ok, pk, info), rec = run("counter over 1 NCCL rank",
+                              lambda: sharded(counter, cnt))
+    if ok is not False or pk.tolist() != want_cnt or info["groups"] != [
+            {"family": "sort", "dedup": "pallas-hash", "keys": COUNTER_KEYS,
+             "slots": BATCH_SLOTS}] or rec["k2_launches"] <= 0:
+        raise AssertionError(f"sharded counter: {ok} {info} {rec}")
+    out["counter"] = dict(rec, per_key=pk.tolist(), info=info)
+
+    os.environ[platform.FAULT_INJECT_ENV] = "oom@sharded:1"
+    platform.reset_fault_injection()
+    try:
+        (ok, pk, info), rec = run("hazelcast under oom@sharded:1",
+                                  lambda: sharded(reg, hz))
+    finally:
+        del os.environ[platform.FAULT_INJECT_ENV]
+        platform.reset_fault_injection()
+    if pk.tolist() != want_hz or info.get("recovered") != {
+            "faults": ["oom"], "retries": 1, "split": True}:
+        raise AssertionError(f"sharded OOM: {info}")
+    out["oom"] = dict(rec, groups=info["groups"])
+
+    g, rec = run("list-append + G1c over 1 NCCL rank",
+                 lambda: list_append.check(elle["g1c_history"], mesh=mesh))
+    if g != elle["g1c_result"] or rec["classifier_calls"] != 1:
+        raise AssertionError("sharded Elle: the result differs from the "
+                             "Elle phase's")
+    out["elle"] = rec
+
+    adj = ring_adjacency(SHARDED_RING)
+    t = time.perf_counter()
+    plain = kernels.transitive_closure(adj, device=dev)
+    plain_s = time.perf_counter() - t
+    closed, rec = run(f"transitive_closure of a {SHARDED_RING}-node ring",
+                      lambda: kernels.transitive_closure(adj, mesh=mesh))
+    if not (np.array_equal(closed, plain) and closed.all()):
+        raise AssertionError("sharded transitive_closure differs")
+    out["closure"] = dict(rec, plain_s=plain_s)
+    log(f"sharded: per_key equal to the batch phase's, the group plan the "
+        f"JAX package's {[(g['slots'], g['keys']) for g in SHARDED_GROUPS]}, "
+        f"the OOM split, the Elle result equal to the Elle phase's, the "
+        f"ring's closure equal without the mesh ({plain_s:.3f} s); all "
+        f"collectives on {dev.type} tensors: {dict(mesh.calls)}")
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -2168,14 +2452,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from jepsen_tpu_torch import (_build, _platform, independent, models,
-                                  service, store, telemetry)
-    from jepsen_tpu_torch.carry import carry_to_numpy
-    from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
-                                          wgl, wgl_closure, wgl_dedup)
-    from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
-    from jepsen_tpu_torch.checker.elle import list_append, wr
-    from jepsen_tpu_torch.checker.linear import linearizable
+    from jepsen_tpu_torch import _build
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2201,6 +2478,38 @@ def main() -> int:
                 log(f"ptxas[{src}]: {line.strip()}")
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
+
+    # the CPU checks of phases 6, 8 and 9 run in worker processes
+    # (spawned: this process holds a CUDA context) beside the card's
+    # runs; the three longest need nothing of the card's runs and start
+    # now: phase 8's dense stream and phase 6's two batches
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS, initializer=cpu_worker_init,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_dense = pool.submit(cpu_dense_prefix)
+        cpu_batches = {kind: pool.submit(cpu_batch, kind)
+                       for kind in ("dense", "sort")}
+        return run_phases(args, dev, name, smi, phase_s, phase_done, pool,
+                          cpu_dense, cpu_batches)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
+               cpu_batches) -> int:
+    """Phases 2-11 of `main`, given the worker pool and its first jobs."""
+    from jepsen_tpu_torch import (_platform, graft_entry, independent,
+                                  models, parallel, service, store,
+                                  telemetry)
+    from jepsen_tpu_torch.carry import carry_to_numpy
+    from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
+                                          wgl, wgl_closure, wgl_dedup)
+    from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
+    from jepsen_tpu_torch.checker.elle import list_append, wr
+    from jepsen_tpu_torch.checker.linear import linearizable
 
     # -- phase 2: K1 against its plain version --------------------------------
     runs = main_path_runs(models, synth)
@@ -2316,35 +2625,32 @@ def main() -> int:
 
     # -- phase 6: the batch path, on the card and against the CPU -------------
     batch = phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
-                        independent, linearizable, _platform, carry_to_numpy)
+                        independent, linearizable, _platform, carry_to_numpy,
+                        cpu_batches)
     phase_done("batch path")
 
     # -- phase 7: Elle ------------------------------------------------------------
     elle = phase_elle(dev, synth, elle_kernels, list_append, wr, _platform)
     phase_done("elle")
 
-    # the CPU checks of phases 8 and 9 run in worker processes (spawned:
-    # this process holds a CUDA context) beside the card's runs
-    import concurrent.futures
-    import multiprocessing
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=CPU_WORKERS, initializer=cpu_worker_init,
-        mp_context=multiprocessing.get_context("spawn"))
-    try:
-        # -- phase 8: streaming, the tier and the race --------------------
-        streams = phase_stream(dev, models, synth, wgl, wgl_closure,
-                               wgl_dedup, streaming, screen, linear, wr,
-                               _platform, carry_to_numpy,
-                               cpu_results["headline"], pool)
-        phase_done("streaming, tier and race")
+    # -- phase 8: streaming, the tier and the race ----------------------------
+    streams = phase_stream(dev, models, synth, wgl, wgl_closure,
+                           wgl_dedup, streaming, screen, linear, wr,
+                           _platform, carry_to_numpy,
+                           cpu_results["headline"], pool, cpu_dense)
+    phase_done("streaming, tier and race")
 
-        # -- phase 9: the verification service ----------------------------
-        svc = phase_service(dev, models, synth, wgl_closure, wgl_dedup,
-                            streaming, service, store, telemetry, _platform,
-                            pool)
-        phase_done("verification service")
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+    # -- phase 9: the verification service ------------------------------------
+    svc = phase_service(dev, models, synth, wgl_closure, wgl_dedup,
+                        streaming, service, store, telemetry, _platform,
+                        pool)
+    phase_done("verification service")
+
+    # -- phase 10: key-sharded checking, the Elle mesh, the entries ---------
+    sharded = phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+                            elle_kernels, list_append, _platform, parallel,
+                            graft_entry, batch, elle, smi)
+    phase_done("sharded checking")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -2414,14 +2720,19 @@ def main() -> int:
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "scalar_turns_ms": row["scalar_turns_ms"],
+            "sharded_launches": sharded["world1"][
+                "hazelcast" if mod is wgl_closure else "counter"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
         write_report(args.out, {
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
-            "profiles": profiles, "batch": batch, "elle": elle,
-            "streams": streams, "service": svc,
+            "profiles": profiles, "batch": batch,
+            "elle": {k: v for k, v in elle.items()
+                     if not k.startswith("g1c_")},
+            "streams": streams, "service": svc, "sharded": sharded,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -373,8 +373,9 @@ def _clauses(kind_is_bitflip: bool):
 def maybe_inject_fault(site: str) -> None:
     """Called just before each recovery-aware device dispatch. Sites in
     use: 'offline' (wgl.analysis_gpu), 'batch' (wgl.analysis_gpu_batch),
-    'stream-chunk' (streaming.WglStream: each chunk dispatch and each
-    slice of a recovery replay; a stream built with another
+    'sharded' (wgl.check_batch_sharded, once per dispatch group on every
+    rank), 'stream-chunk' (streaming.WglStream: each chunk dispatch and
+    each slice of a recovery replay; a stream built with another
     `fault_site` uses that name) and 'elle'
     (elle.kernels._classify_batches, once per bucket attempt). The n-th
     dispatch on a site named by a ``kind@site:n`` clause raises
@@ -399,7 +400,8 @@ def maybe_inject_fault(site: str) -> None:
 def maybe_corrupt(site: str, arr):
     """Called on each host-staged buffer just before it is copied to the
     device (on the 'elle' site, the ww stack of each bucket attempt; on
-    'stream-chunk', each chunk's step buffer). A
+    'stream-chunk', each chunk's step buffer; on 'sharded', each
+    group's whole step stack, before each rank takes its block). A
     ``bitflip@site:n`` clause flips one bit in a COPY of the
     n-th staged buffer on that site: the caller ships the copy while
     its canonical host buffer, and the digest computed from it, stay

@@ -13,15 +13,17 @@ with zero device work.
 Anomaly specs accept Adya shorthand: 'G1' expands to G1a+G1b+G1c, 'G2'
 to G-single+G2-item (matching `tests/cycle/wr.clj:31-45`'s taxonomy).
 
-Every checker here runs on CUDA unless built with ``device="cpu"``.
-Not ported yet: a `mesh` (the multi-GPU slice) and the transaction
-generators (the generator port).
+Every checker here runs on CUDA unless built with ``device="cpu"``; a
+`mesh` (`parallel.Mesh` or a `DeviceMesh`) shards the classifier over
+its ranks. Not ported yet: the transaction generators (the generator
+port).
 """
 
 from __future__ import annotations
 
 from typing import Iterable
 
+from ... import parallel
 from .. import Checker
 from ...history import history as _history
 from . import graphs, kernels, list_append, wr  # noqa: F401
@@ -47,11 +49,12 @@ class ListAppendChecker(Checker):
     definite single-pass errors). additional_graphs folds realtime /
     process precedence edges into the cycle search (reference
     `tests/cycle/append.clj:48-50` via `:additional-graphs`). device:
-    where the classifier runs (None = CUDA)."""
+    where the classifier runs (None = the mesh's device, else CUDA);
+    mesh: the ranks to shard the classifier over (every rank checks)."""
 
     def __init__(self, anomalies=("G0", "G1", "G2"), mesh=None,
                  additional_graphs=(), device=None):
-        kernels.no_mesh(mesh)
+        self.mesh = None if mesh is None else parallel.as_mesh(mesh)
         extra = ("internal", "duplicate-elements", "incompatible-order")
         self.anomalies = expand_anomalies(tuple(anomalies) + extra)
         self.additional_graphs = tuple(additional_graphs)
@@ -59,14 +62,14 @@ class ListAppendChecker(Checker):
 
     def check(self, test, hist, opts):
         return list_append.check(
-            hist, self.anomalies, additional_graphs=self.additional_graphs,
-            device=self.device)
+            hist, self.anomalies, mesh=self.mesh,
+            additional_graphs=self.additional_graphs, device=self.device)
 
 
 class RWRegisterChecker(Checker):
     """Checker adapter over wr.check (reference
     `tests/cycle/wr.clj:14-54`; `:additional-graphs` per its lines
-    17-26). device: where the classifier runs (None = CUDA).
+    17-26). device and mesh as in `ListAppendChecker`.
 
     Honors the test map's 'tier' knob: at tier 'screen' the O(n)
     WrScreen (single-pass anomalies + exact SCC cycle existence — see
@@ -79,7 +82,7 @@ class RWRegisterChecker(Checker):
 
     def __init__(self, anomalies=("G0", "G1", "G2"), mesh=None,
                  additional_graphs=(), device=None):
-        kernels.no_mesh(mesh)
+        self.mesh = None if mesh is None else parallel.as_mesh(mesh)
         extra = ("internal", "duplicate-writes")
         self.anomalies = expand_anomalies(tuple(anomalies) + extra)
         self.additional_graphs = tuple(additional_graphs)
@@ -130,7 +133,7 @@ class RWRegisterChecker(Checker):
                 and r.get("history-len") == len(
                     _history(hist).client_ops()):
             return dict(r)
-        return wr.check(hist, self.anomalies,
+        return wr.check(hist, self.anomalies, mesh=self.mesh,
                         additional_graphs=self.additional_graphs,
                         device=self.device)
 

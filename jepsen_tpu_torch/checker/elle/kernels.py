@@ -28,7 +28,10 @@ host-side: G0/G1c exactly via subgraph SCC, G-single via a bounded
 rw-edge probe; see `_classify_oversized`.
 
 Every entry runs on CUDA unless the caller passes ``device="cpu"``, and
-raises without a card; `mesh` must be None (`no_mesh`).
+raises without a card. With a `mesh` (a `parallel.Mesh`, or a
+`DeviceMesh` whose first dimension is the axis) every rank makes the
+same call: the classifier's batch of SCC blocks and the closure's rows
+are sharded over the ranks, and every rank gets the same result.
 
 The port's recovery differs from the JAX package's in four deliberate
 ways, so that a broken kernel or a lost card never turns into a verdict
@@ -53,10 +56,10 @@ import math
 import numpy as np
 import torch
 
+from ... import parallel
 from ..._platform import (CorruptDeviceResult, attest_enabled,
                           classify_backend_error, guarded_fetch,
-                          maybe_corrupt, maybe_inject_fault,
-                          resolve_device)
+                          maybe_corrupt, maybe_inject_fault)
 from .. import abft
 
 log = logging.getLogger(__name__)
@@ -188,17 +191,6 @@ def _tarjan_labels(n: int, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return labels
 
 
-def no_mesh(mesh) -> None:
-    """The JAX package shards the classifier's batch axis over a `Mesh`;
-    the port runs on one card until its multi-GPU slice (ROADMAP Queue 1
-    item 5, NCCL) lands. The parameter stays so signatures match."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not supported yet: sharding the Elle classifier "
-            "over several GPUs waits for the multi-GPU slice (ROADMAP "
-            "Queue 1 item 5, NCCL)")
-
-
 # ---------------------------------------------------------------------------
 # Dense per-SCC classification (device)
 # ---------------------------------------------------------------------------
@@ -291,55 +283,89 @@ def _flags_batch(ww: torch.Tensor, wr: torch.Tensor, rw: torch.Tensor,
     return g0, g1c, single, g2, res
 
 
-def _classify_batches(buckets: dict, device=None) -> dict:
+def _classify_batches(buckets: dict, device=None, mesh=None) -> dict:
     """Run the batched classifier per bucket size. buckets maps
     e -> (ww[B,e,e], wr, rw) float32 numpy. Returns
     e -> (g0[B], g1c[B], single[B], g2[B]) bool numpy — per-SCC flags,
     in the caller's slot order.
 
+    With a mesh, each bucket's B is padded with empty blocks to a
+    multiple of the axis size and each rank classifies its contiguous
+    block of SCC blocks on its device; the four flag rows are gathered
+    to every rank.
+
     Attestation and recovery, as in the JAX package up to its last rung:
     the staged adjacency stacks carry host-vs-device bit-pattern digests
     (the 'elle' bitflip-injection site corrupts the first stacked block),
-    and the closures' column-checksum residues must come back zero. The
-    digests, flags and residues come back in one guarded fetch. A
+    and the closures' column-checksum residues must come back zero, each
+    rank on its own block; flags, residues and digests come back in one
+    guarded fetch (on a mesh, the gathered flags in a second). A
     classified backend fault — a `corrupt` attestation mismatch and an
     OOM included — re-stages and retries the bucket once, whole; a
     second fault raises `ClassifierFaulted` (the JAX package decides the
-    bucket on its numpy mirror there; see the module docstring)."""
+    bucket on its numpy mirror there; see the module docstring). On a
+    mesh the ranks agree on each attempt's fault (`parallel.agree`), so
+    every rank retries or raises together."""
     global LAUNCHES
-    dev = resolve_device(device)
+    mesh, dev = parallel.resolve(mesh, device)
+    mesh = mesh or parallel.local_mesh(dev)
     attest_on = attest_enabled()
     out: dict = {}
     for e, (ww, wr, rw) in sorted(buckets.items()):
         steps = _steps(e)
+        b = ww.shape[0]
         faults: list = []
         for attempt in (0, 1):
             try:
-                maybe_inject_fault("elle")
-                canon = [ww, wr, rw]
-                staged = [maybe_corrupt("elle", canon[0])] + canon[1:]
-                args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                        for a in staged]
-                # the column checksums cannot catch input corruption (a
-                # corrupted A is self-consistent under ones@(A@A) ==
-                # (ones@A)@A), so the staged stacks carry digests too
-                digests = ([abft.digest_device(x) for x in args]
-                           if attest_on else [])
-                LAUNCHES += 1
-                flags = _flags_batch(*args, steps)
-                got = guarded_fetch(
-                    lambda: [t.cpu().numpy() for t in (*flags, *digests)],
-                    site="elle classify")
-                f0, f1, fs, f2, res = got[:5]
-                if attest_on:
-                    for d, host in zip(got[5:], canon):
-                        abft.verify_steps("elle", d, abft.digest_host(host))
-                    if res.any():
-                        raise CorruptDeviceResult(
-                            "elle", f"closure column-checksum residue "
-                                    f"{res.max()} != 0 on "
-                                    f"{int((res != 0).sum())} SCC block(s)")
-                out[e] = (f0, f1, fs, f2)
+                err = None
+                try:
+                    maybe_inject_fault("elle")
+                    canon = [ww, wr, rw]
+                    pad = (-b) % mesh.size
+                    if pad:
+                        # inputs arrive bucket-padded (analyze_edges);
+                        # this only rounds the batch up to the axis
+                        canon = [np.concatenate(
+                            [a, np.zeros((pad, e, e), np.float32)])
+                            for a in canon]
+                    # corrupt after padding, so the canonical blocks the
+                    # host digests cover are exactly what ships
+                    staged = [maybe_corrupt("elle", canon[0])] + canon[1:]
+                    blk = mesh.block(b + pad)
+                    args = [torch.from_numpy(np.ascontiguousarray(a[blk]))
+                            .to(dev) for a in staged]
+                    # the column checksums cannot catch input corruption
+                    # (a corrupted A is self-consistent under
+                    # ones@(A@A) == (ones@A)@A), so the staged stacks
+                    # carry digests too
+                    digests = ([abft.digest_device(x) for x in args]
+                               if attest_on else [])
+                    LAUNCHES += 1
+                    *flags, res = _flags_batch(*args, steps)
+                    flags = torch.stack(flags, 1).to(torch.int32)
+                    f, res, *dig = guarded_fetch(
+                        lambda: [t.cpu().numpy()
+                                 for t in (flags, res, *digests)],
+                        site="elle classify")
+                    if attest_on:
+                        for d, host in zip(dig, canon):
+                            abft.verify_steps("elle", d,
+                                              abft.digest_host(host[blk]))
+                        if res.any():
+                            raise CorruptDeviceResult(
+                                "elle", f"closure column-checksum residue "
+                                        f"{res.max()} != 0 on "
+                                        f"{int((res != 0).sum())} SCC "
+                                        f"block(s)")
+                except Exception as exc:  # noqa: BLE001 — agreed below
+                    err = exc
+                parallel.agree(mesh, err)
+                if mesh.group is not None:
+                    rows = parallel.all_gather_rows(mesh, flags)
+                    f = guarded_fetch(lambda: rows.cpu().numpy(),
+                                      site="elle classify")
+                f = f[:b].astype(bool)
+                out[e] = tuple(f[:, j] for j in range(4))
                 break
             except RuntimeError as exc:
                 kind = classify_backend_error(exc)
@@ -507,12 +533,13 @@ def analyze_edges(n: int, edges: dict, mesh=None,
     'oversized-sccs': int} following Adya's hierarchy (G-single = exactly
     one anti-dependency in the cycle, G2-item = at least two).
 
-    device: where the classifier runs (None = CUDA, raising without it,
-    even for a graph that needs no device work; "cpu" = the plain
-    PyTorch path). mesh must be None (`no_mesh`).
+    device: where the classifier runs (None = the mesh's device, else
+    CUDA, raising without it, even for a graph that needs no device
+    work; "cpu" = the plain PyTorch path). mesh: a `parallel.Mesh` or a
+    `DeviceMesh` to shard the classifier's batch over (every rank makes
+    the same call and gets the same result).
     """
-    no_mesh(mesh)
-    dev = resolve_device(device)
+    mesh, dev = parallel.resolve(mesh, device)
     out = dict(_EMPTY)
     out["cycle-nodes"] = np.zeros(0, np.int64)
     out["scc-labels"] = None
@@ -681,7 +708,7 @@ def analyze_edges(n: int, edges: dict, mesh=None,
             np.concatenate([wr] * n_levels),
             np.concatenate([rw] * n_levels))
     if buckets:
-        flags = _classify_batches(buckets, device=dev)
+        flags = _classify_batches(buckets, device=dev, mesh=mesh)
         for e, (f0, f1, fs, f2) in flags.items():
             labs = by_bucket[e]
             bp = _bucket(len(labs), lo=1)
@@ -711,19 +738,23 @@ def transitive_closure(adj: np.ndarray, mesh=None,
                        device=None) -> np.ndarray:
     """Closure of a boolean adjacency matrix on the device by repeated
     squaring (log2(n) products of 0/1 matrices, exact on any matmul
-    precision). device and mesh as in `analyze_edges`."""
-    no_mesh(mesh)
-    dev = resolve_device(device)
+    precision). device and mesh as in `analyze_edges`: with a mesh the
+    padded matrix is sharded by rows, and each squaring gathers every
+    rank's rows A and computes this rank's rows of min(A + A_r A, 1)."""
+    mesh, dev = parallel.resolve(mesh, device)
+    mesh = mesh or parallel.local_mesh(dev)
     n = len(adj)
     if n == 0:
         return np.zeros((0, 0), bool)
-    e = _bucket(n, lo=128)
+    e = -(-_bucket(n, lo=128) // mesh.size) * mesh.size
     padded = np.zeros((e, e), np.float32)
     padded[:n, :n] = adj
-    a = torch.from_numpy(padded).to(dev)
+    a = torch.from_numpy(padded[mesh.block(e)]).to(dev)
     for _ in range(_steps(n)):
-        a = torch.mm(a, a).add_(a).clamp_(max=1.0)
-    return guarded_fetch(lambda: (a > 0).cpu().numpy(),
+        full = parallel.all_gather_rows(mesh, a)
+        a = torch.mm(a, full).add_(a).clamp_(max=1.0)
+    full = parallel.all_gather_rows(mesh, a)
+    return guarded_fetch(lambda: (full > 0).cpu().numpy(),
                          site="elle closure")[:n, :n]
 
 

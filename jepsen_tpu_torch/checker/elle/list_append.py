@@ -35,9 +35,8 @@ from __future__ import annotations
 
 from typing import Any
 
-from ... import txn as mop
+from ... import parallel, txn as mop
 from ...history import history as as_history, is_fail, is_info, is_ok
-from ..._platform import resolve_device
 from . import graphs as precedence, kernels
 
 
@@ -292,9 +291,10 @@ def check(hist, anomalies=DEFAULT_ANOMALIES, mesh=None,
     ('realtime'/'process') to union into the cycle search, enabling the
     -realtime/-process anomaly variants. device: where the SCC
     classifier runs (None = CUDA, raising without it; "cpu" = the plain
-    PyTorch path). mesh must be None (see `kernels.no_mesh`)."""
-    kernels.no_mesh(mesh)
-    dev = resolve_device(device)
+    PyTorch path; None = the mesh's device, else CUDA). mesh: a
+    `parallel.Mesh` or a `DeviceMesh` to shard the SCC classifier over,
+    as the JAX package's mesh (every rank makes the same call)."""
+    mesh, dev = parallel.resolve(mesh, device)
     hist = as_history(hist).index()
     txns, edges, a, incompatible = graph(hist)
     if additional_graphs:
@@ -319,7 +319,7 @@ def check(hist, anomalies=DEFAULT_ANOMALIES, mesh=None,
     if internal:
         found["internal"] = internal
 
-    cyc = kernels.analyze_edges(len(txns), edges, device=dev)
+    cyc = kernels.analyze_edges(len(txns), edges, mesh=mesh, device=dev)
     found.update(kernels.certificates(txns, edges, cyc))
 
     reported = {t: cases for t, cases in found.items() if t in anomalies}

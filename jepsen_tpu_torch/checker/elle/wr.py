@@ -32,7 +32,7 @@ from typing import Any
 
 from ... import txn as mop
 from ...history import history as as_history, is_fail, is_info, is_ok
-from ..._platform import resolve_device
+from ... import parallel
 from . import graphs as precedence, kernels
 
 _WW, _WR, _RW = kernels._WW, kernels._WR, kernels._RW
@@ -204,8 +204,7 @@ def check(hist, anomalies=DEFAULT_ANOMALIES, mesh=None,
     precedence graphs ('realtime'/'process') to union into the cycle
     search, enabling the -realtime/-process anomaly variants. device
     and mesh as in `list_append.check`."""
-    kernels.no_mesh(mesh)
-    dev = resolve_device(device)
+    mesh, dev = parallel.resolve(mesh, device)
     hist = as_history(hist).index()
     txns, edges, a = graph(hist)
     if additional_graphs:
@@ -227,7 +226,7 @@ def check(hist, anomalies=DEFAULT_ANOMALIES, mesh=None,
     if internal:
         found["internal"] = internal
 
-    cyc = kernels.analyze_edges(len(txns), edges, device=dev)
+    cyc = kernels.analyze_edges(len(txns), edges, mesh=mesh, device=dev)
     found.update(kernels.certificates(txns, edges, cyc))
 
     reported = {t: cases for t, cases in found.items() if t in anomalies}

@@ -70,6 +70,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import parallel
 from .. import telemetry as _telemetry
 from .. import trace as _trace
 from .._platform import (FAULT_DEVICE_LOST, FAULT_OOM, attest_enabled,
@@ -1238,7 +1239,7 @@ class WrStream:
     global pass that cannot stream — SCC condensation + device
     classification over the accumulated graph (the port's classifier, on
     the card unless built with ``device="cpu"``) — and shapes the result
-    exactly like `wr.check`. A `mesh` raises, as the port's Elle does.
+    exactly like `wr.check`, over `mesh` when one is given.
 
     Node ids are completion-arrival order (the batch path orders oks
     before infos); the graphs are isomorphic, so verdicts and anomaly
@@ -1247,9 +1248,8 @@ class WrStream:
     duplicate-writes either way)."""
 
     def __init__(self, anomalies=None, mesh=None, device=None):
-        from .elle import kernels
         from .elle import wr as _wr
-        kernels.no_mesh(mesh)
+        self.mesh = None if mesh is None else parallel.as_mesh(mesh)
         self._wr = _wr
         self.anomalies = tuple(anomalies) if anomalies is not None \
             else _wr.DEFAULT_ANOMALIES
@@ -1440,7 +1440,7 @@ class WrStream:
         if self._internal:
             found["internal"] = self._internal
         edges = kernels.mask_edges_to_sets(self._acc)
-        cyc = kernels.analyze_edges(len(self.txns), edges,
+        cyc = kernels.analyze_edges(len(self.txns), edges, mesh=self.mesh,
                                     device=self.device)
         found.update(kernels.certificates(self.txns, edges, cyc))
         reported = {t: cases for t, cases in found.items()
@@ -1642,7 +1642,7 @@ def maybe_online(test: dict):
                          "(additional_graphs configured)")
                 continue
             targets["elle-wr"] = WrStream(anomalies=c.anomalies,
-                                          device=c.device)
+                                          mesh=c.mesh, device=c.device)
     if not targets:
         log.info("online verification requested but no streamable "
                  "checker found; running offline only")

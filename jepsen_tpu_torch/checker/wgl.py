@@ -47,6 +47,11 @@ both engines also walk B independent histories in lockstep
 (`check_chunk_batch`, the JAX package's `jax.vmap` of the walk), one K1
 or K2 launch serving every key of a dispatch group. Both entries run
 under the recovery ladder (below `Device-fault recovery ladder`).
+
+Key-sharded batches (`check_batch_sharded`, the JAX package's
+`shard_map` over a mesh): every rank of a `parallel.Mesh` walks its
+block of each dispatch group's keys, and the ranks reduce the verdict
+and gather the per-key rows (below `Key-sharded batches`).
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import calibrate as _calibrate, telemetry as _telemetry, util
+from .. import (calibrate as _calibrate, parallel, telemetry as _telemetry,
+               util)
 from .._platform import (FAULT_COMPILE, FAULT_DEVICE_LOST, FAULT_OOM,
                          CorruptDeviceResult, attest_enabled,
                          classify_backend_error, guarded_fetch,
@@ -87,6 +93,10 @@ _M_COMPILE = _telemetry.histogram(
     "jepsen_tpu_wgl_compile_seconds",
     "Kernel build (trace/cache miss) and warm-up compile latency",
     ("family", "stage"))
+_M_OPS = _telemetry.counter(
+    "jepsen_tpu_wgl_checked_ops_total",
+    "History ops decided by device-checking entries",
+    ("site",))
 
 # Event kinds (host-side stream construction)
 E_INVOKE = 0
@@ -2305,3 +2315,276 @@ def _batch_blame(model, hists, k, invalids, results, max_count,
                 r["op"] = _find_op(hists[i], src)
                 r["op-index"] = src
         results[i] = r
+
+
+# ---------------------------------------------------------------------------
+# Key-sharded batches over a process group
+# ---------------------------------------------------------------------------
+#
+# The JAX package's `check_batch_sharded` runs every dispatch group as one
+# `shard_map` over a device mesh, its verdict a psum inside the program.
+# Here every rank of a `parallel.Mesh` runs the same call on the same
+# histories: it builds the same groups, walks its own contiguous block of
+# each group's keys (padded to a multiple of the axis size with zero-step
+# keys, which stay alive and so count as valid) through K1 and K2 on its
+# device, and the ranks reduce the bad count and the attestation sum and
+# gather the per-key rows. A fault on one rank reaches every rank through
+# `parallel.agree` after each local dispatch, so all ranks take the same
+# rung of the ladder below and return the same result.
+
+def check_batch_sharded(model, hists: list, mesh=None, axis: str = "keys",
+                        frontier: int = 1024, slots: int = 32,
+                        engine: str = "auto",
+                        dense_slot_cap: int | None = None,
+                        pallas=None, return_info: bool = False,
+                        max_recovery_retries: int | None = None,
+                        device=None):
+    """Check a batch of independent histories sharded over a mesh's axis
+    and reduce the aggregate verdict over it: the counterpart of the JAX
+    package's `check_batch_sharded`, under its recovery ladder. Returns
+    (all_valid, per_key_ok bool array) and, with return_info=True,
+    {'groups': [{family, dedup, keys, slots}, ...], 'attested': {steps,
+    carry}} as well, the same on every rank.
+
+    mesh: a `parallel.Mesh` or a `DeviceMesh` naming `axis` (None: the
+    default process group where one is initialized, else this process
+    alone). device: None, or the type of the mesh's device, where this
+    rank walks and its collectives run (another type raises).
+    pallas: None or True, as the JAX package runs on its accelerator;
+    the port has no XLA route to choose instead.
+
+    The ladder: a classified fault re-runs the dispatch down the
+    standard rungs, the OOM rung splits the key list in halves and
+    re-shards each over the same mesh ('split': True in the trail), and
+    the final rung checks the keys with `analysis_gpu_batch`, each rank
+    its block, whose own ladder ends degraded: keys it could not decide
+    report False under the boolean contract and are named in
+    info['unknown-keys'] with info['degraded'] = True. The trail is in
+    info['recovered'], or info['recovery-failed'] when verdicts were
+    lost. A compile fault re-raises on every rank."""
+    if pallas is False:
+        raise ValueError("pallas=False asks for the JAX package's XLA "
+                         "route, which the port does not have: its "
+                         "kernels are the Hopper ports of the Pallas ones")
+    mesh, dev = parallel.resolve(
+        mesh if mesh is not None else parallel.default_mesh(axis, device),
+        device, axis)
+    kw = dict(frontier=frontier, slots=slots, engine=engine,
+              dense_slot_cap=dense_slot_cap)
+    all_ok, per_key, info = _sharded_ladder(model, hists, mesh, dev, kw,
+                                            max_recovery_retries)
+    if return_info:
+        return all_ok, per_key, info
+    return all_ok, per_key
+
+
+def _half_faults(info: dict) -> list:
+    """A split half's faults: under 'recovered' when it healed,
+    'recovery-failed' when it fell off."""
+    return list((info.get("recovered") or info.get("recovery-failed")
+                 or {}).get("faults", []))
+
+
+def _sharded_ladder(model, hists, mesh, dev, kw, max_retries) -> tuple:
+    """The recovery ladder around `_check_batch_sharded_once`; kw holds
+    the knobs its rungs change. Returns (all_ok, per_key, info)."""
+    kw = dict(kw)
+    trail = _RecoveryTrail(max_retries)
+    while True:
+        try:
+            all_ok, per_key, info = _check_batch_sharded_once(
+                model, hists, mesh, dev, **kw)
+        except RuntimeError as e:
+            if not trail.absorb(e, "sharded"):
+                return _sharded_final_rung(model, hists, mesh, dev, kw,
+                                           trail, max_retries)
+            kind = trail.faults[-1]
+            if kind == FAULT_OOM and len(hists) > 1:
+                mid = len(hists) // 2
+                log.warning("sharded: splitting %d keys into %d + %d after "
+                            "OOM", len(hists), mid, len(hists) - mid)
+                l_ok, l_pk, l_info = _sharded_ladder(
+                    model, hists[:mid], mesh, dev, kw, max_retries)
+                r_ok, r_pk, r_info = _sharded_ladder(
+                    model, hists[mid:], mesh, dev, kw, max_retries)
+                faults = (list(trail.faults) + _half_faults(l_info)
+                          + _half_faults(r_info))
+                trail_d = {"faults": faults, "retries": len(faults),
+                           "split": True}
+                info = {"groups": l_info["groups"] + r_info["groups"]}
+                unknown = list(l_info.get("unknown-keys", [])) \
+                    + [mid + i for i in r_info.get("unknown-keys", [])]
+                if l_info.get("degraded") or r_info.get("degraded"):
+                    info["degraded"] = True
+                    if unknown:
+                        info["unknown-keys"] = unknown
+                    info["recovery-failed"] = trail_d
+                else:
+                    info["recovered"] = trail_d
+                return (bool(l_ok and r_ok), np.concatenate([l_pk, r_pk]),
+                        info)
+            _apply_recovery_rung(kind, kw)
+            continue
+        if trail.faults:
+            info = dict(info)
+            info["recovered"] = {"faults": list(trail.faults),
+                                 "retries": len(trail.faults)}
+        return all_ok, per_key, info
+
+
+def _sharded_final_rung(model, hists, mesh, dev, kw, trail,
+                        max_retries) -> tuple:
+    """The ladder's last rung: every key through `analysis_gpu_batch`
+    with the rung-mutated knobs (each rank its block), undecided keys
+    reported False and named."""
+    codes = _sharded_batch(model, hists, mesh, dev,
+                           max_recovery_retries=max_retries, **kw)
+    per_key = codes == 1
+    info: dict = {"groups": []}
+    trail_d = {"faults": list(trail.faults), "retries": len(trail.faults),
+               "fallback": "batch"}
+    unknown = [int(i) for i in np.flatnonzero(codes < 0)]
+    if unknown:
+        log.warning("sharded: %d key(s) undecided after the recovery "
+                    "budget; per-key False for them is 'unverified', not "
+                    "a found anomaly: %s", len(unknown), unknown)
+        info.update({"degraded": True, "unknown-keys": unknown,
+                     "recovery-failed": trail_d})
+    else:
+        info["recovered"] = trail_d
+    return bool(per_key.all()), per_key, info
+
+
+def _sharded_batch(model, hists, mesh, dev, **kw) -> np.ndarray:
+    """`analysis_gpu_batch` of this rank's block of hists, every rank's
+    verdicts gathered to every rank: an int8 code per key, 1 valid, 0
+    invalid, -1 undecided."""
+    blk = mesh.block(len(hists))
+    codes = np.ones(blk.stop - blk.start, np.int8)
+    err = None
+    try:
+        mine = hists[blk]
+        if mine:
+            rs = analysis_gpu_batch(model, mine, device=dev, **kw)
+            codes[:len(rs)] = [1 if r["valid?"] is True
+                               else 0 if r["valid?"] is False else -1
+                               for r in rs]
+    except Exception as e:  # noqa: BLE001 — agreed, then raised
+        err = e
+    parallel.agree(mesh, err)
+    rows = parallel.all_gather_rows(mesh, torch.from_numpy(codes).to(dev))
+    return guarded_fetch(lambda: rows.cpu().numpy(),
+                         site="sharded fetch")[:len(hists)]
+
+
+def _check_batch_sharded_once(model, hists, mesh, dev, *, frontier: int,
+                              slots: int, engine: str,
+                              dense_slot_cap: int | None) -> tuple:
+    """One attempt of the sharded check, which the ladder re-runs.
+    Every dispatch group (`_dispatch_groups`, cheapest first, the sort
+    group last) walks each rank's block of its keys in one batched walk
+    (`_sharded_group`); the verdict, overflow and attestation come back
+    reduced and gathered. Invalid keys whose frontier overflowed
+    re-run together at 4x the frontier (each rank its block). Returns
+    (all_ok, per_key, info)."""
+    name = model.device_model
+    k = len(hists)
+    if k == 0:
+        return True, np.zeros(0, bool), {"groups": []}
+    all_ops = [encode_ops_for_model(model, h) for h in hists]
+    srange = _state_range(name, model, all_ops)
+    p_req = [required_slots(ops) for ops in all_ops]
+    dense_groups, sort_idx = _dispatch_groups(
+        srange, p_req, engine,
+        n_events=max((event_count(o) for o in all_ops), default=1),
+        frontier=frontier, dense_slot_cap=dense_slot_cap)
+    plan = [(idx, d) for d, idx in (dense_groups[pg]
+                                    for pg in sorted(dense_groups))]
+    if sort_idx:
+        plan.append((sort_idx, None))
+    attest_on = attest_enabled()
+    per_key = np.zeros(k, bool)
+    overflow = np.zeros(k, bool)
+    all_ok = True
+    group_info: list[dict] = []
+    for idx, dense in plan:
+        # the sort group sizes itself to its own keys: never below the
+        # caller's slots, never a SlotOverflow on a key the dense caps
+        # rejected
+        g_slots = dense[2] if dense is not None else max(
+            slots, _bucket(max(p_req[i] for i in idx), lo=8))
+        family = "dense" if dense is not None else "sort"
+        group_info.append({
+            "family": family,
+            "dedup": (DEDUP_NONE if dense is not None else dedup_engine(
+                frontier, g_slots, _pack_params(srange, g_slots))),
+            "keys": len(idx), "slots": g_slots})
+        t = _time.monotonic()
+        ok_g, ov_g, bad, att = _sharded_group(
+            model, [all_ops[i] for i in idx], mesh, dev, dense, srange,
+            g_slots, frontier, attest_on)
+        _M_CHUNK.labels(site="sharded", family=family).observe(
+            _time.monotonic() - t)
+        _check_att(att, "sharded")
+        all_ok &= bad == 0
+        per_key[idx] = ok_g[:len(idx)]
+        overflow[idx] = ov_g[:len(idx)]
+    _M_OPS.labels(site="sharded").inc(sum(len(o) for o in all_ops))
+    # an 'invalid' under frontier overflow is unsound (the witness config
+    # may have been dropped): escalate those keys together at 4x the
+    # frontier; 'unknown' keys report invalid (no third value here)
+    suspect = np.flatnonzero(~per_key & overflow)
+    if suspect.size:
+        codes = _sharded_batch(
+            model, [hists[int(i)] for i in suspect], mesh, dev,
+            frontier=frontier * 4, slots=slots, engine=engine,
+            dense_slot_cap=dense_slot_cap)
+        per_key[suspect] = codes == 1
+        all_ok = bool(per_key.all())
+    info: dict = {"groups": group_info}
+    if attest_on:
+        # steps: one staged-buffer digest per group (each rank its
+        # block); carry: one reduced attestation check per group
+        info["attested"] = {"steps": len(plan), "carry": len(plan)}
+    return bool(all_ok), per_key, info
+
+
+def _sharded_group(model, ops_list, mesh, dev, dense, srange, slots,
+                   frontier, attest_on) -> tuple:
+    """One dispatch group on this rank: its block of the group's keys
+    walked in one batched walk, then the ranks' fault agreement, the
+    reduced bad count and attestation sum, and the gathered per-key
+    (ok, overflow) rows. Returns (ok, overflow) numpy rows of the padded
+    group and the two reduced integers."""
+    err = None
+    try:
+        k = _batch_kernel(model.device_model, dense, srange, slots,
+                          frontier, dev)
+        maybe_inject_fault("sharded")
+        steps = [build_steps(ops, slots) for ops in ops_list]
+        g_pad = -(-len(steps) // mesh.size) * mesh.size
+        x_np, ns = _stack_steps(steps, g_pad)
+        # the bit flip lands where the JAX package's does, in the whole
+        # staged stack; each rank ships and attests its own block
+        shipped = maybe_corrupt("sharded", x_np)
+        blk = mesh.block(g_pad)
+        xs = stage_steps(shipped[blk], dev)
+        if attest_on:
+            abft.verify_steps("sharded", k.fetch(abft.digest_device(xs.dev),
+                                                 site="sharded attest"),
+                              abft.digest_host(x_np[blk]))
+        init = int(model.device_state())
+        carry = k.run_range_batch(xs, ns[blk],
+                                  k.init_carry_batch([init] * len(ns[blk])))
+        _e, count, _maxc, att, ovf = k._summary_row(carry)
+        ok = count > 0
+        rows = torch.stack([ok.to(torch.int32), ovf.to(torch.int32)], 1)
+        sums = torch.stack([(~ok).sum(), att.sum()]).to(torch.int64)
+    except Exception as e:  # noqa: BLE001 — agreed, then raised
+        err = e
+    parallel.agree(mesh, err)
+    sums = parallel.psum(mesh, sums)
+    rows = parallel.all_gather_rows(mesh, rows)
+    (bad, att), rows = guarded_fetch(
+        lambda: (sums.tolist(), rows.cpu().numpy()), site="sharded fetch")
+    return rows[:, 0].astype(bool), rows[:, 1].astype(bool), bad, att

@@ -30,6 +30,7 @@ from jepsen_tpu.checker.elle import list_append as jla
 from jepsen_tpu.checker.elle import wr as jwr
 from jepsen_tpu.history import history as jhistory
 from jepsen_tpu_torch import _platform as tplat
+from jepsen_tpu_torch import parallel
 from jepsen_tpu_torch.checker import check_safe as tcheck_safe
 from jepsen_tpu_torch.checker import synth as tsynth
 from jepsen_tpu_torch.checker.elle import (ListAppendChecker,
@@ -501,18 +502,27 @@ def test_rw_register_full_tier_and_graphs_at_screen_tier_match_jax(
 
 
 def test_mesh_and_screen_tier_raise(clean_faults):
+    """A mesh is accepted (tests/test_torch_sharded.py runs it); an
+    object that is not one raises TypeError naming the expected type."""
     ops = WR["valid"]()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    one = parallel.local_mesh(CPU)
+    same(tk.analyze_edges(2, {(0, 1): {"ww"}, (1, 0): {"ww"}}, mesh=one,
+                          device=CPU),
+         tk.analyze_edges(2, {(0, 1): {"ww"}, (1, 0): {"ww"}}, device=CPU))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tk.analyze_edges(2, {(0, 1): {"ww"}}, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tk.transitive_closure(np.zeros((2, 2), bool), mesh=object(),
                               device=CPU)
-    for fn in (tla.check, twr.check):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            fn(thistory(ops), mesh=object(), device=CPU)
+    for fn, h in ((tla.check, tsynth.append_history(60, seed=2)),
+                  (twr.check, thistory(ops))):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            fn(h, mesh=object(), device=CPU)
+        assert fn(h, mesh=one, device=CPU)["valid?"] is True
     for cls in (ListAppendChecker, RWRegisterChecker):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(mesh=object(), device=CPU)
+        assert cls(mesh=one, device=CPU).mesh is one
     # the screen tier no longer raises: it is the JAX package's screen
     # (its result dict, duration aside), escalating when sampled
     for tier in ("screen", 1, "1"):

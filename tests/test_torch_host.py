@@ -3,7 +3,8 @@ history, models, synth and the host oracle give the same values, its
 engine choice agrees, it resolves devices without falling back, and it
 never imports jax or jepsen_tpu (a fresh interpreter runs linearizability,
 batch, independent, list-append and rw-register checks, a tiered check,
-the competition race and a stream to show it)."""
+the competition race, a stream, the service and the sharded batch and
+list-append checks over a one-rank gloo group to show it)."""
 
 import itertools
 import os
@@ -264,6 +265,19 @@ assert fin["linear"]["valid?"] is True, fin
 assert svc.status()["calibration"]["platform"] == "cpu"
 svc.stop()
 calibrate.deactivate()
+import tempfile
+import torch.distributed as dist
+from jepsen_tpu_torch import graft_entry, parallel
+mesh = parallel.init(0, 1, "file://" + tempfile.mkdtemp() + "/rdv",
+                     device="cpu")
+ok, pk, info = wgl.check_batch_sharded(models.cas_register(), keys, mesh,
+                                       return_info=True)
+assert not ok and pk.tolist() == [True, False, True], (pk, info)
+assert info["attested"] == {"steps": 1, "carry": 1}, info
+assert mesh.calls[("psum", "cpu")] == 1, mesh.calls
+rm = list_append.check(ah, mesh=mesh, additional_graphs=("realtime",))
+assert rm == ra, rm
+dist.destroy_process_group()
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
@@ -285,7 +299,8 @@ def test_port_sources_name_no_jax_import():
     names = {p.relative_to(REPO / "jepsen_tpu_torch").as_posix()
              for p in paths}
     assert {"service.py", "calibrate.py", "store.py", "reconnect.py",
-            "__main__.py", "telemetry.py"} <= names
+            "__main__.py", "telemetry.py", "parallel.py",
+            "graft_entry.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()

@@ -31,6 +31,7 @@ from jepsen_tpu.checker.elle import rw_register_checker as jrw_checker
 from jepsen_tpu_torch import _platform as plat
 from jepsen_tpu_torch import history as thistory
 from jepsen_tpu_torch import models as tmodels
+from jepsen_tpu_torch import parallel
 from jepsen_tpu_torch import util
 from jepsen_tpu_torch.carry import carry_to_numpy
 from jepsen_tpu_torch.checker import compose
@@ -445,8 +446,16 @@ def test_wr_stream_finish_matches_jax(label):
 
 
 def test_wr_stream_mesh_raises():
-    with pytest.raises(NotImplementedError):
+    """A mesh is accepted and reaches the classifier; an object that is
+    not one raises TypeError."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstreaming.WrStream(mesh=object())
+    one = parallel.local_mesh("cpu")
+    st = tstreaming.WrStream(mesh=one, device="cpu")
+    assert st.mesh is one
+    for op in tsynth.wr_history(60, seed=2).ops:
+        st.feed(op)
+    assert st.finish()["valid?"] is True
 
 
 # -- the online checker -----------------------------------------------------------
