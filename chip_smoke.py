@@ -99,7 +99,18 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      walking its block of the hazelcast batch through K1 (every rank's
      result equal to the one-rank run's); dryrun_multichip(4) on the
      card; and entry() on the card against the CPU path;
- 11. fail if any result other than the injected runs' carries a
+ 11. the search-and-chaos phase: the scenario search's pinned
+     planted-bug find (phased-register, seed 2) with its batch
+     escalation auditing clean histories through analysis_gpu_batch
+     (dense groups, K1 batched), a register search escalating through an
+     in-process VerificationService on the card, and run_chaos on both
+     chaos workloads (every oracle green), every kernel's launch count
+     set to 0 just before each run and read just after, each result
+     equal to the CPU path's (in a worker process) but for its wall and
+     each launch count equal to the CPU path's plain calls; then the
+     chaos command (`python -m jepsen_tpu_torch chaos`) as a subprocess
+     on the card, exiting 0 with the in-process run's result;
+ 12. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -149,9 +160,10 @@ K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
 # stream's (8, 16)
 K1_TIMED = [(8, 7), (8, 14), (8, 19), (8, 16)]
 PROFILE_STEPS = 1_500
-# the profile phase traces the first 1,000 steps of its walks (1,500
-# until the service phase needed its time)
-PROFILE_WALK_STEPS = 1_000
+# the profile phase traces the first 500 steps of its walks (1,500
+# until the service phase needed its time, 1,000 until the search-and-
+# chaos phase did)
+PROFILE_WALK_STEPS = 500
 # the batch path (bench.py:section_config4's hazelcast shape): 100 keys
 # of register_history(500, concurrency=4, values=5, crash_rate=0.005,
 # seed=1000 + i), keys 7, 42 and 77 with one read set to 5 (one past the
@@ -267,6 +279,28 @@ SHARDED_GROUPS = [{"family": "dense", "dedup": "dense-table", "keys": k,
                                             (10, 3))]
 SHARDED_RING = 4_096
 SHARDED_JOIN_S = 300
+# the search-and-chaos phase (jepsen_tpu/search/, jepsen_tpu/chaos/): the
+# JAX package's pinned planted-bug find (seed 2 finds the kill-AND-
+# partition lost write at simulation 56 of 78) with the batch escalation
+# and an audit sample of clean histories, which analysis_gpu_batch walks
+# in dense groups (K1 batched); a wall budget per escalation wide enough
+# that neither the card nor the CPU path cuts a walk short, so both
+# launch K1 as often; a small register search escalating through an
+# in-process service on the card; the chaos harness on its fixed
+# workload (sort engine, 8 slots, F = 128: the xla-sort route, as in the
+# JAX package) for both workloads; and the chaos command as a user runs
+# it, on the card. The CPU path repeats each in a worker process
+SEARCH_BUG = dict(workload="phased-register", bug="lost-write-kill-partition",
+                  generations=12, population=25, seed=2, max_sims=300)
+SEARCH_RUNS = {
+    "batch": dict(SEARCH_BUG, escalate="batch", sample=0.3,
+                  host_budget_s=60.0),
+    "service": dict(workload="register", generations=2, population=6, seed=5,
+                    max_sims=12, escalate="service", sample=0.5),
+}
+CHAOS = dict(budget=6, ops=64, seed=23)
+CHAOS_WORKLOADS = ("register", "register-corrupt")
+CHAOS_CLI_S = 300
 
 
 def log(*a):
@@ -2439,6 +2473,146 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
     return out
 
 
+def counting_plain():
+    """Count the plain versions' calls of K1 and K2 in this (CPU) process:
+    the launches the card's run of the same work must make."""
+    from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
+    counts = {"k1": 0, "k2": 0}
+    k1, k2 = wgl_closure.closure_round_plain, wgl_dedup.dedup_plain
+
+    def closure_round_plain(*a, **k):
+        counts["k1"] += 1
+        return k1(*a, **k)
+
+    def dedup_plain(*a, **k):
+        counts["k2"] += 1
+        return k2(*a, **k)
+
+    wgl_closure.closure_round_plain = closure_round_plain
+    wgl_dedup.dedup_plain = dedup_plain
+    return counts
+
+
+def cpu_search(kind: str) -> tuple:
+    """Phase 11's CPU path in a worker process: one SEARCH_RUNS config on
+    the CPU. Returns the result, the plain K1/K2 calls and the seconds
+    it took."""
+    from jepsen_tpu_torch.search import SearchConfig, run_search
+    counts = counting_plain()
+    t = time.perf_counter()
+    r = run_search(SearchConfig(device="cpu", **SEARCH_RUNS[kind]))
+    return r, counts, time.perf_counter() - t
+
+
+def cpu_chaos(workload: str) -> tuple:
+    """Phase 11's CPU path in a worker process: run_chaos on one chaos
+    workload. Returns the result, the plain K1/K2 calls and the seconds
+    it took."""
+    from jepsen_tpu_torch.chaos import ChaosConfig, run_chaos
+    counts = counting_plain()
+    t = time.perf_counter()
+    r = run_chaos(ChaosConfig(device="cpu", workload=workload, **CHAOS))
+    return r, counts, time.perf_counter() - t
+
+
+def cpu_search_chaos_jobs(pool) -> dict:
+    return {**{f"search-{k}": pool.submit(cpu_search, k)
+               for k in SEARCH_RUNS},
+            **{f"chaos-{w}": pool.submit(cpu_chaos, w)
+               for w in CHAOS_WORKLOADS}}
+
+
+def same_but_wall(label, got, want) -> None:
+    a = {k: v for k, v in got.items() if k != "wall-s"}
+    b = {k: v for k, v in want.items() if k != "wall-s"}
+    if a != b:
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        raise AssertionError(f"{label}: differs from the CPU path in {diff}")
+
+
+def phase_search_chaos(dev, wgl_closure, wgl_dedup, cpu_jobs) -> dict:
+    """Phase 11: the scenario search and the self-chaos harness on the
+    card. Every kernel's launch count set to 0 just before each run and
+    read just after; each result equal to the CPU path's (in a worker
+    process) but for its wall: the search with the batch escalation
+    finds the planted bug and launches K1 as often as the CPU path calls
+    its plain version; the service search and both chaos workloads
+    likewise, every chaos oracle green; then the chaos command as a
+    subprocess on the card, exiting 0 with the in-process run's result."""
+    import tempfile
+    from jepsen_tpu_torch.chaos import ChaosConfig, run_chaos
+    from jepsen_tpu_torch.search import SearchConfig, run_search
+    out = {}
+
+    def counted(label, fn):
+        wgl_closure.LAUNCHES = 0
+        wgl_dedup.LAUNCHES = 0
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
+                   k2_launches=wgl_dedup.LAUNCHES)
+        want, counts, cpu_s = cpu_jobs[label].result()
+        same_but_wall(label, r, want)
+        if (rec["k1_launches"], rec["k2_launches"]) != (counts["k1"],
+                                                        counts["k2"]):
+            raise AssertionError(f"{label}: K1/K2 launches "
+                                 f"{rec['k1_launches']}/{rec['k2_launches']}"
+                                 f", CPU path {counts}")
+        rec.update(cpu_s=cpu_s, result={k: v for k, v in r.items()
+                                        if k not in ("violations",
+                                                     "failures")})
+        out[label] = rec
+        return r, rec
+
+    for kind, cfg in SEARCH_RUNS.items():
+        r, rec = counted(f"search-{kind}", lambda: run_search(
+            SearchConfig(device=str(dev), **cfg)))
+        log(f"search {kind}: found {r['found']}, {r['simulations']} "
+            f"simulations, {r['escalations']} escalations, wall "
+            f"{rec['wall_s']:.3f} s (CPU path {rec['cpu_s']:.3f} s), K1 "
+            f"launches {rec['k1_launches']}, K2 launches "
+            f"{rec['k2_launches']}, equal to the CPU path")
+        if kind == "batch" and (not r["found"] or rec["k1_launches"] <= 0):
+            raise AssertionError(f"search batch: found {r['found']}, K1 "
+                                 f"launches {rec['k1_launches']}")
+    for w in CHAOS_WORKLOADS:
+        r, rec = counted(f"chaos-{w}", lambda: run_chaos(
+            ChaosConfig(device=str(dev), workload=w, **CHAOS)))
+        log(f"chaos {w}: {r['schedules']} schedules, {r['coverage-bits']} "
+            f"coverage bits, conjunction hits {r['conjunction-hits']}, "
+            f"failures {len(r['failures'])}, wall {rec['wall_s']:.3f} s "
+            f"(CPU path {rec['cpu_s']:.3f} s), K1 launches "
+            f"{rec['k1_launches']}, K2 launches {rec['k2_launches']}, equal "
+            f"to the CPU path")
+        if r["failures"] or r["found"]:
+            raise AssertionError(f"chaos {w}: oracle failures "
+                                 f"{r['failures']}")
+        if w == "register":
+            inproc = r
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        argv = [sys.executable, "-m", "jepsen_tpu_torch", "chaos",
+                "--budget", str(CHAOS["budget"]), "--ops",
+                str(CHAOS["ops"]), "--seed", str(CHAOS["seed"]),
+                "--store-dir", d]
+        t = time.perf_counter()
+        p = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                           timeout=CHAOS_CLI_S,
+                           env=dict(os.environ, PYTHONPATH=root))
+        wall = time.perf_counter() - t
+    line = [x for x in p.stderr.splitlines() if x.startswith("chaos (")]
+    log(f"chaos command on the card: exit {p.returncode} in {wall:.3f} s; "
+        f"{line[-1] if line else p.stderr[-2000:]}")
+    if p.returncode != 0 or not line:
+        raise AssertionError(f"chaos command: exit {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    same_but_wall("chaos command", json.loads(p.stdout), inproc)
+    out["chaos-cli"] = dict(wall_s=wall, rc=p.returncode)
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -2500,7 +2674,7 @@ def main() -> int:
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                cpu_batches) -> int:
-    """Phases 2-11 of `main`, given the worker pool and its first jobs."""
+    """Phases 2-12 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -2651,6 +2825,18 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                             elle_kernels, list_append, _platform, parallel,
                             graft_entry, batch, elle, smi)
     phase_done("sharded checking")
+
+    # -- phase 11: the scenario search and the self-chaos harness ------------
+    # the CPU runs take less time in the workers than the card's runs in
+    # this process, so they start with the phase. The chaos harness
+    # collects garbage before each schedule's resource snapshot: the
+    # earlier phases' heap is frozen out of those collections, as a
+    # chaos run on its own would not have it
+    import gc
+    gc.freeze()
+    search_chaos = phase_search_chaos(dev, wgl_closure, wgl_dedup,
+                                      cpu_search_chaos_jobs(pool))
+    phase_done("search and chaos")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -2723,6 +2909,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             "sharded_launches": sharded["world1"][
                 "hazelcast" if mod is wgl_closure else "counter"][
                 "k1_launches" if mod is wgl_closure else "k2_launches"],
+            # the search's batch escalation (phase 11)
+            "search_launches": search_chaos["search-batch"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
@@ -2733,6 +2922,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             "elle": {k: v for k, v in elle.items()
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,
+            "search_chaos": search_chaos,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -23,7 +23,11 @@ screen, the competition race and online streaming checks
 (`checker.screen`, `checker.streaming`); and the persistent
 verification service (`service`, with `calibrate`, `store` and
 `reconnect`), whose daemon runs as ``python -m jepsen_tpu_torch
-service``.
+service``; key-sharded checking over a process group (`parallel`) and
+the driver entries (`graft_entry`); and the generator package
+(`generator`), the coverage-guided scenario search (`search`) and the
+self-chaos harness (`chaos`), with their ``search`` and ``chaos``
+commands.
 """
 
 __version__ = "0.1.0"

@@ -214,6 +214,9 @@ TIER_NAMES = ("full", "sampled-escalation-only", "screen-only", "shed")
 DEFAULT_MAX_STREAMS = 64
 DEFAULT_QUEUE_OPS = 50_000
 DEFAULT_SHED_TIMEOUT_S = 2.0
+# how long stop() waits for the threads of the stream workers whose
+# verdicts are final (each is past its last step when stop() is called)
+STOP_JOIN_S = 5.0
 # idle sessions older than this are swept even while the table is
 # small — a reconnecting client past the TTL re-attaches fresh (its
 # unacked tail replays; the worker is long done, so ops drop at offer)
@@ -1716,6 +1719,7 @@ class VerificationService:
         deadline = _time.monotonic() + timeout_s
         for w in workers:
             w.done.wait(max(0.0, deadline - _time.monotonic()))
+        self._join_terminal(workers, deadline)
         if self.calibration_path:
             try:
                 self.calibration.save(self.calibration_path)
@@ -2184,11 +2188,27 @@ class VerificationService:
         log.info("verification service listening on %s", bound)
         return bound
 
+    def _join_terminal(self, workers, deadline: float) -> None:
+        """Join the threads of the workers whose verdict is final, up
+        to `deadline`. `done` is set inside the worker's last steps, so
+        its thread can still be releasing its targets when a caller
+        sees the verdict; a process that ends then would tear torch
+        down under a live thread and abort instead of exiting."""
+        me = threading.current_thread()
+        for w in workers:
+            t = w.thread
+            if w.done.is_set() and t is not me and t.ident is not None:
+                t.join(max(0.0, deadline - _time.monotonic()))
+
     def stop(self) -> None:
-        """Hard stop (after drain, or for tests): close the socket and
-        stop watching."""
+        """Hard stop (after drain, or for tests): close the socket,
+        stop watching, and join every terminal stream worker (a stream
+        still running is left to its own end)."""
         self._watch_stop.set()
         self._ladder_stop.set()
+        with self._lock:
+            workers = list(self.workers.values())
+        self._join_terminal(workers, _time.monotonic() + STOP_JOIN_S)
         srv, self._server = self._server, None
         if srv is not None:
             # closing the fd does NOT interrupt a thread blocked in

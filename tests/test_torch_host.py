@@ -4,7 +4,9 @@ engine choice agrees, it resolves devices without falling back, and it
 never imports jax or jepsen_tpu (a fresh interpreter runs linearizability,
 batch, independent, list-append and rw-register checks, a tiered check,
 the competition race, a stream, the service and the sharded batch and
-list-append checks over a one-rank gloo group to show it)."""
+list-append checks over a one-rank gloo group to show it; a second runs
+the scenario search with its batch escalation and the self-chaos
+harness)."""
 
 import itertools
 import os
@@ -294,13 +296,50 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert "LEAKED []" in out.stdout, out.stdout
 
 
+_GUARD_SEARCH_CHAOS = r"""
+import sys, tempfile
+from jepsen_tpu_torch import generator, independent, report
+from jepsen_tpu_torch.generator import simulate
+from jepsen_tpu_torch.search import SearchConfig, run_search
+from jepsen_tpu_torch.chaos import ChaosConfig, run_chaos
+import jepsen_tpu_torch.__main__
+r = run_search(SearchConfig(workload="phased-register",
+                            bug="lost-write-kill-partition", generations=12,
+                            population=25, seed=2, max_sims=300,
+                            escalate="batch", sample=0.3, device="cpu",
+                            store_dir=tempfile.mkdtemp()))
+assert r["found"] is True and r["escalations"] > 0, r
+c = run_chaos(ChaosConfig(budget=3, ops=64, seed=23, device="cpu"))
+assert c["failures"] == [] and c["schedules"] == 3, c
+assert report.chaos_line(c).startswith("chaos (guided):")
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_search_and_chaos_never_import_jax_or_the_jax_package():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _GUARD_SEARCH_CHAOS],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
 def test_port_sources_name_no_jax_import():
     paths = list((REPO / "jepsen_tpu_torch").rglob("*.py"))
     names = {p.relative_to(REPO / "jepsen_tpu_torch").as_posix()
              for p in paths}
     assert {"service.py", "calibrate.py", "store.py", "reconnect.py",
             "__main__.py", "telemetry.py", "parallel.py",
-            "graft_entry.py"} <= names
+            "graft_entry.py", "generator/__init__.py",
+            "generator/simulate.py", "search/driver.py",
+            "search/scenario.py", "search/coverage.py",
+            "search/mutate.py", "chaos/driver.py", "chaos/genome.py",
+            "chaos/oracles.py", "report.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
