@@ -110,7 +110,21 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      each launch count equal to the CPU path's plain calls; then the
      chaos command (`python -m jepsen_tpu_torch chaos`) as a subprocess
      on the card, exiting 0 with the in-process run's result;
- 12. fail if any result other than the injected runs' carries a
+ 12. the run path: the port's `core.run` as a user drives it, over the
+     dummy remote, all on the card: the etcd suite's register test map
+     (5 nodes, concurrency 10, 20,000 invocations over about 40 keys of
+     500, a partition nemesis, the etcd checker compose) with an
+     in-process keyed CAS client, its independent check launching K1
+     batched; a 10,000-invocation single-register run with `online`,
+     its dense stream launching K1 during the run and `analyze`
+     reusing the streamed verdict; the same at 20,000 invocations with
+     a lying client and `abort-on-violation`, stopping early; and the CLI's `test` and
+     `analyze` on a 2,000-invocation register map, both exiting 0 with
+     the same results. Every kernel's launch count is set to 0 just
+     before each run and read just after; each run's verdict is held
+     against the CPU path's check of its stored history in a worker
+     process (the register run per key, with its batch-walk counts);
+ 13. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp; print one JSON line of per-kernel
      numbers, the nvidia-smi line, and last the line
      {"ok": true, "device": {...}}.
@@ -128,6 +142,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -261,9 +276,10 @@ SERVICE_FAULTS = "device-lost@stream-chunk/s3:3,oom@stream-chunk/s11:3"
 # columns costs the CPU some 25 ms), the sort streams' whole histories,
 # in worker processes beside the card's runs
 SERVICE_CPU_DENSE_OPS = 400
-# the busy share's run: 16 streams of each history's first 600 ops (a
-# profile of the whole 16-stream run reads 1.14M device events)
-SERVICE_PROFILE_OPS = 600
+# the busy share's run: 16 streams of each history's first 300 ops (a
+# profile of the whole 16-stream run reads 1.14M device events; 300, not
+# 600, keeps the script near half its limit with phase 12 added)
+SERVICE_PROFILE_OPS = 300
 SERVICE_TIMING = ("duration-ms", "tail-latency-ms", "violation-at-op")
 SERVICE_COUNT_KEYS = ("closure-rounds", "dedup-launches", "host-syncs")
 CPU_WORKERS = 2
@@ -301,6 +317,31 @@ SEARCH_RUNS = {
 CHAOS = dict(budget=6, ops=64, seed=23)
 CHAOS_WORKLOADS = ("register", "register-corrupt")
 CHAOS_CLI_S = 300
+
+# Phase 12, the run path: the port's core.run as a Jepsen user drives it,
+# over the dummy remote. The register run is the etcd suite's register
+# test map (5 nodes, concurrency 10, the linearizable_register workload
+# at 500 ops per key, a partition_random_halves nemesis cycling start and
+# stop, the etcd checker compose) with an in-process keyed CAS client for
+# EtcdClient and no stagger, cut to 20,000 invocations (about 40 keys)
+# and its nemesis cycle from 5 s to 1 s, the nemesis schedule bounded to
+# RUN_NEMESIS_S; the online and abort runs are the headline shape (one
+# register, concurrency 5) through the streamed check; the CLI pair runs
+# test then analyze on a 2,000-invocation register map
+RUN_NODES = ["n1", "n2", "n3", "n4", "n5"]
+RUN_REGISTER = dict(concurrency=10, per_key_limit=500, invocations=20_000)
+RUN_NEMESIS_CYCLE_S = 1.0
+RUN_NEMESIS_S = 4.0
+RUN_ONLINE = dict(concurrency=5, invocations=10_000, state_range=[-1, 4])
+# the abort run: the online run's shape at the JAX package's abort test's
+# 20,000 invocations, so that its early stop shows with a margin (its
+# stream reached the lie after 15,248 of 20,000 history ops once)
+RUN_ABORT_INVOCATIONS = 20_000
+RUN_LIE_AFTER = 150          # the lying client's first wrong read
+RUN_ABORT_CHUNK = 256        # stream chunk of the abort run
+RUN_CLI_INVOCATIONS = 2_000
+RUN_PERF_FILES = ("latency-raw.svg", "latency-quantiles.svg", "rate.svg",
+                  "timeline.html", "history.jsonl.gz", "results.json")
 
 
 def log(*a):
@@ -2613,6 +2654,412 @@ def phase_search_chaos(dev, wgl_closure, wgl_dedup, cpu_jobs) -> dict:
     return out
 
 
+def run_clients():
+    """Phase 12's in-process clients (defined here, not in the package):
+    a keyed CAS register, one `testkit.AtomState` per key, in place of
+    the etcd suite's EtcdClient; and the JAX package's lying atom client
+    (tests/test_streaming.py), which reads 10^6 after RUN_LIE_AFTER ops."""
+    from jepsen_tpu_torch import client, independent, testkit
+
+    class KeyedAtomClient(client.Client):
+        def __init__(self):
+            self.cells = {}
+            self.lock = threading.Lock()
+
+        def open(self, test, node):
+            return self
+
+        def invoke(self, test, op):
+            k, v = op["value"].key, op["value"].value
+            with self.lock:
+                cell = self.cells.setdefault(k, testkit.AtomState(None))
+            out = dict(op)
+            if op["f"] == "write":
+                cell.reset(v)
+                out["type"] = "ok"
+            elif op["f"] == "cas":
+                out["type"] = "ok" if cell.cas(*v) else "fail"
+            else:
+                out["type"] = "ok"
+                out["value"] = independent.ktuple(k, cell.read())
+            return out
+
+        def reusable(self, test):
+            return True
+
+    class LyingClient(client.Client):
+        def __init__(self, state, after):
+            self.inner = testkit.atom_client(state, latency_s=0.0005)
+            self.after = after
+            self.count = [0]
+
+        def open(self, test, node):
+            c = LyingClient.__new__(LyingClient)
+            c.inner = self.inner.open(test, node)
+            c.after = self.after
+            c.count = self.count
+            return c
+
+        def setup(self, test):
+            self.inner.setup(test)
+
+        def invoke(self, test, op):
+            out = self.inner.invoke(test, op)
+            self.count[0] += 1
+            if self.count[0] > self.after and op["f"] == "read" \
+                    and out["type"] == "ok":
+                out = dict(out)
+                out["value"] = 10 ** 6
+            return out
+
+        def teardown(self, test):
+            self.inner.teardown(test)
+
+        def close(self, test):
+            self.inner.close(test)
+
+    return KeyedAtomClient, LyingClient
+
+
+def getent_remote():
+    """The dummy remote, answering `getent ahosts nK` with 10.0.0.K so
+    the partition nemesis resolves the nodes it cuts apart."""
+    from jepsen_tpu_torch.control import dummy
+    return dummy.DummyRemote(responses={r"getent ahosts": lambda c, a: {
+        "out": f"10.0.0.{a['cmd'].split()[-1][-1]} STREAM x\n"}})
+
+
+def register_run_test(dev, store_dir, remote) -> dict:
+    """The etcd suite's register test map (`suites/etcd.py: etcd_test`)
+    with the keyed atom client, cut as RUN_REGISTER says."""
+    from jepsen_tpu_torch import checker, db, testkit
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker import timeline
+    from jepsen_tpu_torch.nemesis import partition
+    from jepsen_tpu_torch.os_ import debian
+    from jepsen_tpu_torch.workloads import linearizable_register
+    keyed, _ = run_clients()
+    w = linearizable_register.test({
+        "nodes": RUN_NODES, "per-key-limit": RUN_REGISTER["per_key_limit"],
+        "device": str(dev)})
+    start = {"type": "info", "f": "start", "value": None}
+    stop = {"type": "info", "f": "stop", "value": None}
+    cycle = gen.cycle(gen.phases(
+        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(start),
+        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(stop)))
+    return {**testkit.noop_test(), "name": "etcd-register",
+            "nodes": list(RUN_NODES), "ssh": {"dummy": True},
+            "remote": remote, "store-dir": store_dir,
+            "concurrency": RUN_REGISTER["concurrency"], "os": debian.os,
+            "db": db.noop, "client": keyed(),
+            "nemesis": partition.partition_random_halves(),
+            "generator": gen.phases(
+                gen.any(gen.clients(gen.limit(
+                    RUN_REGISTER["invocations"], w["generator"])),
+                        gen.nemesis(gen.time_limit(RUN_NEMESIS_S, cycle))),
+                gen.nemesis(gen.once(stop))),
+            "checker": checker.compose({
+                "perf": checker.perf_checker(),
+                "timeline": timeline.html(),
+                "workload": w["checker"],
+                "stats": checker.stats(),
+                "exceptions": checker.unhandled_exceptions()})}
+
+
+def single_register_test(dev, store_dir, n, concurrency, client=None,
+                         **extra) -> dict:
+    """One CAS register over an atom (AtomDB zeroes it, so the model
+    starts at 0) with the register workload's read/write/cas mix."""
+    from jepsen_tpu_torch import models, testkit
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker.linear import linearizable
+    from jepsen_tpu_torch.workloads import linearizable_register as lr
+    state = testkit.AtomState()
+    return {**testkit.noop_test(), "ssh": {"dummy": True},
+            "store-dir": store_dir, "concurrency": concurrency,
+            "db": testkit.atom_db(state),
+            "client": (client(state) if client
+                       else testkit.atom_client(state, latency_s=0.0)),
+            "checker": linearizable(models.cas_register(0),
+                                    device=str(dev)),
+            "generator": gen.clients(gen.limit(n, gen.mix(
+                [lr.r, lr.w, lr.cas]))), **extra}
+
+
+def rekeyed(independent, hist) -> list:
+    """A stored key-sharded history with its KVs back: the store writes
+    a KV as a JSON [key, value] list (both packages; ROADMAP F6)."""
+    return [dict(o, value=independent.ktuple(*o["value"]))
+            if isinstance(o["process"], int)
+            and isinstance(o.get("value"), list) else o for o in hist]
+
+
+def cpu_run_check(kind: str, run_dir: str) -> tuple:
+    """Phase 12's CPU path in a worker process: the stored history of a
+    card run, read back from its run directory and checked on the CPU as
+    the run's checker checks it. Returns the compared fields (per key for
+    the register run) and the seconds it took."""
+    from jepsen_tpu_torch import independent, models, store
+    from jepsen_tpu_torch.checker.linear import linearizable
+    t = time.perf_counter()
+    hist = store.load_test(run_dir)["history"]
+    if kind == "register":
+        # phase 12's longest CPU check, the pool's only job for most of
+        # its run: it takes the other worker's share of the cores too
+        torch.set_num_threads(CPU_WORKERS * CPU_WORKER_THREADS)
+        r = independent.checker(linearizable(
+            models.cas_register(), device="cpu")).check(
+                {}, rekeyed(independent, hist), {})
+        got = r["results"]
+    else:
+        r = linearizable(models.cas_register(0), device="cpu").check(
+            {}, hist, {})
+        got = {f: r.get(f) for f in ("valid?", "op-index")}
+    return got, time.perf_counter() - t
+
+
+def run_stamps(label, results) -> None:
+    """No 'recovered' or 'degraded' stamp anywhere in a run's results:
+    nothing is injected in phase 12."""
+    def walk(r, path):
+        if isinstance(r, dict):
+            if r.get("recovered") or r.get("degraded") \
+                    or r.get("recovered-checkers") \
+                    or r.get("degraded-checkers"):
+                raise AssertionError(f"{label}: {path} stamped "
+                                     f"{r.get('recovered')} "
+                                     f"{r.get('error')}")
+            for k, v in r.items():
+                walk(v, f"{path}/{k}")
+    walk(results, "results")
+
+
+def interpreter_rate(hist) -> tuple[int, float]:
+    """History ops, and the client ops' rate over the span of their op
+    times (the interpreter's pace, without the nemesis's tail)."""
+    ts = [o["time"] for o in hist if isinstance(o["process"], int)]
+    span = (max(ts) - min(ts)) / 1e9 if ts else 0.0
+    return len(hist), (len(ts) / span if span else 0.0)
+
+
+def phase_run(dev, wgl_closure, wgl_dedup, pool) -> dict:
+    """Phase 12: the port's core.run on the card (register, online and
+    abort runs, the CLI's test and analyze), each with every kernel's
+    launch count set to 0 just before and read just after; each verdict
+    held against the CPU path's check of the run's stored history in a
+    worker process (the register run per key, with its batch-walk
+    counts). The runs' stores live in a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="run-path-") as root:
+        return run_path_runs(dev, wgl_closure, wgl_dedup, pool, root)
+
+
+def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
+    """`phase_run`'s runs, their stores under root."""
+    from jepsen_tpu_torch import cli, core, models, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker import streaming, synth
+    from jepsen_tpu_torch.checker.linear import linearizable
+    _, lying = run_clients()
+    out = {}
+
+    def counted(label, fn):
+        wgl_closure.LAUNCHES = 0
+        wgl_dedup.LAUNCHES = 0
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
+                   k2_launches=wgl_dedup.LAUNCHES)
+        out[label] = rec
+        return r, rec
+
+    def run_dir(test):
+        return os.path.dirname(store.path(test, "results.json"))
+
+    # -- the register run ------------------------------------------------
+    remote = getent_remote()
+    with gen.fixed_rng(SEED):
+        t = register_run_test(dev, os.path.join(root, "register"), remote)
+    done, rec = counted("register", lambda: core.run(t))
+    cpu_reg = pool.submit(cpu_run_check, "register", run_dir(done))
+    res = done["results"]
+    run_stamps("register run", res)
+    n_ops, rate = interpreter_rate(done["history"])
+    keyed = res["workload"]["results"]
+    nem = [o for o in done["history"] if o["process"] == "nemesis"]
+    d = run_dir(done)
+    missing = [f for f in RUN_PERF_FILES
+               if not os.path.exists(os.path.join(d, f))]
+    cut = [a for _, _, a in remote.log if "iptables" in a.get("cmd", "")]
+    tot = walk_totals(list(keyed.values()))
+    rec.update(ops=n_ops, ops_per_s=rate, keys=len(keyed),
+               nemesis_ops=len(nem), **tot)
+    log(f"run register: valid?={res['valid?']}, {len(keyed)} keys, "
+        f"{n_ops} history ops ({rate:.0f} ops/s in the interpreter), "
+        f"{len(nem)} nemesis ops, {len(cut)} iptables commands, wall "
+        f"{rec['wall_s']:.3f} s, K1 launches {rec['k1_launches']}, K2 "
+        f"launches {rec['k2_launches']}, groups {tot['groups']}")
+    if res["valid?"] is not True or any(
+            r["valid?"] is not True or r["analyzer"] != "gpu-wgl-batch"
+            or r["device"] != dev.type for r in keyed.values()):
+        raise AssertionError(f"register run: {res['valid?']}, "
+                             f"{res['workload'].get('failures')}")
+    if n_ops != 2 * RUN_REGISTER["invocations"] + len(nem) or \
+            {o["f"] for o in nem} != {"start", "stop"} or not cut:
+        raise AssertionError(f"register run: {n_ops} ops, nemesis "
+                             f"{sorted({o['f'] for o in nem})}, "
+                             f"{len(cut)} iptables commands")
+    if missing:
+        raise AssertionError(f"register run: the store lacks {missing}")
+    if rec["k1_launches"] <= 0 or (rec["k1_launches"], rec["k2_launches"]) \
+            != (tot["closure_rounds"], tot["dedup_launches"]):
+        raise AssertionError(f"register run: K1/K2 launches "
+                             f"{rec['k1_launches']}/{rec['k2_launches']} "
+                             f"for {tot}")
+
+    # -- the online run ----------------------------------------------------
+    with gen.fixed_rng(SEED):
+        t = single_register_test(
+            dev, os.path.join(root, "online"), RUN_ONLINE["invocations"],
+            RUN_ONLINE["concurrency"], name="online-register", online=True,
+            **{"online-state-range": RUN_ONLINE["state_range"]})
+    done, rec = counted("online", lambda: core.run(t))
+    cpu_online = pool.submit(cpu_run_check, "online", run_dir(done))
+    res = done["results"]
+    run_stamps("online run", res)
+    n_ops, rate = interpreter_rate(done["history"])
+    stored = store.load_history(done)
+    t0 = time.perf_counter()
+    offline = linearizable(models.cas_register(0), device=str(dev)).check(
+        {}, stored, {})
+    torch.cuda.synchronize()
+    rec.update(ops=n_ops, ops_per_s=rate,
+               offline_s=time.perf_counter() - t0,
+               analyzer=res.get("analyzer"))
+    log(f"run online: valid?={res['valid?']} ({res.get('analyzer')}, "
+        f"streamed {res.get('streamed')}), {n_ops} history ops "
+        f"({rate:.0f} ops/s in the interpreter), wall {rec['wall_s']:.3f} "
+        f"s, K1 launches {rec['k1_launches']}, K2 launches "
+        f"{rec['k2_launches']}; offline on the card {offline['valid?']} "
+        f"in {rec['offline_s']:.3f} s")
+    if res.get("streamed") is not True or \
+            res.get("analyzer") != "gpu-wgl-dense-streaming" or \
+            done["streamed-results"]["linear"]["valid?"] is not True or \
+            rec["k1_launches"] <= 0 or res["valid?"] != offline["valid?"]:
+        raise AssertionError(f"online run: {res.get('analyzer')}, "
+                             f"streamed {res.get('streamed')}, K1 "
+                             f"{rec['k1_launches']}, offline "
+                             f"{offline['valid?']}")
+
+    # -- the abort run -------------------------------------------------------
+    # the stream's range escape and unpacked sort walk warmed first, as
+    # the JAX package's abort test does: their first use in a process
+    # would otherwise let the run end before the stream reaches the lie
+    t0 = time.perf_counter()
+    streaming.stream_check(
+        models.cas_register(0), synth.corrupt(synth.register_history(
+            600, concurrency=RUN_ONLINE["concurrency"], values=5,
+            crash_rate=0.0)), device=str(dev), chunk_entries=RUN_ABORT_CHUNK,
+        state_range=RUN_ONLINE["state_range"],
+        concurrency_hint=RUN_ONLINE["concurrency"])
+    torch.cuda.synchronize()
+    log(f"run abort: warm-up stream {time.perf_counter() - t0:.3f} s")
+    with gen.fixed_rng(SEED):
+        t = single_register_test(
+            dev, os.path.join(root, "abort"), RUN_ABORT_INVOCATIONS,
+            RUN_ONLINE["concurrency"],
+            client=lambda state: lying(state, RUN_LIE_AFTER),
+            name="abort-register", online=True,
+            **{"online-state-range": RUN_ONLINE["state_range"],
+               "online-chunk-entries": RUN_ABORT_CHUNK,
+               "abort-on-violation": True})
+    done, rec = counted("abort", lambda: core.run(t))
+    cpu_abort = pool.submit(cpu_run_check, "abort", run_dir(done))
+    res = done["results"]
+    run_stamps("abort run", res)
+    n_ops, rate = interpreter_rate(done["history"])
+    rec.update(ops=n_ops, ops_per_s=rate, op_index=res.get("op-index"))
+    log(f"run abort: valid?={res['valid?']} at op {res.get('op-index')}, "
+        f"aborted {done.get('aborted-on-violation')}, {n_ops} of "
+        f"{2 * RUN_ABORT_INVOCATIONS} history ops, wall "
+        f"{rec['wall_s']:.3f} s, K1 launches {rec['k1_launches']}, K2 "
+        f"launches {rec['k2_launches']}")
+    if done.get("aborted-on-violation") is not True or res["valid?"] \
+            is not False or n_ops >= 2 * RUN_ABORT_INVOCATIONS:
+        raise AssertionError(f"abort run: aborted "
+                             f"{done.get('aborted-on-violation')}, "
+                             f"{res['valid?']}, {n_ops} ops")
+
+    # -- the CLI: test, then analyze on the same store -------------------
+    def test_fn(options):
+        with gen.fixed_rng(SEED):
+            return {**options, **single_register_test(
+                options["device"], options["store-dir"],
+                RUN_CLI_INVOCATIONS, options["concurrency"],
+                name="cli-register")}
+
+    cmds = cli.single_test_cmd({"test_fn": test_fn})
+    argv = ["--no-ssh", "--store-dir", os.path.join(root, "cli"),
+            "--concurrency", "5", "--device", str(dev)]
+    codes = {}
+
+    def command(cmd):
+        try:
+            cli.run(cmds, [cmd, *argv])
+        except SystemExit as e:
+            codes[cmd] = e.code
+        with open(os.path.join(store.latest(os.path.join(root, "cli")),
+                               "results.json")) as f:
+            r = json.load(f)
+        r.pop("duration-ms", None)
+        return r
+
+    first, rec = counted("cli-test", lambda: command("test"))
+    again, rec2 = counted("cli-analyze", lambda: command("analyze"))
+    log(f"run cli: test exit {codes.get('test')} in {rec['wall_s']:.3f} s "
+        f"(K1 {rec['k1_launches']}, K2 {rec['k2_launches']}), analyze "
+        f"exit {codes.get('analyze')} in {rec2['wall_s']:.3f} s (K1 "
+        f"{rec2['k1_launches']}, K2 {rec2['k2_launches']}), valid? "
+        f"{first['valid?']}, the same results: {first == again}")
+    run_stamps("cli run", first)
+    if codes != {"test": 0, "analyze": 0} or first != again or \
+            first["valid?"] is not True or rec["k1_launches"] <= 0:
+        raise AssertionError(f"cli: exits {codes}, results equal "
+                             f"{first == again}, K1 {rec['k1_launches']}")
+
+    # -- the CPU path on each stored history -------------------------------
+    want, cpu_s = cpu_reg.result()
+
+    def plain(per_key):
+        return {str(k): json.loads(json.dumps(
+            {f: r.get(f) for f in BATCH_AGREE_KEYS}, default=str))
+            for k, r in per_key.items()}
+
+    got, want = plain(keyed), plain(want)
+    if got != want:
+        bad = sorted(set(got) ^ set(want)) or sorted(
+            k for k in got if got[k] != want[k])
+        raise AssertionError(f"register run: keys {bad} differ from the "
+                             f"CPU path")
+    out["register"]["cpu_s"] = cpu_s
+    want, cpu_s = cpu_online.result()
+    if want["valid?"] != offline["valid?"]:
+        raise AssertionError(f"online run: CPU path {want}")
+    out["online"]["cpu_s"] = cpu_s
+    want, cpu_s = cpu_abort.result()
+    if (want["valid?"], want["op-index"]) != (False,
+                                              out["abort"]["op_index"]):
+        raise AssertionError(f"abort run: op {out['abort']['op_index']}, "
+                             f"CPU path {want}")
+    out["abort"]["cpu_s"] = cpu_s
+    log(f"run path: the CPU path agrees (register per key with its "
+        f"batch-walk counts {out['register']['cpu_s']:.3f} s, online "
+        f"{out['online']['cpu_s']:.3f} s, abort at op "
+        f"{out['abort']['op_index']} {out['abort']['cpu_s']:.3f} s)")
+    return out
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -2674,7 +3121,7 @@ def main() -> int:
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                cpu_batches) -> int:
-    """Phases 2-12 of `main`, given the worker pool and its first jobs."""
+    """Phases 2-13 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -2837,6 +3284,10 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     search_chaos = phase_search_chaos(dev, wgl_closure, wgl_dedup,
                                       cpu_search_chaos_jobs(pool))
     phase_done("search and chaos")
+
+    # -- phase 12: the run path -----------------------------------------------
+    run_path = phase_run(dev, wgl_closure, wgl_dedup, pool)
+    phase_done("run path")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -2862,6 +3313,10 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "stream_launches": streams["dense"]["k1_launches"]
         + streams["dense-recovery"]["k1_launches"],
         "service_launches": svc["launches"]["closure_round"],
+        # phase 12's unbatched K1: the online and abort streams and the
+        # CLI's single-register checks
+        "run_launches": sum(run_path[r]["k1_launches"] for r in (
+            "online", "abort", "cli-test", "cli-analyze")),
         "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
         "stream_shape_ms": k1["shapes"][3]["ms"],
         "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
@@ -2885,6 +3340,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "unique_ms": k2_main["unique_ms"],
         "stream_launches": streams["sort-abort"]["k2_launches"],
         "service_launches": svc["launches"]["dedup"],
+        "run_launches": sum(run_path[r]["k2_launches"] for r in (
+            "online", "abort", "cli-test", "cli-analyze")),
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -2912,6 +3369,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             # the search's batch escalation (phase 11)
             "search_launches": search_chaos["search-batch"][
                 "k1_launches" if mod is wgl_closure else "k2_launches"],
+            # the register run's independent check (phase 12)
+            "run_launches": run_path["register"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
@@ -2922,7 +3382,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             "elle": {k: v for k, v in elle.items()
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,
-            "search_chaos": search_chaos,
+            "search_chaos": search_chaos, "run_path": run_path,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

@@ -27,7 +27,12 @@ service``; key-sharded checking over a process group (`parallel`) and
 the driver entries (`graft_entry`); and the generator package
 (`generator`), the coverage-guided scenario search (`search`) and the
 self-chaos harness (`chaos`), with their ``search`` and ``chaos``
-commands.
+commands; and the `core.run` path a test map runs through (`core`:
+`control`, `os_`, `net`, `nemesis`, the interpreter in
+`generator.interpreter`, `store`, the host checkers in `checker.basic`,
+`clock`, `timeline` and `perf` with `plot`, `workloads`, and the
+``test``, ``analyze`` and ``test-all`` commands in `cli`), whose final
+check reaches both kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,7 @@
 """Checker core: the protocol, the validity lattice and the crash-safe
 check.
 
-Counterpart of `jepsen_tpu/checker/__init__.py` (without the re-exports
-of the workload checkers, which the port does not have): the validity
+Counterpart of `jepsen_tpu/checker/__init__.py`: the validity
 lattice (true < :unknown < false), the exception-absorbing `check_safe`,
 the parallel `compose` and `concurrency_limit`. A checker is any object
 with ``check(test, history, opts) -> result-dict``; results carry a
@@ -15,6 +14,8 @@ from __future__ import annotations
 import threading
 import traceback
 from typing import Any, Callable, Mapping
+
+import torch
 
 from .._platform import classify_backend_error
 from ..history import History, history
@@ -138,10 +139,17 @@ class Compose(Checker):
     def check(self, test, hist, opts):
         hist = history(hist)
         items = list(self.checkers.items())
-        results = bounded_pmap(
-            lambda kv: (kv[0], check_safe(kv[1], test, hist, opts,
-                                          name=kv[0])),
-            items, max_workers=8)
+        # the sub-checkers run on pool threads, where PyTorch's current
+        # CUDA device is the default one: give them the caller's card
+        card = (torch.cuda.current_device()
+                if torch.cuda.is_initialized() else None)
+
+        def one(kv):
+            if card is not None:
+                torch.cuda.set_device(card)
+            return kv[0], check_safe(kv[1], test, hist, opts, name=kv[0])
+
+        results = bounded_pmap(one, items, max_workers=8)
         out: dict = dict(results)
         out["valid?"] = merge_valid(
             r.get("valid?", True) for _, r in results if r is not None)
@@ -187,3 +195,27 @@ class ConcurrencyLimit(Checker):
 
 def concurrency_limit(limit: int, checker) -> Checker:
     return ConcurrencyLimit(limit, checker)
+
+
+# Re-exports of the standard checkers (defined in submodules).
+from .basic import (  # noqa: E402
+    counter, counter_plot, log_file_pattern, queue, set_checker, set_full, stats,
+    total_queue, unhandled_exceptions, unique_ids,
+)
+from .clock import clock_plot  # noqa: E402
+from .linear import linearizable  # noqa: E402
+# `perf_checker` (not `perf`) so the factory doesn't shadow the
+# checker.perf submodule attribute.
+from .perf import latency_graph, perf_checker  # noqa: E402
+from .perf import rate_graph_checker as rate_graph  # noqa: E402
+
+__all__ = [
+    "Checker", "UNKNOWN", "merge_valid", "check_safe", "checker_name",
+    "compose",
+    "concurrency_limit", "noop", "unbridled_optimism", "coerce",
+    "stats", "unhandled_exceptions", "set_checker", "set_full", "queue",
+    "total_queue", "unique_ids", "counter", "counter_plot",
+    "log_file_pattern",
+    "linearizable", "latency_graph", "rate_graph", "perf_checker",
+    "clock_plot",
+]

@@ -15,12 +15,13 @@ to G-single+G2-item (matching `tests/cycle/wr.clj:31-45`'s taxonomy).
 
 Every checker here runs on CUDA unless built with ``device="cpu"``; a
 `mesh` (`parallel.Mesh` or a `DeviceMesh`) shards the classifier over
-its ranks. Not ported yet: the transaction generators (the generator
-port).
+its ranks. The transaction generators (`append_gen`, `wr_gen`) feed
+the list-append and rw-register workloads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable
 
 from ... import parallel
@@ -146,3 +147,68 @@ def list_append_checker(anomalies=("G0", "G1", "G2"), mesh=None,
 def rw_register_checker(anomalies=("G0", "G1", "G2"), mesh=None,
                         additional_graphs=(), device=None) -> Checker:
     return RWRegisterChecker(anomalies, mesh, additional_graphs, device)
+
+
+# ---------------------------------------------------------------------------
+# Generators (reference: elle.list-append/gen, elle.rw-register/gen, used
+# by tests/cycle/append.clj:19-27 and tests/cycle/wr.clj:12,51)
+# ---------------------------------------------------------------------------
+
+from ... import generator as gen  # noqa: E402
+
+
+@dataclasses.dataclass(frozen=True)
+class _TxnGen(gen.Gen):
+    """Random transactions over a sliding window of active keys. Appends/
+    writes use per-key monotone counters so every written value is unique
+    and (for appends) traceable."""
+    mode: str               # 'append' | 'wr'
+    key_count: int          # active window size
+    min_len: int
+    max_len: int
+    max_writes_per_key: int
+    next_key: int           # keys [next_key - key_count, next_key) active
+    counters: tuple         # ((key, next value), ...)
+
+    def op(self, test, ctx):
+        length = gen.rng.randint(self.min_len, self.max_len)
+        txn = []
+        counters = dict(self.counters)
+        next_key = self.next_key
+        lo = max(0, next_key - self.key_count)
+        write_f = "append" if self.mode == "append" else "w"
+        for _ in range(length):
+            k = gen.rng.randrange(lo, max(lo + 1, next_key))
+            if gen.rng.random() < 0.5:
+                v = counters.get(k, 1)
+                counters[k] = v + 1
+                txn.append([write_f, k, v])
+                if v >= self.max_writes_per_key:
+                    next_key += 1  # retire the hottest key, open a new one
+            else:
+                txn.append(["r", k, None])
+        o = gen.fill_in_op({"f": "txn", "value": txn}, ctx)
+        if o is gen.PENDING:
+            return gen.PENDING, self
+        return o, dataclasses.replace(
+            self, next_key=next_key,
+            counters=tuple(sorted(counters.items())))
+
+    def update(self, test, ctx, event):
+        return self
+
+
+def append_gen(key_count: int = 5, min_txn_length: int = 1,
+               max_txn_length: int = 4,
+               max_writes_per_key: int = 16) -> gen.Gen:
+    """List-append transaction generator."""
+    return _TxnGen("append", key_count, min_txn_length, max_txn_length,
+                   max_writes_per_key, 1, ())
+
+
+def wr_gen(key_count: int = 5, min_txn_length: int = 1,
+           max_txn_length: int = 4,
+           max_writes_per_key: int = 16) -> gen.Gen:
+    """Write/read register transaction generator."""
+    return _TxnGen("wr", key_count, min_txn_length, max_txn_length,
+                   max_writes_per_key, 1, ())

@@ -37,6 +37,8 @@ OK = "ok"
 FAIL = "fail"
 INFO = "info"
 
+NEMESIS = "nemesis"
+
 # Sentinel for "no value" in integer device encodings. Register-family
 # workloads use non-negative small ints; -1 is reserved.
 NIL = -1
@@ -52,6 +54,20 @@ class DeviceEncodingError(ValueError):
     capacity — checkers catch this and fall back to the host model.
     Deliberately distinct from plain ValueError so configuration
     errors (e.g. forcing an ineligible engine) still surface."""
+
+
+def op(type: str, f: Any, value: Any = None, process: Any = None,
+       time: int | None = None, **extra: Any) -> dict:
+    """Build an op map."""
+    o = {"type": type, "f": f, "value": value, "process": process,
+         "time": time}
+    if extra:
+        o.update(extra)
+    return o
+
+
+def invoke_op(process: Any, f: Any, value: Any = None, **extra: Any) -> dict:
+    return op(INVOKE, f, value, process, **extra)
 
 
 def is_invoke(o: dict) -> bool:
@@ -77,6 +93,15 @@ def is_completion(o: dict) -> bool:
 def is_client_op(o: dict) -> bool:
     """Client ops have integer processes; the nemesis uses 'nemesis'."""
     return isinstance(o["process"], int)
+
+
+def completion_of(invocation: dict, completion_type: str = OK,
+                  **overrides: Any) -> dict:
+    """Build the completion op for an invocation (same process/f, new type)."""
+    o = dict(invocation)
+    o["type"] = completion_type
+    o.update(overrides)
+    return o
 
 
 class History(Sequence):
@@ -164,12 +189,59 @@ class History(Sequence):
         j = self.pair_index().get(i)
         return self.ops[j] if j is not None else None
 
+    def invocation(self, i: int) -> dict | None:
+        j = self.pair_index().get(i)
+        return self.ops[j] if j is not None else None
+
     # -- Filters ------------------------------------------------------------
     def filter(self, pred: Callable[[dict], bool]) -> "History":
         return History(o for o in self.ops if pred(o))
 
+    def invocations(self) -> "History":
+        return self.filter(is_invoke)
+
+    def completions(self) -> "History":
+        return self.filter(is_completion)
+
+    def oks(self) -> "History":
+        return self.filter(is_ok)
+
+    def fails(self) -> "History":
+        return self.filter(is_fail)
+
+    def infos(self) -> "History":
+        return self.filter(is_info)
+
     def client_ops(self) -> "History":
         return self.filter(is_client_op)
+
+    def filter_f(self, f: Any) -> "History":
+        fs = f if isinstance(f, (set, frozenset, tuple, list)) else (f,)
+        fs = set(fs)
+        return self.filter(lambda o: o["f"] in fs)
+
+    def pending(self) -> "History":
+        """Client invocations with no completion — the open tail a
+        crash, SIGKILL, or op-timeout leaves behind. A salvaged journal
+        ends with these; checkers treat them as indeterminate, so the
+        prefix stays checkable (cf. P-compositional checking)."""
+        pairs = self.pair_index()
+        return History(o for i, o in enumerate(self.ops)
+                       if is_invoke(o) and isinstance(o["process"], int)
+                       and i not in pairs)
+
+    def without_failures(self) -> "History":
+        """Drop :fail completions and their invocations — failed ops are
+        known to have not taken effect (knossos semantics)."""
+        pairs = self.pair_index()
+        drop = set()
+        for i, o in enumerate(self.ops):
+            if is_fail(o):
+                drop.add(i)
+                j = pairs.get(i)
+                if j is not None:
+                    drop.add(j)
+        return History(o for i, o in enumerate(self.ops) if i not in drop)
 
 
 def history(ops: Iterable[dict] | History) -> History:

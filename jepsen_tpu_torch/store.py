@@ -1,34 +1,34 @@
-"""Run directories, the write-ahead journal and the service's files.
+"""Test persistence: run directories, history/results serialization.
 
-The port's copy of the parts of `jepsen_tpu/store.py` that the
-verification service (`service.py`) and its tests use (reference
+The port's own copy of `jepsen_tpu/store.py` (reference
 `jepsen/src/jepsen/store.clj`): runs live under
-``store/<test-name>/<start-time>/``; the interpreter's write-ahead
-journal (`Journal`, `JournalTail`, `read_journal`); the service's
-handoff files next to it (streamed results, resume manifests with carry
-checkpoints, the store-level service epoch); and `tests` / `load_test`
-for scanning and reloading runs. The file formats are the JAX package's,
-so a run either package wrote is read by the other. The rest of the JAX
-module (logging, the two-phase save, results) is not ported.
+``store/<test-name>/<date>/`` with ``latest``/``current`` symlinks, a
+two-phase save (history before analysis, results after), per-run
+logging, the interpreter's write-ahead journal (`Journal`,
+`JournalTail`, `read_journal`), the service's handoff files next to it
+(streamed results, resume manifests with carry checkpoints, the
+store-level service epoch), and `tests` / `load_test` for scanning and
+reloading runs. The file formats are the JAX package's, so a run either
+package wrote is read by the other.
 """
 
 from __future__ import annotations
 
 import collections as _collections
+import datetime as _dt
 import gzip
 import json
 import logging
 import os
 import threading as _threading
 import zipfile
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
-from .history import INFO, History, history
+from .history import INFO, NEMESIS, History, history
 
 log = logging.getLogger(__name__)
 
 DEFAULT_BASE = "store"
-NEMESIS = "nemesis"     # the nemesis's process (history ops)
 
 
 def base_dir(test) -> str:
@@ -52,6 +52,10 @@ def make_path(test, *components) -> str:
     p = path(test, *components)
     os.makedirs(os.path.dirname(p), exist_ok=True)
     return p
+
+
+def start_time() -> str:
+    return _dt.datetime.now().strftime("%Y%m%dT%H%M%S.%f%z")
 
 
 def update_symlinks(test) -> None:
@@ -88,10 +92,24 @@ def _json_default(o: Any):
     return repr(o)
 
 
+def write_history(test, hist: Iterable[dict]) -> str:
+    """Write history.jsonl.gz — one op per line (replaces the reference's
+    Fressian binary history, store.clj:360)."""
+    p = make_path(test, "history.jsonl.gz")
+    with gzip.open(p, "wt") as fh:
+        for op in hist:
+            fh.write(json.dumps(op, default=_json_default) + "\n")
+    return p
+
+
 def read_history(p: str) -> History:
     """Parse a history.jsonl.gz file."""
     with gzip.open(p, "rt") as fh:
         return history(json.loads(line) for line in fh if line.strip())
+
+
+def load_history(test) -> History:
+    return read_history(path(test, "history.jsonl.gz"))
 
 
 # -- write-ahead op journal -------------------------------------------------
@@ -561,6 +579,44 @@ def fence_service_epoch(base: str) -> int:
     return epoch
 
 
+def write_results(test, results: dict) -> str:
+    p = make_path(test, "results.json")
+    with open(p, "w") as fh:
+        json.dump(results, fh, indent=2, default=_json_default)
+    return p
+
+
+def load_results(test) -> dict:
+    with open(path(test, "results.json")) as fh:
+        return json.load(fh)
+
+
+def save_1(test) -> dict:
+    """Phase 1: persist the test map + history before analysis, so crashed
+    analyses still leave the history on disk (reference save-1!,
+    store.clj:388)."""
+    write_history(test, test.get("history", []))
+    meta = {k: v for k, v in test.items()
+            if k not in ("history", "results") and _plain(v)}
+    p = make_path(test, "test.json")
+    with open(p, "w") as fh:
+        json.dump(meta, fh, indent=2, default=_json_default)
+    update_symlinks(test)
+    return test
+
+
+def save_2(test) -> dict:
+    """Phase 2: persist analysis results (reference save-2!, store.clj:401)."""
+    write_results(test, test.get("results", {}))
+    update_symlinks(test)
+    return test
+
+
+def _plain(v) -> bool:
+    return isinstance(v, (str, int, float, bool, list, tuple, dict,
+                          type(None)))
+
+
 def tests(base: str = DEFAULT_BASE) -> dict:
     """Map of test name -> {start-time -> run dir} for all stored runs
     (reference store.clj:284)."""
@@ -577,6 +633,94 @@ def tests(base: str = DEFAULT_BASE) -> dict:
         if runs:
             out[name] = runs
     return out
+
+
+def latest(base: str = DEFAULT_BASE) -> str | None:
+    link = os.path.join(base, "latest")
+    return os.path.realpath(link) if os.path.islink(link) else None
+
+
+def delete(base: str = DEFAULT_BASE, name: str | None = None) -> None:
+    """Delete stored runs (reference store.clj:470)."""
+    import shutil
+    target = os.path.join(base, name) if name else base
+    if os.path.isdir(target):
+        shutil.rmtree(target)
+
+
+# -- logging bootstrap ------------------------------------------------------
+#
+# Reference store.clj:431-459 (unilog): each run logs to its own
+# <dir>/jepsen.log in addition to the console, optionally as JSON.
+
+_log_handler = None
+_log_lock = _threading.Lock()
+
+LOG_FORMAT = "%(asctime)s{%(threadName)s} %(levelname)s [%(name)s] %(message)s"
+
+
+class _JsonFormatter(logging.Formatter):
+    def format(self, record):
+        out = {
+            "time": self.formatTime(record),
+            "thread": record.threadName,
+            "level": record.levelname,
+            "logger": record.name,
+            "message": record.getMessage(),
+        }
+        if record.exc_info:
+            out["exception"] = self.formatException(record.exc_info)
+        if record.stack_info:
+            out["stack"] = self.formatStack(record.stack_info)
+        return json.dumps(out)
+
+
+def _coerce_level(level) -> int:
+    if isinstance(level, int):
+        return level
+    s = str(level)
+    return int(s) if s.isdigit() else \
+        getattr(logging, s.upper(), logging.INFO)
+
+
+# levels to restore on stop: [(logger-name-or-None-for-root, level)]
+_saved_levels: list = []
+
+
+def start_logging(test) -> None:
+    """Route the root logger into this run's jepsen.log
+    (reference start-logging!, store.clj:431-453). Honors
+    test['logging']['json?'] and per-logger overrides."""
+    global _log_handler
+    if not test.get("name"):
+        return
+    with _log_lock:
+        stop_logging()
+        opts = test.get("logging") or {}
+        h = logging.FileHandler(make_path(test, "jepsen.log"))
+        h.setFormatter(_JsonFormatter() if opts.get("json?")
+                       else logging.Formatter(LOG_FORMAT))
+        root = logging.getLogger()
+        if root.level > logging.INFO or root.level == logging.NOTSET:
+            _saved_levels.append((None, root.level))
+            root.setLevel(logging.INFO)
+        for name, level in (opts.get("overrides") or {}).items():
+            logger = logging.getLogger(name)
+            _saved_levels.append((name, logger.level))
+            logger.setLevel(_coerce_level(level))
+        root.addHandler(h)
+        _log_handler = h
+
+
+def stop_logging() -> None:
+    global _log_handler
+    if _log_handler is not None:
+        logging.getLogger().removeHandler(_log_handler)
+        _log_handler.close()
+        _log_handler = None
+    while _saved_levels:
+        name, level = _saved_levels.pop()
+        logging.getLogger(name).setLevel(level)
 
 
 def load_test(d: str) -> dict:

@@ -329,6 +329,118 @@ def test_search_and_chaos_never_import_jax_or_the_jax_package():
     assert "LEAKED []" in out.stdout, out.stdout
 
 
+_GUARD_RUN = r"""
+import sys, tempfile
+from jepsen_tpu_torch import (cli, client, control, core, db, independent,
+                              models, nemesis, net, os_, plot, store,
+                              testkit, workloads)
+from jepsen_tpu_torch import generator as gen
+from jepsen_tpu_torch.checker import (basic, clock, compose, counter_plot,
+                                      log_file_pattern, perf, perf_checker,
+                                      stats, timeline, unhandled_exceptions)
+from jepsen_tpu_torch.control import dummy, util as cu
+from jepsen_tpu_torch.generator import interpreter
+from jepsen_tpu_torch.nemesis import combined, partition
+from jepsen_tpu_torch.nemesis import time as ntime
+from jepsen_tpu_torch.os_ import debian
+from jepsen_tpu_torch.workloads import linearizable_register as lr
+
+
+class Keyed(client.Client):
+    def __init__(self):
+        self.cells = {}
+
+    def open(self, test, node):
+        return self
+
+    def invoke(self, test, op):
+        k, v = op["value"].key, op["value"].value
+        cell = self.cells.setdefault(k, testkit.AtomState(None))
+        out = dict(op)
+        if op["f"] == "write":
+            cell.reset(v)
+            out["type"] = "ok"
+        elif op["f"] == "cas":
+            out["type"] = "ok" if cell.cas(*v) else "fail"
+        else:
+            out["type"] = "ok"
+            out["value"] = independent.ktuple(k, cell.read())
+        return out
+
+    def reusable(self, test):
+        return True
+
+
+remote = dummy.DummyRemote(responses={r"getent ahosts": lambda c, a: {
+    "out": "10.0.0.%s STREAM x\n" % a["cmd"].split()[-1][-1]}})
+w = lr.test({"per-key-limit": 20, "device": "cpu"})
+t = {**testkit.noop_test(), "name": "guard-run", "remote": remote,
+     "ssh": {"dummy": True}, "store-dir": tempfile.mkdtemp(),
+     "concurrency": 10, "os": debian.os, "client": Keyed(),
+     "nemesis": partition.partition_random_halves(),
+     "online": True, "service": "127.0.0.1:9", "device": "cpu",
+     "generator": gen.phases(
+         gen.time_limit(1.0, gen.nemesis(
+             gen.cycle(gen.phases(gen.sleep(0.1), gen.once(
+                 {"type": "info", "f": "start", "value": None}),
+                 gen.sleep(0.1), gen.once(
+                 {"type": "info", "f": "stop", "value": None}))),
+             gen.limit(200, w["generator"]))),
+         gen.nemesis(gen.once({"type": "info", "f": "stop"}))),
+     "checker": compose({"perf": perf_checker(),
+                         "timeline": timeline.html(),
+                         "workload": w["checker"], "stats": stats(),
+                         "exceptions": unhandled_exceptions(),
+                         "logs": log_file_pattern("PANIC", "db.log")})}
+done = core.run(t)
+r = done["results"]
+assert r["valid?"] is True, r
+assert r["workload"]["results"], r
+nem = [o for o in done["history"] if o["process"] == "nemesis"]
+assert {o["f"] for o in nem} == {"start", "stop"}, nem
+assert any(a.get("cmd", "").startswith("iptables") or "iptables"
+           in a.get("cmd", "") for _, _, a in remote.log)
+assert store.load_results(done)["valid?"] is True
+from jepsen_tpu_torch.checker import synth
+assert counter_plot().check(done, synth.counter_history(40), {})["valid?"]
+clock_ops = ntime.clock_gen()
+
+
+def no_gxx(ctx, action):
+    return {"exit": 1, "err": "g++: not found"}
+
+
+with control.with_remote(dummy.DummyRemote(responses={r"g\+\+": no_gxx})), \
+        control.on("n1"):
+    try:
+        ntime.install()
+    except control.RemoteError:
+        pass
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
+lazy = {"jepsen_tpu_torch.report", "jepsen_tpu_torch.service",
+        "jepsen_tpu_torch.checker.streaming", "jepsen_tpu_torch.os_.centos"}
+print("LAZY", sorted(lazy - set(sys.modules)))
+print("LEAKED", leaked)
+"""
+
+
+def test_the_run_path_never_imports_jax_or_the_jax_package():
+    """core.run with the register workload, a partition nemesis, the
+    debian OS and the etcd suite's checker compose over the dummy
+    remote, on the CPU; the lazy imports inside core, checker.basic and
+    nemesis.time are reached and point at the port."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _GUARD_RUN], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LAZY []" in out.stdout, out.stdout
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
 def test_port_sources_name_no_jax_import():
     paths = list((REPO / "jepsen_tpu_torch").rglob("*.py"))
     names = {p.relative_to(REPO / "jepsen_tpu_torch").as_posix()
@@ -339,7 +451,15 @@ def test_port_sources_name_no_jax_import():
             "generator/simulate.py", "search/driver.py",
             "search/scenario.py", "search/coverage.py",
             "search/mutate.py", "chaos/driver.py", "chaos/genome.py",
-            "chaos/oracles.py", "report.py"} <= names
+            "chaos/oracles.py", "report.py", "core.py", "cli.py",
+            "client.py", "db.py", "net.py", "plot.py", "testkit.py",
+            "control/__init__.py", "control/core.py", "control/util.py",
+            "os_/debian.py", "nemesis/__init__.py",
+            "nemesis/partition.py", "nemesis/time.py",
+            "nemesis/combined.py", "generator/interpreter.py",
+            "checker/basic.py", "checker/clock.py", "checker/timeline.py",
+            "checker/perf.py", "workloads/linearizable_register.py",
+            "workloads/append.py", "workloads/wr.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
