@@ -29,8 +29,9 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      the concurrency-11 history and the adversarial history, the last two
      under a wall-time budget), with every kernel's launch count set to 0
      just before and read just after; then hold verdicts, culprit ops,
-     counts and final carries against the port's own CPU path, and trace
-     the first 500 steps of four walks with torch.profiler for the
+     counts and final carries against the port's own CPU path (run in a
+     worker process from the end of phase 1 on), and trace
+     the first 250 steps of four walks with torch.profiler for the
      device's busy share;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
@@ -124,10 +125,22 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      before each run and read just after; each run's verdict is held
      against the CPU path's check of its stored history in a worker
      process (the register run per key, with its batch-walk counts);
- 13. fail if any result other than the injected runs' carries a
-     'recovered' or 'degraded' stamp; print one JSON line of per-kernel
-     numbers, the nvidia-smi line, and last the line
-     {"ok": true, "device": {...}}.
+ 13. the workloads: the tidb/cockroach suites' monotonic and sequential
+     test maps through `core.run` as phase 12 runs etcd's (5 nodes,
+     concurrency 10, 20,000 invocations, the partition nemesis, the std
+     checker compose, the workload's Elle checker on the card), each
+     with an in-process serializable store that plants a stale read now
+     and then (one version back); the monotonic run must end invalid
+     with G-single-realtime and the sequential one with
+     G-single-process, each after at least one classifier call on the
+     card and none of K1 or K2, with the classifier's call count and
+     every kernel's launch count set to 0 just before each run and read
+     just after; each workload result is held, whole, against the CPU
+     path's check of the run's stored history in a worker process;
+ 14. fail if any result other than the injected runs' carries a
+     'recovered' or 'degraded' stamp, or if jax or the JAX package was
+     imported; print one JSON line of per-kernel numbers, the
+     nvidia-smi line, and last the line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints
@@ -175,10 +188,10 @@ K1_MATRIX = [(3, 0), (4, 1), (5, 2), (8, 3), (30, 4), (8, 5), (16, 6),
 # stream's (8, 16)
 K1_TIMED = [(8, 7), (8, 14), (8, 19), (8, 16)]
 PROFILE_STEPS = 1_500
-# the profile phase traces the first 500 steps of its walks (1,500
+# the profile phase traces the first 250 steps of its walks (1,500
 # until the service phase needed its time, 1,000 until the search-and-
-# chaos phase did)
-PROFILE_WALK_STEPS = 500
+# chaos phase did, 500 until the workloads phase did)
+PROFILE_WALK_STEPS = 250
 # the batch path (bench.py:section_config4's hazelcast shape): 100 keys
 # of register_history(500, concurrency=4, values=5, crash_rate=0.005,
 # seed=1000 + i), keys 7, 42 and 77 with one read set to 5 (one past the
@@ -247,8 +260,9 @@ STREAM_ABORT = dict(engine="sort", state_range=(-1, 10 ** 6), slots=8,
                     chunk_entries=STREAM_CHUNK)
 STREAM_CPU_DENSE_CHUNKS = 1
 # the streams' busy share: the first STREAM_PROFILE_OPS ops of the dense
-# and the sort stream, fed and finished, under torch.profiler
-STREAM_PROFILE_OPS = 3_000
+# and the sort stream, fed and finished, under torch.profiler (3,000
+# until the workloads phase needed the time)
+STREAM_PROFILE_OPS = 1_500
 STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device", "host-syncs",
                    "trace-id")
 # the service phase (bench.py's service section, bench.py:762-902, at a
@@ -342,6 +356,22 @@ RUN_ABORT_CHUNK = 256        # stream chunk of the abort run
 RUN_CLI_INVOCATIONS = 2_000
 RUN_PERF_FILES = ("latency-raw.svg", "latency-quantiles.svg", "rate.svg",
                   "timeline.html", "history.jsonl.gz", "results.json")
+# Phase 13, the workloads: the tidb and cockroach suites' monotonic and
+# sequential test maps (`suites/cockroach.py:500-535` through
+# `suites/__init__.py: std_test`) cut as phase 12 cut etcd's, with an
+# in-process serializable store for the suites' SQL clients, at
+# concurrency 10 and 20,000 invocations. After WORKLOAD_WARMUP reads the
+# store plants one stale read in every WORKLOAD_PLANT_EVERY: a key one
+# version back (monotonic: the read's most recently written key,
+# G-single-realtime) or a pair's first key before its write while the
+# second shows (sequential: G-single-process). Staleness of one version keeps each
+# cycle's SCC a few transactions, under analyze_edges' max_dense, so
+# the classifier runs on the card
+WORKLOAD_RUN = dict(concurrency=10, invocations=20_000)
+WORKLOAD_WARMUP = 1_000
+WORKLOAD_PLANT_EVERY = 500
+WORKLOAD_ANOMALY = {"monotonic": "G-single-realtime",
+                    "sequential": "G-single-process"}
 
 
 def log(*a):
@@ -1190,6 +1220,50 @@ def final_carry(wgl, carry_to_numpy, model, hist, device, **kw):
     return carry_to_numpy(carry)
 
 
+def agreement_runs(models, synth, head=None):
+    """(label, model, history, checker options) held against the CPU
+    path after the main path: the headline at full size (its CPU result
+    also stands for the tier phase's escalated check; `head` when the
+    caller has it already); the others on 1,000-op histories of the same
+    generators (the adversarial one under the sort engine on 2,000), the
+    forced-dense adversarial one on 700 ops (its plain closure rounds at
+    2^14 columns set the CPU path's pace; the front-loaded crashed
+    writes keep it at P = 14)."""
+    reg = models.cas_register()
+    head = head or synth.register_history(**HEADLINE)
+    head_small = synth.register_history(**dict(HEADLINE, n_ops=1_000))
+    sort_small = dict(engine="sort", frontier=1024, max_frontier=1024)
+    return [
+        ("headline", reg, head, {}),
+        ("corrupted-1k", reg,
+         synth.corrupt(head_small, value=HEADLINE["values"]), {}),
+        ("adversarial-700-dense", reg, synth.adversarial_register_history(
+            **dict(ADVERSARIAL, n_ops=700)), {"engine": "dense"}),
+        ("phantom-1k", reg, synth.corrupt(head_small), {}),
+        ("counter-1k", models.counter(),
+         synth.counter_history(**dict(COUNTER, n_ops=1_000)), {}),
+        ("adversarial-2k-sort", reg, synth.adversarial_register_history(
+            **dict(ADVERSARIAL, n_ops=2_000)), sort_small)]
+
+
+def cpu_agreement() -> dict:
+    """The agreement runs on the CPU path, in a worker process: label ->
+    (result, final carry, seconds of the check)."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.carry import carry_to_numpy
+    from jepsen_tpu_torch.checker import synth, wgl
+    from jepsen_tpu_torch.checker.linear import linearizable
+    out = {}
+    for label, model, hist, kw in agreement_runs(models, synth):
+        t = time.perf_counter()
+        c = linearizable(model, device="cpu", **kw).check({}, hist, {})
+        cpu_s = time.perf_counter() - t
+        ckw = {k: v for k, v in kw.items() if k != "max_frontier"}
+        out[label] = (c, final_carry(wgl, carry_to_numpy, model, hist,
+                                     "cpu", **ckw), cpu_s)
+    return out
+
+
 def main_path_runs(models, synth):
     """(label, model, history, checker options, expectation) of the main
     path. The expectation holds the verdicts allowed, the analyzer, the
@@ -1322,23 +1396,37 @@ def same_elle(a, b, label) -> None:
 
 class ElleRecorder:
     """Wraps `_classify_batches` to keep each call's buckets and flags
-    (the wrapped call still counts its launches)."""
+    (the wrapped call still counts its launches), and both it and the
+    host's `certificates` to keep each call's seconds (the classifier's
+    flags come back to the host, so its calls end synchronised)."""
 
     def __init__(self, kernels):
         self.kernels, self.real = kernels, kernels._classify_batches
-        self.calls = []
+        self.real_certs = kernels.certificates
+        self.calls, self.seconds, self.cert_seconds = [], [], []
 
     def __enter__(self):
         def record(buckets, **kw):
+            t = time.perf_counter()
             flags = self.real(buckets, **kw)
+            self.seconds.append(time.perf_counter() - t)
             self.calls.append((buckets, flags))
             return flags
 
+        def certs(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return self.real_certs(*a, **kw)
+            finally:
+                self.cert_seconds.append(time.perf_counter() - t)
+
         self.kernels._classify_batches = record
+        self.kernels.certificates = certs
         return self
 
     def __exit__(self, *exc):
         self.kernels._classify_batches = self.real
+        self.kernels.certificates = self.real_certs
 
 
 def phase_elle_classifier(dev, kernels) -> list:
@@ -2729,33 +2817,32 @@ def getent_remote():
         "out": f"10.0.0.{a['cmd'].split()[-1][-1]} STREAM x\n"}})
 
 
-def register_run_test(dev, store_dir, remote) -> dict:
-    """The etcd suite's register test map (`suites/etcd.py: etcd_test`)
-    with the keyed atom client, cut as RUN_REGISTER says."""
+def suite_test_map(name, store_dir, remote, client, w, invocations,
+                   concurrency) -> dict:
+    """A suite's test map (`suites/__init__.py: std_test`) as phases 12
+    and 13 cut it: the given in-process client and workload, a no-op
+    DB, the debian OS, no stagger, invocations client ops beside a
+    partition_random_halves nemesis cycling every RUN_NEMESIS_CYCLE_S
+    for RUN_NEMESIS_S, and the std checker compose."""
     from jepsen_tpu_torch import checker, db, testkit
     from jepsen_tpu_torch import generator as gen
     from jepsen_tpu_torch.checker import timeline
     from jepsen_tpu_torch.nemesis import partition
     from jepsen_tpu_torch.os_ import debian
-    from jepsen_tpu_torch.workloads import linearizable_register
-    keyed, _ = run_clients()
-    w = linearizable_register.test({
-        "nodes": RUN_NODES, "per-key-limit": RUN_REGISTER["per_key_limit"],
-        "device": str(dev)})
     start = {"type": "info", "f": "start", "value": None}
     stop = {"type": "info", "f": "stop", "value": None}
     cycle = gen.cycle(gen.phases(
         gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(start),
         gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(stop)))
-    return {**testkit.noop_test(), "name": "etcd-register",
+    return {**testkit.noop_test(), "name": name,
             "nodes": list(RUN_NODES), "ssh": {"dummy": True},
             "remote": remote, "store-dir": store_dir,
-            "concurrency": RUN_REGISTER["concurrency"], "os": debian.os,
-            "db": db.noop, "client": keyed(),
+            "concurrency": concurrency, "os": debian.os,
+            "db": db.noop, "client": client,
             "nemesis": partition.partition_random_halves(),
             "generator": gen.phases(
-                gen.any(gen.clients(gen.limit(
-                    RUN_REGISTER["invocations"], w["generator"])),
+                gen.any(gen.clients(gen.limit(invocations,
+                                              w["generator"])),
                         gen.nemesis(gen.time_limit(RUN_NEMESIS_S, cycle))),
                 gen.nemesis(gen.once(stop))),
             "checker": checker.compose({
@@ -2764,6 +2851,19 @@ def register_run_test(dev, store_dir, remote) -> dict:
                 "workload": w["checker"],
                 "stats": checker.stats(),
                 "exceptions": checker.unhandled_exceptions()})}
+
+
+def register_run_test(dev, store_dir, remote) -> dict:
+    """The etcd suite's register test map (`suites/etcd.py: etcd_test`)
+    with the keyed atom client, cut as RUN_REGISTER says."""
+    from jepsen_tpu_torch.workloads import linearizable_register
+    keyed, _ = run_clients()
+    w = linearizable_register.test({
+        "nodes": RUN_NODES, "per-key-limit": RUN_REGISTER["per_key_limit"],
+        "device": str(dev)})
+    return suite_test_map("etcd-register", store_dir, remote, keyed(), w,
+                          RUN_REGISTER["invocations"],
+                          RUN_REGISTER["concurrency"])
 
 
 def single_register_test(dev, store_dir, n, concurrency, client=None,
@@ -3060,6 +3160,186 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
         f"{out['abort']['op_index']} {out['abort']['cpu_s']:.3f} s)")
     return out
 
+
+def workload_client(kind, every=None, warmup=None):
+    """Phase 13's in-process client (defined here, not in the package)
+    for the tidb/cockroach suites' MonotonicClient and WrTxnClient: a
+    serializable store, one lock and an integer per key, where a 'w'
+    micro-op with a nil value writes its key's prior value + 1. Once
+    `warmup` reads have run, one read in `every` whose keys all hold a
+    value reports one key at its previous version. For `monotonic` that
+    is the read's most recently written key: the read then closes a
+    cycle only through a realtime or process edge, never a dependency
+    cycle through a second read of the same keys (a G2 whose simple-path
+    certificate search is slow on the host). For `sequential` it is the
+    pair's first-written key (read second). Both default to
+    WORKLOAD_PLANT_EVERY and WORKLOAD_WARMUP."""
+    from jepsen_tpu_torch import client
+
+    every = every or WORKLOAD_PLANT_EVERY
+    warmup = WORKLOAD_WARMUP if warmup is None else warmup
+
+    class PlantedTxnClient(client.Client):
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.data, self.prev, self.written = {}, {}, {}
+            self.reads = self.due = self.planted = self.writes = 0
+
+        def open(self, test, node):
+            return self
+
+        def invoke(self, test, op):
+            out = []
+            with self.lock:
+                for f, k, v in op["value"]:
+                    if f == "r":
+                        out.append(["r", k, self.data.get(k)])
+                    else:
+                        x = v if v is not None else \
+                            (self.data.get(k) or 0) + 1
+                        self.prev[k] = self.data.get(k)
+                        self.data[k] = x
+                        self.writes += 1
+                        self.written[k] = self.writes
+                        out.append(["w", k, x])
+                if op["f"] == "read":
+                    self.reads += 1
+                    if self.reads > warmup and self.reads % every == 0:
+                        self.due += 1
+                    if self.due and all(m[2] is not None for m in out):
+                        m = 1 if kind == "sequential" else max(
+                            range(len(out)),
+                            key=lambda i: self.written[out[i][1]])
+                        out[m][2] = self.prev.get(out[m][1])
+                        self.due -= 1
+                        self.planted += 1
+            return {**op, "type": "ok", "value": out}
+
+        def reusable(self, test):
+            return True
+
+    return PlantedTxnClient()
+
+
+def workload_run_test(kind, dev, store_dir, remote, client=None) -> dict:
+    """The tidb/cockroach suites' `kind` test map (`monotonic` or
+    `sequential`, workload defaults, the checker on dev) with phase 13's
+    planted store (or `client`), cut as WORKLOAD_RUN and
+    `suite_test_map` say."""
+    from jepsen_tpu_torch.workloads import monotonic, sequential
+    w = {"monotonic": monotonic, "sequential": sequential}[kind].workload(
+        {"device": str(dev)})
+    return suite_test_map(f"cockroach-{kind}", store_dir, remote,
+                          client or workload_client(kind), w,
+                          WORKLOAD_RUN["invocations"],
+                          WORKLOAD_RUN["concurrency"])
+
+
+def cpu_workload_check(kind: str, run_dir: str) -> tuple:
+    """Phase 13's CPU path in a worker process: a card run's stored
+    history checked by its workload's checker on the CPU. Returns the
+    result and the seconds it took."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.workloads import monotonic, sequential
+    t = time.perf_counter()
+    hist = store.load_test(run_dir)["history"]
+    w = {"monotonic": monotonic, "sequential": sequential}[kind].workload(
+        {"device": "cpu"})
+    r = w["checker"].check({}, hist, {})
+    return r, time.perf_counter() - t
+
+
+def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
+    """Phase 13: the monotonic and sequential test maps through the
+    port's core.run on the card, with every kernel's launch count and
+    the classifier's call count set to 0 just before each run and read
+    just after; each workload result held, whole, against the CPU path's
+    check of the run's stored history in a worker process. It also
+    imports every module of the port's last host slice, so the
+    script's closing guard covers them."""
+    import tempfile
+
+    from jepsen_tpu_torch import core, faketime, fs_cache, store, workloads
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.control import docker, k8s
+    from jepsen_tpu_torch.nemesis import charybdefs, membership
+    slice_modules = [m.__name__ for m in (faketime, fs_cache, docker, k8s,
+                                          charybdefs, membership)]
+    slice_modules += [f"{workloads.__name__}.{m}" for m in workloads.__all__]
+    out, cpu = {"modules": slice_modules}, {}
+    with tempfile.TemporaryDirectory(prefix="workloads-") as root:
+        for kind in ("monotonic", "sequential"):
+            remote = getent_remote()
+            planted = workload_client(kind)
+            with gen.fixed_rng(SEED):
+                t = workload_run_test(kind, dev, os.path.join(root, kind),
+                                      remote, client=planted)
+            wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+            elle_kernels.LAUNCHES = 0
+            with ElleRecorder(elle_kernels) as rec:
+                t0 = time.perf_counter()
+                done = core.run(t)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            run_dir = os.path.dirname(store.path(done, "results.json"))
+            cpu[kind] = pool.submit(cpu_workload_check, kind, run_dir)
+            res = done["results"]
+            run_stamps(f"{kind} run", res)
+            n_ops, rate = interpreter_rate(done["history"])
+            nem = [o for o in done["history"] if o["process"] == "nemesis"]
+            buckets = [{str(e): list(s[0].shape) for e, s in bk.items()}
+                       for bk, _f in rec.calls]
+            w = res["workload"]
+            out[kind] = row = dict(
+                wall_s=wall, ops=n_ops, ops_per_s=rate,
+                nemesis_ops=len(nem), planted=planted.planted,
+                classifier_calls=elle_kernels.LAUNCHES, buckets=buckets,
+                classifier_s=sum(rec.seconds),
+                certificates_s=sum(rec.cert_seconds),
+                k1_launches=wgl_closure.LAUNCHES,
+                k2_launches=wgl_dedup.LAUNCHES, valid=w["valid?"],
+                anomaly_types=w.get("anomaly-types"))
+            log(f"workload {kind}: valid?={w['valid?']} "
+                f"{w.get('anomaly-types')}, {n_ops} history ops "
+                f"({rate:.0f} client ops/s), {len(nem)} nemesis ops, "
+                f"{planted.planted} stale reads planted, wall {wall:.3f} "
+                f"s, classifier calls {elle_kernels.LAUNCHES} in "
+                f"{row['classifier_s']:.3f} s (buckets e: [B, e, e] "
+                f"{buckets}), host certificates "
+                f"{row['certificates_s']:.3f} s, K1 "
+                f"{wgl_closure.LAUNCHES}, K2 {wgl_dedup.LAUNCHES}")
+            if res["valid?"] is not False or w["valid?"] is not False or \
+                    WORKLOAD_ANOMALY[kind] not in w.get("anomaly-types", ()):
+                raise AssertionError(f"{kind} run: {res['valid?']}, "
+                                     f"{w.get('anomaly-types')}")
+            if n_ops != 2 * WORKLOAD_RUN["invocations"] + len(nem) or \
+                    {o["f"] for o in nem} != {"start", "stop"}:
+                raise AssertionError(f"{kind} run: {n_ops} ops, nemesis "
+                                     f"{sorted({o['f'] for o in nem})}")
+            if row["classifier_calls"] < 1 or row["k1_launches"] or \
+                    row["k2_launches"] or any(
+                        int(e) > 4096 for bk in buckets for e in bk):
+                raise AssertionError(f"{kind} run: classifier calls "
+                                     f"{row['classifier_calls']} {buckets}, "
+                                     f"K1/K2 {row['k1_launches']}/"
+                                     f"{row['k2_launches']}")
+            out[kind]["workload"] = w
+        for kind, job in cpu.items():
+            want, cpu_s = job.result()
+            got = out[kind].pop("workload")
+            if got != want:
+                bad = sorted(k for k in set(got) | set(want)
+                             if got.get(k) != want.get(k))
+                raise AssertionError(f"{kind} run: {bad} differ from the "
+                                     f"CPU path")
+            out[kind]["cpu_s"] = cpu_s
+    log(f"workloads: each result equal to the CPU path's (monotonic "
+        f"{out['monotonic']['cpu_s']:.3f} s, sequential "
+        f"{out['sequential']['cpu_s']:.3f} s); {len(slice_modules)} "
+        f"modules of the slice imported")
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -3100,10 +3380,11 @@ def main() -> int:
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
 
-    # the CPU checks of phases 6, 8 and 9 run in worker processes
-    # (spawned: this process holds a CUDA context) beside the card's
-    # runs; the three longest need nothing of the card's runs and start
-    # now: phase 8's dense stream and phase 6's two batches
+    # the CPU checks of phases 4, 6, 8, 9, 11, 12 and 13 run in worker
+    # processes (spawned: this process holds a CUDA context) beside the
+    # card's runs; those that need nothing of the card's runs start now:
+    # phase 8's dense stream, the main path's agreement runs and phase
+    # 6's two batches
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -3111,17 +3392,18 @@ def main() -> int:
         mp_context=multiprocessing.get_context("spawn"))
     try:
         cpu_dense = pool.submit(cpu_dense_prefix)
+        cpu_agree = pool.submit(cpu_agreement)
         cpu_batches = {kind: pool.submit(cpu_batch, kind)
                        for kind in ("dense", "sort")}
         return run_phases(args, dev, name, smi, phase_s, phase_done, pool,
-                          cpu_dense, cpu_batches)
+                          cpu_dense, cpu_batches, cpu_agree)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
-               cpu_batches) -> int:
-    """Phases 2-13 of `main`, given the worker pool and its first jobs."""
+               cpu_batches, cpu_agree) -> int:
+    """Phases 2-14 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -3174,35 +3456,15 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     phase_done("main path")
 
     # -- agreement with the port's CPU path -----------------------------------
-    # the headline at full size (its CPU result also stands for the tier
-    # phase's escalated check); the others on 1,000-op histories of the
-    # same generators (the adversarial one under the sort engine on
-    # 2,000), the forced-dense adversarial one on 700 ops (its plain
-    # closure rounds at 2^14 columns set the CPU path's pace; the
-    # front-loaded crashed writes keep it at P = 14)
-    reg = models.cas_register()
-    adv_small = synth.adversarial_register_history(
-        **dict(ADVERSARIAL, n_ops=2_000))
-    adv_dense = synth.adversarial_register_history(
-        **dict(ADVERSARIAL, n_ops=700))
-    head_small = synth.register_history(**dict(HEADLINE, n_ops=1_000))
-    sort_small = dict(engine="sort", frontier=1024, max_frontier=1024)
-    agree = [("headline", *hists["headline"], {}),
-             ("corrupted-1k", reg,
-              synth.corrupt(head_small, value=HEADLINE["values"]), {}),
-             ("adversarial-700-dense", reg, adv_dense, {"engine": "dense"}),
-             ("phantom-1k", reg, synth.corrupt(head_small), {}),
-             ("counter-1k", models.counter(),
-              synth.counter_history(**dict(COUNTER, n_ops=1_000)), {}),
-             ("adversarial-2k-sort", reg, adv_small, sort_small)]
-    cpu_results = {}
-    for label, model, hist, kw in agree:
+    # (agreement_runs); the CPU path's checks and final carries ran in a
+    # worker process from the end of phase 1 on
+    cpu_results, cpu_side = {}, cpu_agree.result()
+    for label, model, hist, kw in agreement_runs(models, synth,
+                                                 hists["headline"][1]):
         t0 = time.perf_counter()
         g = results.get(label) or linearizable(model, **kw).check(
             {}, hist, {})
-        t = time.perf_counter()
-        c = linearizable(model, device="cpu", **kw).check({}, hist, {})
-        cpu_s = time.perf_counter() - t
+        c, cc, cpu_s = cpu_side[label]
         cpu_results[label] = c
         for key in ("valid?", "op-index", "max-frontier", "frontier-size",
                     "dedup", "analyzer", "dense-shape", "closure-rounds",
@@ -3212,15 +3474,15 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                                      f"!= cpu {c.get(key)}")
         ckw = {k: v for k, v in kw.items() if k != "max_frontier"}
         cg = final_carry(wgl, carry_to_numpy, model, hist, dev, **ckw)
-        cc = final_carry(wgl, carry_to_numpy, model, hist, "cpu", **ckw)
         for i, (a, b) in enumerate(zip(cg, cc)):
             if a.dtype != b.dtype or not np.array_equal(a, b):
                 raise AssertionError(f"{label}: carry element {i} differs")
         log(f"{label}: GPU and CPU agree (verdict {c['valid?']}, "
             f"op-index {c.get('op-index')}, max-frontier "
             f"{c['max-frontier']}, {c['analyzer']} {c['dedup']}, counts, "
-            f"final carry of {len(cg)} elements; CPU path {cpu_s:.3f} s, "
-            f"label {time.perf_counter() - t0:.3f} s)")
+            f"final carry of {len(cg)} elements; CPU path {cpu_s:.3f} s "
+            f"in a worker process, label {time.perf_counter() - t0:.3f} "
+            f"s)")
     phase_done("agreement with the CPU path")
 
     # -- where the time goes: the device's busy share ------------------------
@@ -3288,6 +3550,11 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     # -- phase 12: the run path -----------------------------------------------
     run_path = phase_run(dev, wgl_closure, wgl_dedup, pool)
     phase_done("run path")
+
+    # -- phase 13: the monotonic and sequential workloads -----------------
+    run_path["workloads"] = phase_workloads(dev, wgl_closure, wgl_dedup,
+                                            elle_kernels, pool)
+    phase_done("workloads")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"

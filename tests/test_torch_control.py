@@ -1,6 +1,6 @@
 """The port's control layer over the dummy remote: every case of
-tests/test_control.py up to its fs-cache cases (`fs_cache` is not ported
-yet), run on the port; then the same calls of `control.util`,
+tests/test_control.py, its fs-cache cases included, run on the port;
+then the same calls of `control.util`,
 `net.iptables`/`net.ipfilter`, `os_.debian` and `os_.centos` in both
 packages send the same commands, with the same contexts, to the same
 nodes."""
@@ -23,8 +23,7 @@ from jepsen_tpu_torch.control import util as tcu
 from jepsen_tpu_torch.os_ import centos as tcentos
 from jepsen_tpu_torch.os_ import debian as tdebian
 
-globals().update(torch_mirror.cases("test_control",
-                                    cut="class TestFsCache"))
+globals().update(torch_mirror.cases("test_control"))
 
 JAX = dict(control=jcontrol, net=jnet, dummy=jdummy, cu=jcu,
            debian=jdebian, centos=jcentos)

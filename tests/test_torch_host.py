@@ -416,6 +416,51 @@ with control.with_remote(dummy.DummyRemote(responses={r"g\+\+": no_gxx})), \
         ntime.install()
     except control.RemoteError:
         pass
+from jepsen_tpu_torch import faketime, fs_cache
+from jepsen_tpu_torch.control import docker, k8s
+from jepsen_tpu_torch.nemesis import charybdefs, membership
+from jepsen_tpu_torch.workloads import (adya, append, bank, causal,
+                                        causal_reverse, comments,
+                                        linearizable_register, long_fork,
+                                        monotonic, sequential, table, wr)
+assert sorted(workloads.__all__) == sorted(
+    m.__name__.rsplit(".", 1)[1] for m in (
+        adya, append, bank, causal, causal_reverse, comments,
+        linearizable_register, long_fork, monotonic, sequential, table, wr))
+
+
+class Registers(client.Client):
+    def __init__(self):
+        self.data = {}
+
+    def open(self, test, node):
+        return self
+
+    def invoke(self, test, op):
+        out = []
+        for f, k, v in op["value"]:
+            if f == "r":
+                out.append(["r", k, self.data.get(k)])
+            else:
+                self.data[k] = v if v is not None else \
+                    (self.data.get(k) or 0) + 1
+                out.append(["w", k, self.data[k]])
+        return {**op, "type": "ok", "value": out}
+
+    def reusable(self, test):
+        return True
+
+
+with gen.fixed_rng(3):
+    w = monotonic.workload({"device": "cpu"})
+    t = {**testkit.noop_test(), "name": "guard-monotonic",
+         "ssh": {"dummy": True}, "store-dir": tempfile.mkdtemp(),
+         "concurrency": 5, "client": Registers(),
+         "checker": compose({"workload": w["checker"]}),
+         "generator": gen.clients(gen.limit(200, w["generator"]))}
+done = core.run(t)
+r = done["results"]["workload"]
+assert r["valid?"] is True and r["txn-count"] == 200, r
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
@@ -430,7 +475,10 @@ def test_the_run_path_never_imports_jax_or_the_jax_package():
     """core.run with the register workload, a partition nemesis, the
     debian OS and the etcd suite's checker compose over the dummy
     remote, on the CPU; the lazy imports inside core, checker.basic and
-    nemesis.time are reached and point at the port."""
+    nemesis.time are reached and point at the port. Then all twelve
+    workloads, the docker and k8s remotes, the membership and
+    CharybdeFS nemeses, faketime and fs_cache are imported, and the
+    monotonic workload runs through core.run on the CPU."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
     out = subprocess.run([sys.executable, "-c", _GUARD_RUN], cwd=REPO,
@@ -459,7 +507,14 @@ def test_port_sources_name_no_jax_import():
             "nemesis/combined.py", "generator/interpreter.py",
             "checker/basic.py", "checker/clock.py", "checker/timeline.py",
             "checker/perf.py", "workloads/linearizable_register.py",
-            "workloads/append.py", "workloads/wr.py"} <= names
+            "workloads/append.py", "workloads/wr.py", "workloads/adya.py",
+            "workloads/bank.py", "workloads/causal.py",
+            "workloads/causal_reverse.py", "workloads/comments.py",
+            "workloads/long_fork.py", "workloads/monotonic.py",
+            "workloads/sequential.py", "workloads/table.py",
+            "faketime.py", "fs_cache.py", "control/docker.py",
+            "control/k8s.py", "nemesis/charybdefs.py",
+            "nemesis/membership.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
