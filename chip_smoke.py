@@ -113,7 +113,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      on the card, exiting 0 with the in-process run's result;
  12. the run path: the port's `core.run` as a user drives it, over the
      dummy remote, all on the card: the etcd suite's register test map
-     (5 nodes, concurrency 10, 20,000 invocations over about 40 keys of
+     (5 nodes, concurrency 10, 5,000 invocations over about 10 keys of
      500, a partition nemesis, the etcd checker compose) with an
      in-process keyed CAS client, its independent check launching K1
      batched; a 10,000-invocation single-register run with `online`,
@@ -137,7 +137,24 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      every kernel's launch count set to 0 just before each run and read
      just after; each workload result is held, whole, against the CPU
      path's check of the run's stored history in a worker process;
- 14. fail if any result other than the injected runs' carries a
+ 14. the suites: the etcd suite's register test map (5 nodes,
+     concurrency 10, 11,000 invocations at 500 ops per key, the
+     partition nemesis, the suite's checker compose) with its own
+     EtcdClient against tests/fake_etcd.py over real HTTP, and the
+     hazelcast suite's cas-register map (one register, concurrency 10,
+     11,000 invocations, its partition nemesis) against the CP shim
+     (`suites/cp_shim.py`), both through `core.run` over the dummy
+     remote with `db.noop` and `os_.noop`, every kernel's launch count
+     set to 0 just before each run and read just after (the etcd run's
+     independent check launches K1 batched; the hazelcast run's single
+     check K1 or K2); each workload result held, whole but for its
+     device and duration, against the CPU path's check of the run's
+     stored history in a worker process; then the port's web UI
+     (`web.serve`) over the phase's store, whose home page lists both
+     runs and whose results.json is the run's. The phase imports every
+     module of the slice (the thirteen suite and protocol modules,
+     `web`, `repl`, `cli.main`);
+ 15. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp, or if jax or the JAX package was
      imported; print one JSON line of per-kernel numbers, the
      nvidia-smi line, and last the line {"ok": true, "device": {...}}.
@@ -337,13 +354,15 @@ CHAOS_CLI_S = 300
 # test map (5 nodes, concurrency 10, the linearizable_register workload
 # at 500 ops per key, a partition_random_halves nemesis cycling start and
 # stop, the etcd checker compose) with an in-process keyed CAS client for
-# EtcdClient and no stagger, cut to 20,000 invocations (about 40 keys)
-# and its nemesis cycle from 5 s to 1 s, the nemesis schedule bounded to
-# RUN_NEMESIS_S; the online and abort runs are the headline shape (one
-# register, concurrency 5) through the streamed check; the CLI pair runs
-# test then analyze on a 2,000-invocation register map
+# EtcdClient and no stagger, cut to 5,000 invocations (about 10 keys:
+# phase 14 drives the same map with the suite's own client, and the
+# script's time needs the room) and its nemesis cycle from 5 s to 1 s,
+# the nemesis schedule bounded to RUN_NEMESIS_S; the online and abort
+# runs are the headline shape (one register, concurrency 5) through the
+# streamed check; the CLI pair runs test then analyze on a
+# 2,000-invocation register map
 RUN_NODES = ["n1", "n2", "n3", "n4", "n5"]
-RUN_REGISTER = dict(concurrency=10, per_key_limit=500, invocations=20_000)
+RUN_REGISTER = dict(concurrency=10, per_key_limit=500, invocations=5_000)
 RUN_NEMESIS_CYCLE_S = 1.0
 RUN_NEMESIS_S = 4.0
 RUN_ONLINE = dict(concurrency=5, invocations=10_000, state_range=[-1, 4])
@@ -372,6 +391,23 @@ WORKLOAD_WARMUP = 1_000
 WORKLOAD_PLANT_EVERY = 500
 WORKLOAD_ANOMALY = {"monotonic": "G-single-realtime",
                     "sequential": "G-single-process"}
+# Phase 14, the suites: the etcd suite's register map
+# (`suites/etcd.py: etcd_test`) against tests/fake_etcd.py over real
+# HTTP, and the hazelcast suite's cas-register map
+# (`suites/hazelcast.py: hazelcast_test`) against `suites/cp_shim.py`,
+# each at 5 nodes and concurrency 10 with the suite's own client,
+# nemesis and checker compose, `db.noop` and `os_.noop`; the map's
+# time-limited, staggered generator replaced by SUITE_RUN's invocations
+# of the same workload's generator beside the bounded nemesis schedule of
+# phase 12. The fakes are linearizable, so both verdicts are valid.
+# Neither fake serves 20,000 invocations in 40 s under ten clients (on
+# the H100's host: tests/fake_etcd.py 582-686 and the CP shim 566-739
+# history ops/s, one HTTP request per op), so each run is cut to the
+# count the slower of them served in 40 s on the slowest host seen,
+# rounded down to a thousand
+SUITE_RUN = dict(concurrency=10, ops_per_key=500, invocations=11_000)
+# the fields of a result that name where and how long it ran
+SUITE_VOLATILE = ("device", "duration-ms")
 
 
 def log(*a):
@@ -2817,6 +2853,23 @@ def getent_remote():
         "out": f"10.0.0.{a['cmd'].split()[-1][-1]} STREAM x\n"}})
 
 
+def cut_generator(client_gen, invocations):
+    """A suite map's generator as phases 12-14 cut it: invocations client
+    ops of client_gen, no stagger, beside a partition nemesis cycling
+    start and stop every RUN_NEMESIS_CYCLE_S for RUN_NEMESIS_S, then a
+    final stop."""
+    from jepsen_tpu_torch import generator as gen
+    start = {"type": "info", "f": "start", "value": None}
+    stop = {"type": "info", "f": "stop", "value": None}
+    cycle = gen.cycle(gen.phases(
+        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(start),
+        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(stop)))
+    return gen.phases(
+        gen.any(gen.clients(gen.limit(invocations, client_gen)),
+                gen.nemesis(gen.time_limit(RUN_NEMESIS_S, cycle))),
+        gen.nemesis(gen.once(stop)))
+
+
 def suite_test_map(name, store_dir, remote, client, w, invocations,
                    concurrency) -> dict:
     """A suite's test map (`suites/__init__.py: std_test`) as phases 12
@@ -2825,26 +2878,16 @@ def suite_test_map(name, store_dir, remote, client, w, invocations,
     partition_random_halves nemesis cycling every RUN_NEMESIS_CYCLE_S
     for RUN_NEMESIS_S, and the std checker compose."""
     from jepsen_tpu_torch import checker, db, testkit
-    from jepsen_tpu_torch import generator as gen
     from jepsen_tpu_torch.checker import timeline
     from jepsen_tpu_torch.nemesis import partition
     from jepsen_tpu_torch.os_ import debian
-    start = {"type": "info", "f": "start", "value": None}
-    stop = {"type": "info", "f": "stop", "value": None}
-    cycle = gen.cycle(gen.phases(
-        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(start),
-        gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(stop)))
     return {**testkit.noop_test(), "name": name,
             "nodes": list(RUN_NODES), "ssh": {"dummy": True},
             "remote": remote, "store-dir": store_dir,
             "concurrency": concurrency, "os": debian.os,
             "db": db.noop, "client": client,
             "nemesis": partition.partition_random_halves(),
-            "generator": gen.phases(
-                gen.any(gen.clients(gen.limit(invocations,
-                                              w["generator"])),
-                        gen.nemesis(gen.time_limit(RUN_NEMESIS_S, cycle))),
-                gen.nemesis(gen.once(stop))),
+            "generator": cut_generator(w["generator"], invocations),
             "checker": checker.compose({
                 "perf": checker.perf_checker(),
                 "timeline": timeline.html(),
@@ -3340,6 +3383,255 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
     return out
 
 
+def fake_etcd():
+    """tests/fake_etcd.py's FakeEtcd, loaded from its file (it imports
+    only the standard library), started: (the fake, its URL)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fake_etcd.py")
+    spec = importlib.util.spec_from_file_location("fake_etcd", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fake = mod.FakeEtcd()
+    return fake, f"http://127.0.0.1:{fake.start()}"
+
+
+def suite_opts(kind, dev, store_dir) -> dict:
+    """The options a user gives the etcd ("etcd") or the hazelcast
+    ("hazelcast") suite's CLI for phase 14's run."""
+    return {"nodes": list(RUN_NODES), "ssh": {"dummy": True},
+            "concurrency": SUITE_RUN["concurrency"],
+            "workload": "register" if kind == "etcd" else "cas-register",
+            "ops-per-key": SUITE_RUN["ops_per_key"], "nemesis": "partition",
+            "store-dir": store_dir, "device": str(dev)}
+
+
+def suite_run_test(kind, dev, store_dir, remote, url) -> dict:
+    """The suite's own test map for phase 14, cut as SUITE_RUN says: its
+    generator replaced by the workload's under a limit beside the
+    bounded nemesis schedule (`cut_generator`), the remote, `db.noop`,
+    `os_.noop`, and the data plane at url."""
+    from jepsen_tpu_torch import db, os_
+    from jepsen_tpu_torch.suites import etcd, hazelcast
+    mod = etcd if kind == "etcd" else hazelcast
+    opts = suite_opts(kind, dev, store_dir)
+    t = getattr(mod, f"{kind}_test")(opts)
+    w = mod.WORKLOADS[opts["workload"]](opts)
+    t.update({"remote": remote, "db": db.noop, "os": os_.noop,
+              "client-url-fn" if kind == "etcd" else "shim-url-fn":
+              lambda node: url,
+              "generator": cut_generator(w["generator"],
+                                         SUITE_RUN["invocations"])})
+    return t
+
+
+def clocked(checker, clock: dict, key: str):
+    """`checker` with the seconds its check takes written to clock[key]."""
+    from jepsen_tpu_torch.checker import Checker
+
+    class Clocked(Checker):
+        def check(self, test, hist, opts):
+            t0 = time.perf_counter()
+            try:
+                return checker.check(test, hist, opts)
+            finally:
+                clock[key] = time.perf_counter() - t0
+
+    return Clocked()
+
+
+def strip_volatile(r):
+    """A result without the fields that name where and how long it ran."""
+    if isinstance(r, dict):
+        return {k: strip_volatile(v) for k, v in r.items()
+                if k not in SUITE_VOLATILE}
+    return r
+
+
+def cpu_suite_check(kind: str, run_dir: str) -> tuple:
+    """Phase 14's CPU path in a worker process: a card run's stored
+    history (the etcd run's KVs re-wrapped, ROADMAP F6) checked by the
+    suite's own workload checker on the CPU. Returns the result without
+    its volatile fields, and the seconds it took."""
+    from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.suites import etcd, hazelcast
+    t = time.perf_counter()
+    hist = store.load_test(run_dir)["history"]
+    mod = etcd if kind == "etcd" else hazelcast
+    opts = suite_opts(kind, "cpu", None)
+    threads = torch.get_num_threads()
+    if kind == "etcd":
+        hist = rekeyed(independent, hist)
+        # the phase's last check, alone in the pool for most of its run:
+        # the batched walk takes the other worker's share of the cores
+        torch.set_num_threads(CPU_WORKERS * CPU_WORKER_THREADS)
+    try:
+        r = mod.WORKLOADS[opts["workload"]](opts)["checker"].check(
+            {}, hist, {})
+    finally:
+        torch.set_num_threads(threads)
+    return strip_volatile(r), time.perf_counter() - t
+
+
+def phase_suites(dev, wgl_closure, wgl_dedup, pool) -> dict:
+    """Phase 14: the etcd and hazelcast suites' own test maps through the
+    port's core.run on the card against their fakes, with every kernel's
+    launch count set to 0 just before each run and read just after; each
+    workload result held, whole but for SUITE_VOLATILE, against the CPU
+    path's check of the run's stored history in a worker process; then
+    the port's web UI over the phase's store. It also imports every
+    module of the slice, so the script's closing guard covers them."""
+    import tempfile
+    import urllib.request
+
+    from jepsen_tpu_torch import cli, core, repl, store, web
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.suites import (aerospike, as_proto, bson_proto,
+                                         cockroach, cp_shim, etcd,
+                                         hazelcast, mongodb, mysql_proto,
+                                         netutil, pg_proto, tidb)
+    slice_modules = [m.__name__ for m in (
+        aerospike, as_proto, bson_proto, cockroach, cp_shim, etcd,
+        hazelcast, mongodb, mysql_proto, netutil, pg_proto, tidb, web,
+        repl)] + [f"{cli.__name__}.{cli.main.__name__}"]
+    out, cpu, dirs = {"modules": slice_modules}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="suites-") as root:
+        # hazelcast first: its CPU check, one register walked on the
+        # plain path, is the longer one
+        for kind in ("hazelcast", "etcd"):
+            if kind == "etcd":
+                fake, url = fake_etcd()
+                stop = fake.stop
+            else:
+                server, port = cp_shim.serve()
+                url, stop = f"http://127.0.0.1:{port}", server.shutdown
+            remote = getent_remote()
+            try:
+                with gen.fixed_rng(SEED):
+                    t = suite_run_test(kind, dev, root, remote, url)
+                # the compose's check, and the workload's check on the
+                # card within it, each on its own clock
+                clock = {}
+                compose = t["checker"]
+                compose.checkers["workload"] = clocked(
+                    compose.checkers["workload"], clock, "workload_check_s")
+                t["checker"] = clocked(compose, clock, "check_s")
+                wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+                t0 = time.perf_counter()
+                done = core.run(t)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                stop()
+            dirs[kind] = run_dir = os.path.dirname(
+                store.path(done, "results.json"))
+            cpu[kind] = pool.submit(cpu_suite_check, kind, run_dir)
+            res = done["results"]
+            run_stamps(f"{kind} suite run", res)
+            n_ops, rate = interpreter_rate(done["history"])
+            nem = [o for o in done["history"] if o["process"] == "nemesis"]
+            cut = [a for _, _, a in remote.log
+                   if "iptables" in a.get("cmd", "")]
+            w = res["workload"]
+            # the interpreter's span on the run's own relative clock:
+            # its latest history op's time
+            interp_s = max(o["time"] for o in done["history"]) / 1e9
+            out[kind] = row = dict(
+                name=done["name"], wall_s=wall, interpreter_s=interp_s,
+                check_s=clock["check_s"],
+                workload_check_s=clock["workload_check_s"], ops=n_ops,
+                ops_per_s=rate,
+                nemesis_ops=len(nem), iptables=len(cut),
+                k1_launches=wgl_closure.LAUNCHES,
+                k2_launches=wgl_dedup.LAUNCHES, valid=w["valid?"])
+            if kind == "etcd":
+                tot = walk_totals(list(w["results"].values()))
+                row.update(keys=len(w["results"]), **tot)
+                detail = (f"{len(w['results'])} keys, groups "
+                          f"{tot['groups']}")
+                launched = row["k1_launches"] > 0 and (
+                    row["k1_launches"], row["k2_launches"]) == (
+                        tot["closure_rounds"], tot["dedup_launches"])
+            else:
+                row.update({f: w.get(f) for f in (
+                    "analyzer", "dedup", "frontier-size", "max-frontier",
+                    "dense-shape", "closure-rounds", "dedup-launches",
+                    "host-syncs")})
+                detail = (f"{w.get('analyzer')} {w.get('dedup')}, "
+                          f"frontier-size {w.get('frontier-size')}, "
+                          f"max-frontier {w.get('max-frontier')}, shape "
+                          f"{w.get('dense-shape')}")
+                launched = (row["k1_launches"] + row["k2_launches"] > 0
+                            and (row["k1_launches"], row["k2_launches"])
+                            == (w.get("closure-rounds"),
+                                w.get("dedup-launches")))
+            log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
+                f"history ops ({rate:.0f} client ops/s), {len(nem)} "
+                f"nemesis ops, {len(cut)} iptables commands, wall "
+                f"{wall:.3f} s (interpreter {interp_s:.3f} s, check "
+                f"{row['check_s']:.3f} s, of which the workload's on the "
+                f"card {row['workload_check_s']:.3f} s), K1 launches {row['k1_launches']}, K2 "
+                f"launches {row['k2_launches']}")
+            if res["valid?"] is not True or w["valid?"] is not True:
+                raise AssertionError(f"{kind} suite run: {res['valid?']}, "
+                                     f"workload {w['valid?']}")
+            if n_ops != 2 * SUITE_RUN["invocations"] + len(nem) or \
+                    {o["f"] for o in nem} != {"start", "stop"} or not cut:
+                raise AssertionError(f"{kind} suite run: {n_ops} ops, "
+                                     f"nemesis {sorted({o['f'] for o in nem})}"
+                                     f", {len(cut)} iptables commands")
+            if not launched:
+                raise AssertionError(f"{kind} suite run: K1/K2 launches "
+                                     f"{row['k1_launches']}/"
+                                     f"{row['k2_launches']} ({detail})")
+            row["workload"] = strip_volatile(w)
+
+        # -- the web UI over the phase's store ---------------------------
+        server = web.serve({"host": "127.0.0.1", "port": 0,
+                            "store-dir": root})
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + "/", timeout=30) as r:
+                page = r.read().decode()
+            run = os.path.relpath(dirs["hazelcast"], root)
+            with urllib.request.urlopen(
+                    f"{base}/files/{run}/results.json", timeout=30) as r:
+                served = r.read()
+            serve_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+        with open(os.path.join(dirs["hazelcast"], "results.json"),
+                  "rb") as f:
+            stored = f.read()
+        listed = [out[k]["name"] for k in ("etcd", "hazelcast")
+                  if out[k]["name"] in page]
+        out["serve"] = dict(listed=listed, page_bytes=len(page),
+                            results_bytes=len(served), wall_s=serve_s)
+        log(f"suite serve: the home page ({len(page)} bytes) lists "
+            f"{listed}; {run}/results.json served, {len(served)} bytes, "
+            f"the run's: {served == stored}; {serve_s:.3f} s")
+        if len(listed) != 2 or served != stored or \
+                json.loads(served)["valid?"] is not True:
+            raise AssertionError(f"serve: lists {listed}, results.json "
+                                 f"the run's: {served == stored}")
+
+        for kind, job in cpu.items():
+            want, cpu_s = job.result()
+            got = out[kind].pop("workload")
+            if got != want:
+                bad = sorted(k for k in set(got) | set(want)
+                             if got.get(k) != want.get(k))
+                raise AssertionError(f"{kind} suite run: {bad} differ from "
+                                     f"the CPU path")
+            out[kind]["cpu_s"] = cpu_s
+    log(f"suites: each workload result equal to the CPU path's (etcd "
+        f"{out['etcd']['cpu_s']:.3f} s, hazelcast "
+        f"{out['hazelcast']['cpu_s']:.3f} s); {len(slice_modules)} "
+        f"modules of the slice imported")
+    return out
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -3380,7 +3672,7 @@ def main() -> int:
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
 
-    # the CPU checks of phases 4, 6, 8, 9, 11, 12 and 13 run in worker
+    # the CPU checks of phases 4, 6, 8, 9, 11, 12, 13 and 14 run in worker
     # processes (spawned: this process holds a CUDA context) beside the
     # card's runs; those that need nothing of the card's runs start now:
     # phase 8's dense stream, the main path's agreement runs and phase
@@ -3403,7 +3695,7 @@ def main() -> int:
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                cpu_batches, cpu_agree) -> int:
-    """Phases 2-14 of `main`, given the worker pool and its first jobs."""
+    """Phases 2-15 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -3555,6 +3847,10 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     run_path["workloads"] = phase_workloads(dev, wgl_closure, wgl_dedup,
                                             elle_kernels, pool)
     phase_done("workloads")
+
+    # -- phase 14: the etcd and hazelcast suites' own maps, the web UI -----
+    suites = phase_suites(dev, wgl_closure, wgl_dedup, pool)
+    phase_done("suites")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -3584,6 +3880,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         # CLI's single-register checks
         "run_launches": sum(run_path[r]["k1_launches"] for r in (
             "online", "abort", "cli-test", "cli-analyze")),
+        # phase 14's single-register check (the hazelcast suite's map)
+        "suite_launches": suites["hazelcast"]["k1_launches"],
         "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
         "stream_shape_ms": k1["shapes"][3]["ms"],
         "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
@@ -3609,6 +3907,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "service_launches": svc["launches"]["dedup"],
         "run_launches": sum(run_path[r]["k2_launches"] for r in (
             "online", "abort", "cli-test", "cli-analyze")),
+        "suite_launches": suites["hazelcast"]["k2_launches"],
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -3639,6 +3938,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             # the register run's independent check (phase 12)
             "run_launches": run_path["register"][
                 "k1_launches" if mod is wgl_closure else "k2_launches"],
+            # the etcd suite's independent check (phase 14)
+            "suite_launches": suites["etcd"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
@@ -3650,6 +3952,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,
             "search_chaos": search_chaos, "run_path": run_path,
+            "suites": suites,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

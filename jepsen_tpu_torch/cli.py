@@ -1,12 +1,12 @@
 """Command line interface: utilities for test suites to build their own
-runners.
+runners, and the port's command set.
 
-The port's copy of the runner half of `jepsen_tpu/cli.py` (reference
+The port's copy of `jepsen_tpu/cli.py` (reference
 `jepsen/src/jepsen/cli.clj`): the shared test option spec (:64-111),
 option post-processing (ssh-map renaming, node-list merging, `3n`
 concurrency parsing, :143-254), the `test`/`analyze` commands
-(:355-430), `test-all` (:432-518), and the runner's exit-code contract
-(:127-139):
+(:355-430), `test-all` (:432-518), `serve` (:336-353), and the
+runner's exit-code contract (:127-139):
 
   0     all tests passed
   1     some test failed
@@ -14,23 +14,34 @@ concurrency parsing, :143-254), the `test`/`analyze` commands
   254   invalid arguments
   255   internal error
 
-Two differences from the JAX package. Every command takes ``--device``
-(CUDA by default): `test_opt_fn` resolves it with
+`main(argv)` registers the commands `python -m jepsen_tpu_torch` takes,
+as the JAX package's `main` does: `serve` (the results web UI),
+`service` (the verification service daemon), `staticcheck` (the
+repo's static-analysis gate), `search` (coverage-guided scenario
+search) and `chaos` (self-chaos fault-schedule fuzzing).
+
+Two differences from the JAX package. Every command that checks takes
+``--device`` (CUDA by default): `test_opt_fn` resolves it with
 `_platform.resolve_device`, so without a card and without ``--device
-cpu`` a command exits 254 with that function's message and never runs
-on the CPU quietly; the resolved name lands in the options as
-'device', which the port's workloads pass to their checkers. And there
-is no compilation cache to enable: the port's kernels are built once
-into its own git-ignored build directory (`_build.py`).
+cpu`` a command exits 254 with that function's message (the service
+daemon exits 1) and never runs on the CPU quietly; the resolved name
+lands in the options as 'device', which the port's workloads and suites
+pass to their checkers. And there is no compilation cache to enable: the port's
+kernels are built once into its own git-ignored build directory
+(`_build.py`).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import pprint as _pprint
 import re
+import subprocess
 import sys
+import time as _time
 from typing import Optional
 
 log = logging.getLogger(__name__)
@@ -460,3 +471,467 @@ def test_all_cmd(opts: dict) -> dict:
     return {"test-all": {"opt_spec": spec, "opt_fn": opt_fn,
                          "usage": "Runs all tests", "run": run_all}}
 
+
+
+def serve_cmd() -> dict:
+    """The `serve` web-server command (`cli.clj:336-353`)."""
+    def run_serve(options):
+        from . import web
+        server = web.serve(options)
+        log.info("Listening on http://%s:%s/",
+                 options.get("host"), server.server_address[1])
+        print(f"Listening on http://{options.get('host')}:"
+              f"{server.server_address[1]}/", flush=True)
+        try:
+            while True:
+                _time.sleep(1)
+        except KeyboardInterrupt:
+            server.shutdown()
+
+    def serve_opt_fn(o):
+        o["store-dir"] = o.pop("store_dir", "store")
+        return o
+
+    return {"serve": {
+        "opt_spec": [
+            opt("--host", "-b", default="0.0.0.0",
+                help="Hostname to bind to"),
+            opt("--port", "-p", type=int, default=8080,
+                help="Port number to bind to"),
+            opt("--store-dir", default="store", metavar="DIR",
+                help="Store directory to serve"),
+        ],
+        "opt_fn": serve_opt_fn,
+        "run": run_serve,
+    }}
+
+
+def _service_status(addr: str) -> int:
+    """`service status ADDR`: query a running service's `status` socket
+    verb and pretty-print per-stream state, ladder tier, budget capacity
+    and calibration coefficients."""
+    from . import service as _service
+    try:
+        sock = _service._connect(addr)
+    except OSError as e:
+        print(f"service {addr}: unreachable ({e})", file=sys.stderr)
+        return 1
+    try:
+        sock.sendall(b'{"type": "status", "id": 1}\n')
+        with sock.makefile("r", encoding="utf-8") as rf:
+            line = rf.readline()
+    finally:
+        sock.close()
+    try:
+        st = (json.loads(line) or {}).get("status") or {}
+    except ValueError:
+        print(f"service {addr}: bad reply {line!r}", file=sys.stderr)
+        return 1
+    print(f"service {st.get('state', '?')}, "
+          f"uptime {st.get('uptime_s', 0):g}s, "
+          f"{st.get('admitted-total', 0)} admitted, "
+          f"{st.get('refused-total', 0)} refused")
+    streams = st.get("streams") or {}
+    if streams:
+        print("streams:")
+    for name in sorted(streams):
+        s = streams[name]
+        extra = ""
+        if s.get("violation"):
+            extra += "  VIOLATION"
+        if s.get("suspicion"):
+            extra += f"  suspicion={s['suspicion']:g}"
+        if s.get("shed-reason"):
+            extra += f"  shed: {s['shed-reason']}"
+        print(f"  {name:32s} state={s.get('state', '?'):10s} "
+              f"tier={s.get('ladder-tier', 'full'):24s} "
+              f"queue={s.get('queue-depth', 0):<6d} "
+              f"ops={s.get('ops-fed', 0)}{extra}")
+    b = st.get("budget") or {}
+    if b:
+        line = (f"budget: {b.get('available', 0):.3g}/"
+                f"{b.get('capacity', 0):.3g} "
+                f"{b.get('unit', 'element-ops')} "
+                f"(max {b.get('initial', 0):.3g}")
+        if b.get("ooms"):
+            line += f", {b['ooms']} ooms"
+        if b.get("cuts"):
+            line += f", {b['cuts']} cuts"
+        if b.get("p95-chunk-latency-s") is not None:
+            line += f", p95 {b['p95-chunk-latency-s']:.3g}s"
+        print(line + ")")
+    lad = st.get("ladder") or {}
+    tiers = lad.get("tiers") or {}
+    if lad:
+        parts = [f"{n} {t}" for t, n in tiers.items() if n]
+        print(f"ladder: {', '.join(parts) if parts else 'no streams'}"
+              f"; {lad.get('transitions', 0)} transitions"
+              + ("" if lad.get("adaptive", True)
+                 else " (static budget)"))
+    cal = st.get("calibration") or {}
+    coeffs = cal.get("coefficients") or {}
+    if coeffs:
+        parts = [f"{v} {c['seconds-per-elementop']:.3g} s/elementop "
+                 f"(n={c['observations']})"
+                 for v, c in sorted(coeffs.items())]
+        print(f"calibration ({cal.get('platform', '?')}): "
+              + ", ".join(parts))
+    else:
+        print(f"calibration ({cal.get('platform', '?')}): cold "
+              "(modeled element-op pricing)")
+    return 0
+
+
+def _device_opt(what: str) -> dict:
+    return opt("--device", default=None, metavar="DEV",
+               help=f"Where {what} run: CUDA by default (refused "
+                    "without a card); 'cpu' runs the plain PyTorch "
+                    "path.")
+
+
+def _device_or_254(name: str, device) -> str:
+    """The command's device, or exit 254 with `resolve_device`'s
+    message (no card and no ``--device cpu``)."""
+    from ._platform import resolve_device
+    try:
+        return str(resolve_device(device))
+    except (RuntimeError, ValueError) as e:
+        print(f"{name}: {e}", file=sys.stderr)
+        raise SystemExit(254)
+
+
+def service_cmd() -> dict:
+    """The persistent-verification-service command: a daemon that
+    accepts live journal streams from many concurrent runs over a local
+    socket (`test --service ADDR`) and/or by tail-following a store
+    directory, multiplexing them into per-stream online checkers
+    (service.py). It loads and activates the measured cost model
+    (`calibrate`) at start and saves it at drain; SIGTERM drains (every
+    stream's carry checkpointed, resume manifests in the runs' store
+    dirs) and exits 0. Without a card and without ``--device cpu`` it
+    exits 1 with `resolve_device`'s message."""
+    def run_service(options):
+        from . import calibrate as _calibrate, service as _service
+        from ._platform import resolve_device
+        action = list(options.get("action") or [])
+        if action:
+            if action[0] != "status" or len(action) != 2:
+                print("usage: python -m jepsen_tpu_torch service status "
+                      "ADDR", file=sys.stderr)
+                raise SystemExit(2)
+            raise SystemExit(_service_status(action[1]))
+        try:
+            device = resolve_device(options.get("device"))
+        except (RuntimeError, ValueError) as e:
+            print(f"service: {e}", file=sys.stderr)
+            raise SystemExit(1)
+        standby = options.get("standby")
+        if standby and not options.get("watch"):
+            print("--standby requires --watch DIR (the shared store "
+                  "root the replicas fence over)", file=sys.stderr)
+            raise SystemExit(2)
+        # the measured cost model: persisted in the port's cache
+        # directory, loaded at start, saved back at drain, so a
+        # restarted daemon prices work in measured device-seconds from
+        # its first chunk
+        cal = _calibrate.Calibration.load(platform=device.type)
+        if cal.coefficients():
+            log.info("calibration loaded: %s", cal.coefficients())
+        _calibrate.activate(cal)
+        svc = _service.VerificationService(
+            max_streams=options.get("max_streams", 64),
+            budget_elementops=float(
+                options.get("budget_elementops") or
+                _service.DEFAULT_BUDGET_ELEMENTOPS),
+            calibration=cal, adaptive=not options.get("static_budget"),
+            device=device)
+        svc.calibration_path = _calibrate.default_path(cal.platform)
+        msrv = None
+        if options.get("metrics_port") is not None:
+            from . import telemetry
+            mhost = options.get("metrics_host") or "127.0.0.1"
+            msrv = telemetry.serve_metrics(
+                int(options["metrics_port"]), host=mhost,
+                healthz=svc.status)
+            mport = msrv.server_address[1]
+            log.info("metrics on http://%s:%d/metrics "
+                     "(/healthz = service status)", mhost, mport)
+            print(f"Metrics listening on :{mport}/metrics", flush=True)
+        svc.install_sigterm()
+        try:
+            if standby:
+                sb = _service.Standby(
+                    svc, standby, options["watch"],
+                    bind=options.get("bind") or "127.0.0.1:0")
+                print(f"Standby replica watching primary {standby} "
+                      f"(store {options['watch']})", flush=True)
+                bound = sb.run()    # blocks until promotion (or drain)
+                if bound is None:
+                    return
+            else:
+                if options.get("watch"):
+                    # claim the store and resume any streams a crashed
+                    # predecessor orphaned, then keep tail-following
+                    recovered = svc.recover(options["watch"])
+                    if recovered:
+                        print(f"Recovered {len(recovered)} orphaned "
+                              f"stream(s) from {options['watch']}",
+                              flush=True)
+                    svc.watch(options["watch"])
+                    log.info("watching journals under %s",
+                             options["watch"])
+                bound = svc.serve(options.get("bind") or "127.0.0.1:0")
+            print(f"Verification service listening on {bound}",
+                  flush=True)
+            try:
+                while not svc.drained.is_set():
+                    _time.sleep(0.5)
+            except KeyboardInterrupt:
+                svc.drain()
+        finally:
+            svc.stop()
+            if msrv is not None:
+                msrv.shutdown()
+
+    return {"service": {
+        "opt_spec": [
+            opt("action", nargs="*", metavar="ACTION",
+                help="Optional subaction: `status ADDR` queries a "
+                     "running service and pretty-prints per-stream "
+                     "state, ladder tier, budget, and calibration."),
+            opt("--bind", "-b", default="127.0.0.1:0", metavar="ADDR",
+                help="host:port (port 0 picks a free port) or a unix "
+                     "socket path to listen on"),
+            opt("--watch", metavar="DIR", default=None,
+                help="Also tail-follow journals under this store "
+                     "directory. On start, recover() resumes any "
+                     "orphaned runs from their durable checkpoints."),
+            opt("--standby", metavar="ADDR", default=None,
+                help="Run as a warm replica of the primary at ADDR "
+                     "(its socket address or http://.../healthz); "
+                     "requires --watch DIR (the shared store)."),
+            opt("--max-streams", type=int, default=64, metavar="N",
+                help="Admission cap on concurrently attached runs."),
+            opt("--budget-elementops", type=float, default=None,
+                metavar="X",
+                help="Global in-flight chunk budget in cost-model "
+                     "element-ops, priced into device-seconds through "
+                     "the calibration."),
+            opt("--static-budget", action="store_true",
+                help="Disable the adaptive controller: no AIMD "
+                     "capacity tuning and no degradation ladder."),
+            opt("--metrics-port", type=int, default=None, metavar="P",
+                help="Serve Prometheus metrics at :P/metrics and the "
+                     "service status() JSON at :P/healthz (0 picks a "
+                     "free port)."),
+            opt("--metrics-host", default="127.0.0.1", metavar="HOST",
+                help="Interface for --metrics-port (default "
+                     "loopback)."),
+            _device_opt("the streams"),
+        ],
+        "usage": "Runs the persistent verification service",
+        "run": run_service,
+    }}
+
+
+def staticcheck_cmd() -> dict:
+    """`staticcheck`: the repo's static-analysis gate (tools/staticcheck)
+    as a subcommand. A thin forwarder to `python -m tools.staticcheck`:
+    same flags, same exit codes (0 clean or baselined, 1 with findings).
+    Only available from a source checkout, where tools/ lies next to the
+    package; elsewhere it exits 254. The gate runs in a child process:
+    its `metrics` analyzer imports the JAX package to read that
+    package's metric registry, and this process must never hold it."""
+    def run_staticcheck(options):
+        repo = os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))
+        if not os.path.isdir(os.path.join(repo, "tools",
+                                          "staticcheck")):
+            print("staticcheck: tools/staticcheck not found next to "
+                  "the jepsen_tpu_torch package (requires a source "
+                  "checkout)", file=sys.stderr)
+            raise SystemExit(254)
+        argv = list(options.get("targets") or [])
+        if options.get("only"):
+            argv += ["--only", options["only"]]
+        if options.get("baseline"):
+            argv += ["--baseline", os.path.abspath(options["baseline"])]
+        if options.get("write_baseline"):
+            argv.append("--write-baseline")
+        if options.get("summary_json"):
+            argv.append("--summary-json")
+        raise SystemExit(subprocess.run(
+            [sys.executable, "-m", "tools.staticcheck", *argv],
+            cwd=repo).returncode)
+
+    return {"staticcheck": {
+        "opt_spec": [
+            opt("targets", nargs="*", metavar="TARGET",
+                help="Files/dirs to check (default: the whole tree)"),
+            opt("--only", metavar="ANALYZERS",
+                help="Comma-separated analyzer subset (style, "
+                     "metrics, device-sync, locks, retrace)"),
+            opt("--baseline", metavar="PATH",
+                help="Baseline file (default: "
+                     "tools/staticcheck/baseline.txt)"),
+            opt("--write-baseline", action="store_true",
+                help="Rewrite the baseline from current findings"),
+            opt("--summary-json", action="store_true",
+                help="Emit one machine-readable JSON summary line"),
+        ],
+        "usage": "Runs the static-analysis gate",
+        "run": run_staticcheck,
+    }}
+
+
+def search_cmd() -> dict:
+    """`search`: one coverage-guided scenario search over generator and
+    nemesis schedules. Prints the result as JSON on stdout and one
+    summary line on stderr; exits 0 when the budget ends with no
+    violation, 1 when one was found (its minimized genome is in the
+    output and the --store-dir artifact), 254 on a bad argument or
+    without a card and without ``--device cpu``."""
+    def run_search(options):
+        from . import report
+        from .search.driver import SearchConfig, run_search as _run
+        from .search.scenario import BUGS, SCENARIOS
+        if options.get("workload") not in SCENARIOS:
+            print(f"unknown workload {options.get('workload')!r}; "
+                  f"have {sorted(SCENARIOS)}", file=sys.stderr)
+            raise SystemExit(254)
+        if options.get("bug") and options["bug"] not in BUGS:
+            print(f"unknown bug {options['bug']!r}; have {sorted(BUGS)}",
+                  file=sys.stderr)
+            raise SystemExit(254)
+        resume = options.get("resume")
+        if resume and not os.path.exists(
+                os.path.join(resume, "search.json")):
+            print(f"--resume: no search.json under {resume!r}",
+                  file=sys.stderr)
+            raise SystemExit(254)
+        device = _device_or_254("search", options.get("device"))
+        results = _run(SearchConfig(
+            workload=options["workload"],
+            generations=options["generations"],
+            population=options["population"], seed=options["seed"],
+            workers=options["workers"], strategy=options["strategy"],
+            escalate=options["escalate"], bug=options.get("bug") or None,
+            max_sims=options.get("max_sims"), sample=options["sample"],
+            store_dir=options.get("store_dir") or resume,
+            resume_dir=resume, device=device))
+        print(json.dumps(results, indent=2, sort_keys=True))
+        line = report.search_line(results)
+        if line:
+            print(line, file=sys.stderr)
+        raise SystemExit(1 if results["found"] else 0)
+
+    return {"search": {
+        "opt_spec": [
+            opt("--workload", "-w", default="register",
+                help="Search scenario (search.scenario.SCENARIOS)"),
+            opt("--generations", "-g", type=int, default=10,
+                help="Search generations"),
+            opt("--population", "-k", type=int, default=50,
+                help="Genomes per generation"),
+            opt("--seed", "-s", type=int, default=45100,
+                help="Search seed (sampling + mutation)"),
+            opt("--workers", type=int, default=4,
+                help="Simulation worker threads"),
+            opt("--strategy", default="guided",
+                choices=["guided", "random"],
+                help="guided (coverage feedback) or random "
+                     "(uniform draws, the A/B baseline)"),
+            opt("--escalate", default="none",
+                choices=["none", "host", "batch", "service"],
+                help="Full-checker escalation path for suspicious "
+                     "histories"),
+            opt("--bug", default=None,
+                help="Planted executor bug (search.scenario.BUGS; "
+                     "demos/tests)"),
+            opt("--max-sims", type=int, default=None,
+                help="Total simulation budget (default: unlimited "
+                     "within generations x population + shrinking)"),
+            opt("--sample", type=float, default=0.0,
+                help="Clean-history audit escalation fraction"),
+            opt("--store-dir", default=None, metavar="DIR",
+                help="Write search.json + coverage.bin here"),
+            opt("--resume", default=None, metavar="DIR",
+                help="Continue a prior search from its store dir "
+                     "(reloads search.json + coverage.bin; restored "
+                     "simulations keep counting against --max-sims; "
+                     "artifacts are rewritten there unless "
+                     "--store-dir overrides)"),
+            _device_opt("escalations"),
+        ],
+        "usage": "Coverage-guided scenario search",
+        "run": run_search,
+    }}
+
+
+def chaos_cmd() -> dict:
+    """`chaos`: coverage-guided fault-schedule fuzzing of the port's
+    verification service. Prints the result as JSON on stdout and one
+    summary line on stderr; exits 0 when every oracle stayed green, 1
+    when a failure was found (its minimized schedule is in the output
+    and the --store-dir artifact), 254 on a bad argument or without a
+    card and without ``--device cpu``. The oracles are looked up in
+    `chaos.driver` when the command runs."""
+    def run_chaos(options):
+        from . import report
+        from .chaos import ChaosConfig, run_chaos as _run
+        from .chaos.driver import WORKLOADS
+        if options.get("workload") not in WORKLOADS:
+            print(f"unknown workload {options.get('workload')!r}; "
+                  f"have {sorted(WORKLOADS)}", file=sys.stderr)
+            raise SystemExit(254)
+        device = _device_or_254("chaos", options.get("device"))
+        results = _run(ChaosConfig(
+            workload=options["workload"], ops=options["ops"],
+            budget=options["budget"], seed=options["seed"],
+            strategy=options["strategy"],
+            deadline_s=options["deadline_s"],
+            shrink=not options.get("no_shrink"),
+            store_dir=options.get("store_dir"), device=device))
+        print(json.dumps(results, indent=2, sort_keys=True))
+        line = report.chaos_line(results)
+        if line:
+            print(line, file=sys.stderr)
+        raise SystemExit(1 if results["found"] else 0)
+
+    return {"chaos": {
+        "opt_spec": [
+            opt("--workload", "-w", default="register",
+                help="Chaos workload (chaos.driver.WORKLOADS)"),
+            opt("--ops", type=int, default=256,
+                help="Workload ops per schedule"),
+            opt("--budget", "-n", type=int, default=40,
+                help="Schedule executions (shrink re-runs included)"),
+            opt("--seed", "-s", type=int, default=45100,
+                help="Chaos seed (sampling + mutation)"),
+            opt("--strategy", default="guided",
+                choices=["guided", "random"],
+                help="guided (coverage feedback) or random "
+                     "(uniform draws, the A/B baseline)"),
+            opt("--deadline-s", type=float, default=120.0,
+                help="Per-schedule verdict deadline (the watchdog "
+                     "oracle)"),
+            opt("--no-shrink", action="store_true",
+                help="Report oracle failures unminimized"),
+            opt("--store-dir", default=None, metavar="DIR",
+                help="Write chaos.json + coverage.bin here"),
+            _device_opt("the services"),
+        ],
+        "usage": "Self-chaos fault-schedule fuzzing",
+        "run": run_chaos,
+    }}
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    """`python -m jepsen_tpu_torch COMMAND ...`: dispatch to one of the
+    port's commands; exits via SystemExit with the command's code."""
+    logging.basicConfig(
+        level=logging.INFO, stream=sys.stderr,
+        format="%(asctime)s{%(threadName)s} %(levelname)s [%(name)s] "
+               "%(message)s")
+    run({**serve_cmd(), **service_cmd(), **staticcheck_cmd(),
+         **search_cmd(), **chaos_cmd()}, argv)
