@@ -154,7 +154,23 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      runs and whose results.json is the run's. The phase imports every
      module of the slice (the thirteen suite and protocol modules,
      `web`, `repl`, `cli.main`);
- 15. fail if any result other than the injected runs' carries a
+ 15. the suites again: the dgraph suite's linearizable-register map
+     (its HTTP transaction client against tests/fake_dgraph.py), the
+     yugabyte suite's ycql/single-key-acid map (its CQL client against
+     tests/fake_cql.py) and the faunadb suite's register map (its HTTP
+     query client against tests/fake_fauna.py), each with its partition
+     nemesis and checker compose, 5 nodes, concurrency 10, cut as phase
+     14's (SUITE2_INVOCATIONS) and without the workloads' own pacing,
+     through `core.run` on the card with every kernel's launch count
+     set to 0 just before each run and read just after (dgraph's
+     independent check launches K1 batched; yugabyte's and faunadb's
+     composes walk each key alone); each workload result held against
+     the CPU path's as in phase 14. Phases 14 and 15 run each fake in a
+     spawned child process of its own (`data_plane`), and hold their runs
+     against the CPU path after phase 15's runs, so that the worker
+     pool checks phase 14's beside them. The phase imports the seven
+     modules of the slice;
+ 16. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp, or if jax or the JAX package was
      imported; print one JSON line of per-kernel numbers, the
      nvidia-smi line, and last the line {"ok": true, "device": {...}}.
@@ -406,6 +422,41 @@ WORKLOAD_ANOMALY = {"monotonic": "G-single-realtime",
 # count the slower of them served in 40 s on the slowest host seen,
 # rounded down to a thousand
 SUITE_RUN = dict(concurrency=10, ops_per_key=500, invocations=11_000)
+# phase 15: the dgraph, yugabyte and faunadb suites' register maps the
+# same way, against tests/fake_dgraph.py, fake_cql.py and fake_fauna.py,
+# without the workload's own pacing (`suite_run_test`). What each fake
+# serves in about 20 s under ten clients (on the H100's host, with the
+# fake in a child process: 583, 2,276 and 717 history ops/s) is 5,000,
+# 22,000 and 7,000 invocations; the CPU path's checks of those (10.6,
+# 181.2 and 125.9 s in the worker pool) took the script's phases to
+# 1,013.7 s, so yugabyte's and faunadb's are cut to what keeps the whole
+# under 800 s
+SUITE2_INVOCATIONS = {"dgraph": 5_000, "yugabyte": 5_000, "faunadb": 2_000}
+SUITE_WORKLOADS = {"etcd": "register", "hazelcast": "cas-register",
+                   "dgraph": "linearizable-register",
+                   "yugabyte": "ycql/single-key-acid", "faunadb": "register"}
+# each suite's own options beside SUITE_WORKLOADS': its partition nemesis,
+# and for faunadb and yugabyte no per-key pacing (0.1 s stagger and 0.5 s
+# delay; a 1 s stagger); each key keeps the suite's own per-key limits
+SUITE_OPTS = {
+    "etcd": {"ops-per-key": SUITE_RUN["ops_per_key"], "nemesis": "partition"},
+    "hazelcast": {"ops-per-key": SUITE_RUN["ops_per_key"],
+                  "nemesis": "partition"},
+    "dgraph": {"nemesis": ["partition-halves"]},
+    "yugabyte": {"faults": ["partition"], "acid-stagger": 0},
+    "faunadb": {"nemesis": ["single-node-partition"], "register-stagger": 0,
+                "register-delay": 0}}
+# the nemesis ops of each suite's bounded schedule (`cut_generator`), by
+# their fs: phase 12's start and stop, whose nemeses pick their own cut,
+# or, for the suites whose nemeses take a grudge, a start-partition of
+# the nodes in halves (`nemesis_op`) and a stop-partition
+SUITE_NEMESIS_FS = {
+    "etcd": ("start", "stop"), "hazelcast": ("start", "stop"),
+    **dict.fromkeys(("dgraph", "yugabyte", "faunadb"),
+                    ("start-partition", "stop-partition"))}
+# how long a fake's child process may take to start and to stop
+DATA_PLANE_START_S = 120
+DATA_PLANE_JOIN_S = 10
 # the fields of a result that name where and how long it ran
 SUITE_VOLATILE = ("device", "duration-ms")
 
@@ -2853,14 +2904,15 @@ def getent_remote():
         "out": f"10.0.0.{a['cmd'].split()[-1][-1]} STREAM x\n"}})
 
 
-def cut_generator(client_gen, invocations):
-    """A suite map's generator as phases 12-14 cut it: invocations client
+def cut_generator(client_gen, invocations, start=None, stop=None):
+    """A suite map's generator as phases 12-15 cut it: invocations client
     ops of client_gen, no stagger, beside a partition nemesis cycling
-    start and stop every RUN_NEMESIS_CYCLE_S for RUN_NEMESIS_S, then a
+    start and stop (ops, or generators of one op; by default f "start"
+    and "stop") every RUN_NEMESIS_CYCLE_S for RUN_NEMESIS_S, then a
     final stop."""
     from jepsen_tpu_torch import generator as gen
-    start = {"type": "info", "f": "start", "value": None}
-    stop = {"type": "info", "f": "stop", "value": None}
+    start = start or {"type": "info", "f": "start", "value": None}
+    stop = stop or {"type": "info", "f": "stop", "value": None}
     cycle = gen.cycle(gen.phases(
         gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(start),
         gen.sleep(RUN_NEMESIS_CYCLE_S), gen.once(stop)))
@@ -3383,45 +3435,154 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
     return out
 
 
-def fake_etcd():
-    """tests/fake_etcd.py's FakeEtcd, loaded from its file (it imports
-    only the standard library), started: (the fake, its URL)."""
+def fake_module(name: str):
+    """tests/<name>.py, loaded from its file once (the fakes import only
+    the standard library and tests/netutil.py)."""
     import importlib.util
+    if name in sys.modules:
+        return sys.modules[name]
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tests", "fake_etcd.py")
-    spec = importlib.util.spec_from_file_location("fake_etcd", path)
+                        "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    fake = mod.FakeEtcd()
-    return fake, f"http://127.0.0.1:{fake.start()}"
+    return mod
+
+
+def start_data_plane(kind: str) -> tuple:
+    """The fake data plane of a suite run, started in the calling
+    process (`data_plane`'s child): (its port, a function that stops
+    it)."""
+    if kind == "hazelcast":
+        from jepsen_tpu_torch.suites import cp_shim
+        server, port = cp_shim.serve()
+        return port, server.shutdown
+    if kind == "etcd":
+        fake = fake_module("fake_etcd").FakeEtcd()
+        return fake.start(), fake.stop
+    if kind == "yugabyte":
+        fake_module("netutil")
+        fake = fake_module("fake_cql").FakeCQLServer()
+    elif kind == "dgraph":
+        fake = fake_module("fake_dgraph").FakeDgraph()
+    else:
+        fake = fake_module("fake_fauna").FakeFauna()
+    return fake.port, fake.stop
+
+
+def data_plane_child(kind: str, conn) -> None:
+    """A spawned child serving one suite run's data plane: it sends its
+    port, and stops when the parent says so or goes away."""
+    port, stop = start_data_plane(kind)
+    conn.send(port)
+    try:
+        conn.recv()
+    except EOFError:
+        pass
+    stop()
+
+
+def data_plane(kind: str) -> tuple:
+    """A suite run's data plane, in a spawned child process of its own
+    (`start_data_plane`; the fake's server threads then do not share the
+    interpreter's lock with the clients): (its port, a function that
+    stops and joins it)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=data_plane_child, args=(kind, child),
+                       name=f"data-plane-{kind}", daemon=True)
+    proc.start()
+    child.close()
+
+    def stop():
+        try:
+            parent.send("stop")
+        except OSError:
+            pass
+        proc.join(DATA_PLANE_JOIN_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        parent.close()
+
+    if not parent.poll(DATA_PLANE_START_S):
+        stop()
+        raise RuntimeError(f"{kind} data plane: no port in "
+                           f"{DATA_PLANE_START_S} s")
+    return parent.recv(), stop
+
+
+def suite_module(kind: str):
+    import importlib
+    return importlib.import_module(f"jepsen_tpu_torch.suites.{kind}")
 
 
 def suite_opts(kind, dev, store_dir) -> dict:
-    """The options a user gives the etcd ("etcd") or the hazelcast
-    ("hazelcast") suite's CLI for phase 14's run."""
+    """The options a user gives the suite's CLI for its phase 14 or 15
+    run: SUITE_WORKLOADS' workload, 5 nodes, concurrency 10, the
+    suite's partition nemesis and SUITE_OPTS."""
     return {"nodes": list(RUN_NODES), "ssh": {"dummy": True},
             "concurrency": SUITE_RUN["concurrency"],
-            "workload": "register" if kind == "etcd" else "cas-register",
-            "ops-per-key": SUITE_RUN["ops_per_key"], "nemesis": "partition",
-            "store-dir": store_dir, "device": str(dev)}
+            "workload": SUITE_WORKLOADS[kind], "store-dir": store_dir,
+            "device": str(dev), **SUITE_OPTS[kind]}
 
 
-def suite_run_test(kind, dev, store_dir, remote, url) -> dict:
-    """The suite's own test map for phase 14, cut as SUITE_RUN says: its
-    generator replaced by the workload's under a limit beside the
-    bounded nemesis schedule (`cut_generator`), the remote, `db.noop`,
-    `os_.noop`, and the data plane at url."""
+def suite_wire(kind, port) -> dict:
+    """The options pointing the suite's client at its data plane."""
+    host = "127.0.0.1"
+    if kind in ("etcd", "hazelcast"):
+        url = f"http://{host}:{port}"
+        return {"client-url-fn" if kind == "etcd" else "shim-url-fn":
+                lambda node: url}
+    mod = suite_module(kind)
+    if kind == "dgraph":
+        return {"dgraph-conn-fn": lambda node: mod.DgraphConn(host, port)}
+    if kind == "yugabyte":
+        return {"cql-conn-fn": lambda node: mod.CQLConn(host, port)}
+    return {"fauna-conn-fn": lambda node, linearized=False: mod.FaunaConn(
+        host, port, linearized=linearized)}
+
+
+def nemesis_op(f: str):
+    """The op of f in a suite's nemesis schedule (SUITE_NEMESIS_FS): a
+    start-partition cuts the nodes into two halves, in the grudge the
+    nemeses of phase 15's suites take."""
+    from jepsen_tpu_torch.nemesis import partition
+    if f != "start-partition":
+        return {"type": "info", "f": f, "value": None}
+    return lambda test, ctx: {
+        "type": "info", "f": f, "value": partition.complete_grudge(
+            partition.bisect(list(test["nodes"])))}
+
+
+def suite_invocations(kind) -> int:
+    return SUITE2_INVOCATIONS.get(kind, SUITE_RUN["invocations"])
+
+
+def suite_run_test(kind, dev, store_dir, remote, port) -> dict:
+    """The suite's own test map for phase 14 or 15: its generator
+    replaced by `suite_invocations` of the workload's own generator
+    without its pacing (dgraph's `gen.stagger(1/100, ...)` is stripped;
+    faunadb's and yugabyte's are options, SUITE_OPTS sets them to 0)
+    beside the bounded nemesis schedule (`cut_generator`), the remote,
+    `db.noop`, `os_.noop`, and the data plane at port."""
     from jepsen_tpu_torch import db, os_
-    from jepsen_tpu_torch.suites import etcd, hazelcast
-    mod = etcd if kind == "etcd" else hazelcast
+    from jepsen_tpu_torch import generator as gen
+    mod = suite_module(kind)
     opts = suite_opts(kind, dev, store_dir)
     t = getattr(mod, f"{kind}_test")(opts)
     w = mod.WORKLOADS[opts["workload"]](opts)
+    g = w["generator"]
+    if kind == "dgraph":
+        assert isinstance(g, gen.Stagger), g
+        g = g.gen
+    start, stop = map(nemesis_op, SUITE_NEMESIS_FS[kind])
     t.update({"remote": remote, "db": db.noop, "os": os_.noop,
-              "client-url-fn" if kind == "etcd" else "shim-url-fn":
-              lambda node: url,
-              "generator": cut_generator(w["generator"],
-                                         SUITE_RUN["invocations"])})
+              **suite_wire(kind, port),
+              "generator": cut_generator(g, suite_invocations(kind),
+                                         start=start, stop=stop)})
     return t
 
 
@@ -3449,43 +3610,188 @@ def strip_volatile(r):
 
 
 def cpu_suite_check(kind: str, run_dir: str) -> tuple:
-    """Phase 14's CPU path in a worker process: a card run's stored
-    history (the etcd run's KVs re-wrapped, ROADMAP F6) checked by the
-    suite's own workload checker on the CPU. Returns the result without
-    its volatile fields, and the seconds it took."""
+    """Phases 14 and 15's CPU path in a worker process: a card run's
+    stored history (a keyed run's KVs re-wrapped, ROADMAP F6) checked by
+    the suite's own workload checker on the CPU (its timelines written
+    to a scratch store). Returns the result without its volatile
+    fields, and the seconds it took."""
+    import tempfile
+
     from jepsen_tpu_torch import independent, store
-    from jepsen_tpu_torch.suites import etcd, hazelcast
     t = time.perf_counter()
     hist = store.load_test(run_dir)["history"]
-    mod = etcd if kind == "etcd" else hazelcast
     opts = suite_opts(kind, "cpu", None)
     threads = torch.get_num_threads()
-    if kind == "etcd":
+    if kind != "hazelcast":
         hist = rekeyed(independent, hist)
+    if kind == "etcd":
         # the phase's last check, alone in the pool for most of its run:
         # the batched walk takes the other worker's share of the cores
         torch.set_num_threads(CPU_WORKERS * CPU_WORKER_THREADS)
     try:
-        r = mod.WORKLOADS[opts["workload"]](opts)["checker"].check(
-            {}, hist, {})
+        with tempfile.TemporaryDirectory(prefix="cpu-check-") as d:
+            r = suite_module(kind).WORKLOADS[opts["workload"]](opts)[
+                "checker"].check({"name": "cpu-check", "store-dir": d},
+                                 hist, {})
     finally:
         torch.set_num_threads(threads)
     return strip_volatile(r), time.perf_counter() - t
 
 
-def phase_suites(dev, wgl_closure, wgl_dedup, pool) -> dict:
+def key_walks(results: dict) -> dict:
+    """The kernel work behind an independent check's per-key results: a
+    bare linearizability subchecker's keys share batched walks, each
+    counted once (`walk_totals`); a compose's keys are walked one by
+    one, and their linearizability results' counts add up."""
+    lin = []
+    for r in results.values():
+        lin += [r] if "analyzer" in r else [
+            s for s in r.values() if isinstance(s, dict) and "analyzer" in s]
+    batched = [r for r in lin if "batch-walk" in r]
+    alone = [r for r in lin if "batch-walk" not in r]
+    tot = walk_totals(batched)
+    for ours, theirs in (("closure_rounds", "closure-rounds"),
+                         ("dedup_launches", "dedup-launches"),
+                         ("host_syncs", "host-syncs")):
+        tot[ours] += sum(r.get(theirs, 0) for r in alone)
+    tot["keys_alone"] = len(alone)
+    tot["analyzers"] = sorted({f"{r['analyzer']} {r.get('dedup')}"
+                               for r in alone})
+    return tot
+
+
+def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
+                port, stop) -> tuple:
+    """One suite run of phase 14 or 15 through the port's core.run on
+    the card against the data plane at port (stopped when the run
+    ends), with every kernel's launch count set to 0 just before and
+    read just after; its stored history goes to the CPU path in the
+    pool. Returns the run's row (with its workload result) and the CPU
+    path's job."""
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import generator as gen
+    remote = getent_remote()
+    try:
+        with gen.fixed_rng(SEED):
+            t = suite_run_test(kind, dev, root, remote, port)
+        # the compose's check, and the workload's check on the card
+        # within it, each on its own clock
+        clock = {}
+        compose = t["checker"]
+        compose.checkers["workload"] = clocked(
+            compose.checkers["workload"], clock, "workload_check_s")
+        t["checker"] = clocked(compose, clock, "check_s")
+        wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+        t0 = time.perf_counter()
+        done = core.run(t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    finally:
+        stop()
+    run_dir = os.path.dirname(store.path(done, "results.json"))
+    job = pool.submit(cpu_suite_check, kind, run_dir)
+    res = done["results"]
+    run_stamps(f"{kind} suite run", res)
+    n_ops, rate = interpreter_rate(done["history"])
+    nem = [o for o in done["history"] if o["process"] == "nemesis"]
+    cut = [a for _, _, a in remote.log if "iptables" in a.get("cmd", "")]
+    w = res["workload"]
+    # the interpreter's span on the run's own relative clock: its latest
+    # history op's time
+    interp_s = max(o["time"] for o in done["history"]) / 1e9
+    row = dict(name=done["name"], run_dir=run_dir, wall_s=wall,
+               interpreter_s=interp_s, check_s=clock["check_s"],
+               workload_check_s=clock["workload_check_s"], ops=n_ops,
+               ops_per_s=rate, nemesis_ops=len(nem), iptables=len(cut),
+               k1_launches=launches[0], k2_launches=launches[1],
+               valid=w["valid?"])
+    if kind == "hazelcast":
+        row.update({f: w.get(f) for f in (
+            "analyzer", "dedup", "frontier-size", "max-frontier",
+            "dense-shape", "closure-rounds", "dedup-launches",
+            "host-syncs")})
+        detail = (f"{w.get('analyzer')} {w.get('dedup')}, frontier-size "
+                  f"{w.get('frontier-size')}, max-frontier "
+                  f"{w.get('max-frontier')}, shape {w.get('dense-shape')}")
+        want = (w.get("closure-rounds"), w.get("dedup-launches"))
+    else:
+        tot = key_walks(w["results"])
+        row.update(keys=len(w["results"]), **tot)
+        detail = (f"{len(w['results'])} keys, batched groups "
+                  f"{tot['groups']}, {tot['keys_alone']} keys walked "
+                  f"alone {tot['analyzers']}")
+        want = (tot["closure_rounds"], tot["dedup_launches"])
+    # a keyed run walks its registers with K1 whichever family its keys
+    # go to; the one register of hazelcast's may go to the sort family
+    walked = (row["k1_launches"] + row["k2_launches"] if kind == "hazelcast"
+              else row["k1_launches"])
+    launched = walked > 0 and (row["k1_launches"], row["k2_launches"]) == want
+    log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
+        f"history ops ({rate:.0f} client ops/s), {len(nem)} nemesis ops, "
+        f"{len(cut)} iptables commands, wall {wall:.3f} s (interpreter "
+        f"{interp_s:.3f} s, check {row['check_s']:.3f} s, of which the "
+        f"workload's on the card {row['workload_check_s']:.3f} s), K1 "
+        f"launches {row['k1_launches']}, K2 launches {row['k2_launches']}")
+    if res["valid?"] is not True or w["valid?"] is not True:
+        raise AssertionError(f"{kind} suite run: {res['valid?']}, "
+                             f"workload {w['valid?']}")
+    fs = set(SUITE_NEMESIS_FS[kind])
+    if n_ops != 2 * suite_invocations(kind) + len(nem) or \
+            {o["f"] for o in nem} != fs or not cut:
+        raise AssertionError(f"{kind} suite run: {n_ops} ops, nemesis "
+                             f"{sorted({o['f'] for o in nem})}, {len(cut)} "
+                             f"iptables commands")
+    if not launched:
+        raise AssertionError(f"{kind} suite run: K1/K2 launches "
+                             f"{row['k1_launches']}/{row['k2_launches']} "
+                             f"({detail})")
+    row["workload"] = strip_volatile(w)
+    return row, job
+
+
+def same_as_cpu(out: dict, jobs: dict) -> None:
+    """Each run's workload result against its CPU path's, whole."""
+    for kind, job in jobs.items():
+        want, cpu_s = job.result()
+        got = out[kind].pop("workload")
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            raise AssertionError(f"{kind} suite run: {bad} differ from "
+                                 f"the CPU path")
+        out[kind]["cpu_s"] = cpu_s
+    log("suite runs equal to the CPU path's: " + ", ".join(
+        f"{kind} ({out[kind]['cpu_s']:.3f} s)" for kind in jobs))
+
+
+def drive_suites(kinds, dev, root, wgl_closure, wgl_dedup, pool) -> tuple:
+    """`drive_suite` for each kind in turn, every data plane started at
+    once first: the rows, and the CPU path's jobs."""
+    out, cpu = {}, {}
+    planes = {kind: data_plane(kind) for kind in kinds}
+    try:
+        for kind in kinds:
+            out[kind], cpu[kind] = drive_suite(
+                kind, dev, root, wgl_closure, wgl_dedup, pool,
+                *planes.pop(kind))
+    finally:
+        for _, stop in planes.values():
+            stop()
+    return out, cpu
+
+
+def phase_suites(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
     """Phase 14: the etcd and hazelcast suites' own test maps through the
-    port's core.run on the card against their fakes, with every kernel's
-    launch count set to 0 just before each run and read just after; each
-    workload result held, whole but for SUITE_VOLATILE, against the CPU
-    path's check of the run's stored history in a worker process; then
-    the port's web UI over the phase's store. It also imports every
-    module of the slice, so the script's closing guard covers them."""
-    import tempfile
+    port's core.run on the card against their fakes, their runs stored
+    under root (`drive_suites`); then the port's web UI over root. It
+    also imports every module of the slice, so the script's closing
+    guard covers them. Returns the rows and the CPU path's jobs, which
+    `same_as_cpu` holds the rows against after phase 15's runs (the
+    pool works through them beside those runs)."""
     import urllib.request
 
-    from jepsen_tpu_torch import cli, core, repl, store, web
-    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import cli, repl, web
     from jepsen_tpu_torch.suites import (aerospike, as_proto, bson_proto,
                                          cockroach, cp_shim, etcd,
                                          hazelcast, mongodb, mysql_proto,
@@ -3494,142 +3800,65 @@ def phase_suites(dev, wgl_closure, wgl_dedup, pool) -> dict:
         aerospike, as_proto, bson_proto, cockroach, cp_shim, etcd,
         hazelcast, mongodb, mysql_proto, netutil, pg_proto, tidb, web,
         repl)] + [f"{cli.__name__}.{cli.main.__name__}"]
-    out, cpu, dirs = {"modules": slice_modules}, {}, {}
-    with tempfile.TemporaryDirectory(prefix="suites-") as root:
-        # hazelcast first: its CPU check, one register walked on the
-        # plain path, is the longer one
-        for kind in ("hazelcast", "etcd"):
-            if kind == "etcd":
-                fake, url = fake_etcd()
-                stop = fake.stop
-            else:
-                server, port = cp_shim.serve()
-                url, stop = f"http://127.0.0.1:{port}", server.shutdown
-            remote = getent_remote()
-            try:
-                with gen.fixed_rng(SEED):
-                    t = suite_run_test(kind, dev, root, remote, url)
-                # the compose's check, and the workload's check on the
-                # card within it, each on its own clock
-                clock = {}
-                compose = t["checker"]
-                compose.checkers["workload"] = clocked(
-                    compose.checkers["workload"], clock, "workload_check_s")
-                t["checker"] = clocked(compose, clock, "check_s")
-                wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
-                t0 = time.perf_counter()
-                done = core.run(t)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                stop()
-            dirs[kind] = run_dir = os.path.dirname(
-                store.path(done, "results.json"))
-            cpu[kind] = pool.submit(cpu_suite_check, kind, run_dir)
-            res = done["results"]
-            run_stamps(f"{kind} suite run", res)
-            n_ops, rate = interpreter_rate(done["history"])
-            nem = [o for o in done["history"] if o["process"] == "nemesis"]
-            cut = [a for _, _, a in remote.log
-                   if "iptables" in a.get("cmd", "")]
-            w = res["workload"]
-            # the interpreter's span on the run's own relative clock:
-            # its latest history op's time
-            interp_s = max(o["time"] for o in done["history"]) / 1e9
-            out[kind] = row = dict(
-                name=done["name"], wall_s=wall, interpreter_s=interp_s,
-                check_s=clock["check_s"],
-                workload_check_s=clock["workload_check_s"], ops=n_ops,
-                ops_per_s=rate,
-                nemesis_ops=len(nem), iptables=len(cut),
-                k1_launches=wgl_closure.LAUNCHES,
-                k2_launches=wgl_dedup.LAUNCHES, valid=w["valid?"])
-            if kind == "etcd":
-                tot = walk_totals(list(w["results"].values()))
-                row.update(keys=len(w["results"]), **tot)
-                detail = (f"{len(w['results'])} keys, groups "
-                          f"{tot['groups']}")
-                launched = row["k1_launches"] > 0 and (
-                    row["k1_launches"], row["k2_launches"]) == (
-                        tot["closure_rounds"], tot["dedup_launches"])
-            else:
-                row.update({f: w.get(f) for f in (
-                    "analyzer", "dedup", "frontier-size", "max-frontier",
-                    "dense-shape", "closure-rounds", "dedup-launches",
-                    "host-syncs")})
-                detail = (f"{w.get('analyzer')} {w.get('dedup')}, "
-                          f"frontier-size {w.get('frontier-size')}, "
-                          f"max-frontier {w.get('max-frontier')}, shape "
-                          f"{w.get('dense-shape')}")
-                launched = (row["k1_launches"] + row["k2_launches"] > 0
-                            and (row["k1_launches"], row["k2_launches"])
-                            == (w.get("closure-rounds"),
-                                w.get("dedup-launches")))
-            log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
-                f"history ops ({rate:.0f} client ops/s), {len(nem)} "
-                f"nemesis ops, {len(cut)} iptables commands, wall "
-                f"{wall:.3f} s (interpreter {interp_s:.3f} s, check "
-                f"{row['check_s']:.3f} s, of which the workload's on the "
-                f"card {row['workload_check_s']:.3f} s), K1 launches {row['k1_launches']}, K2 "
-                f"launches {row['k2_launches']}")
-            if res["valid?"] is not True or w["valid?"] is not True:
-                raise AssertionError(f"{kind} suite run: {res['valid?']}, "
-                                     f"workload {w['valid?']}")
-            if n_ops != 2 * SUITE_RUN["invocations"] + len(nem) or \
-                    {o["f"] for o in nem} != {"start", "stop"} or not cut:
-                raise AssertionError(f"{kind} suite run: {n_ops} ops, "
-                                     f"nemesis {sorted({o['f'] for o in nem})}"
-                                     f", {len(cut)} iptables commands")
-            if not launched:
-                raise AssertionError(f"{kind} suite run: K1/K2 launches "
-                                     f"{row['k1_launches']}/"
-                                     f"{row['k2_launches']} ({detail})")
-            row["workload"] = strip_volatile(w)
+    # hazelcast first: its CPU check, one register walked on the plain
+    # path, is the longer one
+    out, cpu = drive_suites(("hazelcast", "etcd"), dev, root, wgl_closure,
+                            wgl_dedup, pool)
+    out["modules"] = slice_modules
 
-        # -- the web UI over the phase's store ---------------------------
-        server = web.serve({"host": "127.0.0.1", "port": 0,
-                            "store-dir": root})
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        try:
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(base + "/", timeout=30) as r:
-                page = r.read().decode()
-            run = os.path.relpath(dirs["hazelcast"], root)
-            with urllib.request.urlopen(
-                    f"{base}/files/{run}/results.json", timeout=30) as r:
-                served = r.read()
-            serve_s = time.perf_counter() - t0
-        finally:
-            server.shutdown()
-        with open(os.path.join(dirs["hazelcast"], "results.json"),
-                  "rb") as f:
-            stored = f.read()
-        listed = [out[k]["name"] for k in ("etcd", "hazelcast")
-                  if out[k]["name"] in page]
-        out["serve"] = dict(listed=listed, page_bytes=len(page),
-                            results_bytes=len(served), wall_s=serve_s)
-        log(f"suite serve: the home page ({len(page)} bytes) lists "
-            f"{listed}; {run}/results.json served, {len(served)} bytes, "
-            f"the run's: {served == stored}; {serve_s:.3f} s")
-        if len(listed) != 2 or served != stored or \
-                json.loads(served)["valid?"] is not True:
-            raise AssertionError(f"serve: lists {listed}, results.json "
-                                 f"the run's: {served == stored}")
+    # -- the web UI over the phase's store -------------------------------
+    server = web.serve({"host": "127.0.0.1", "port": 0, "store-dir": root})
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    run_dir = out["hazelcast"]["run_dir"]
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + "/", timeout=30) as r:
+            page = r.read().decode()
+        run = os.path.relpath(run_dir, root)
+        with urllib.request.urlopen(
+                f"{base}/files/{run}/results.json", timeout=30) as r:
+            served = r.read()
+        serve_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+    with open(os.path.join(run_dir, "results.json"), "rb") as f:
+        stored = f.read()
+    listed = [out[k]["name"] for k in ("etcd", "hazelcast")
+              if out[k]["name"] in page]
+    out["serve"] = dict(listed=listed, page_bytes=len(page),
+                        results_bytes=len(served), wall_s=serve_s)
+    log(f"suite serve: the home page ({len(page)} bytes) lists "
+        f"{listed}; {run}/results.json served, {len(served)} bytes, "
+        f"the run's: {served == stored}; {serve_s:.3f} s")
+    if len(listed) != 2 or served != stored or \
+            json.loads(served)["valid?"] is not True:
+        raise AssertionError(f"serve: lists {listed}, results.json "
+                             f"the run's: {served == stored}")
+    log(f"suites: {len(slice_modules)} modules of the slice imported")
+    return out, cpu
 
-        for kind, job in cpu.items():
-            want, cpu_s = job.result()
-            got = out[kind].pop("workload")
-            if got != want:
-                bad = sorted(k for k in set(got) | set(want)
-                             if got.get(k) != want.get(k))
-                raise AssertionError(f"{kind} suite run: {bad} differ from "
-                                     f"the CPU path")
-            out[kind]["cpu_s"] = cpu_s
-    log(f"suites: each workload result equal to the CPU path's (etcd "
-        f"{out['etcd']['cpu_s']:.3f} s, hazelcast "
-        f"{out['hazelcast']['cpu_s']:.3f} s); {len(slice_modules)} "
-        f"modules of the slice imported")
-    return out
+
+def phase_suites2(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
+    """Phase 15: the dgraph linearizable-register, yugabyte
+    ycql/single-key-acid and faunadb register maps, each the suite's
+    own (client, checker compose, partition nemesis), through the
+    port's core.run on the card against tests/fake_dgraph.py,
+    fake_cql.py and fake_fauna.py, their runs stored under root
+    (`drive_suites`). It imports all seven modules of the slice, so the
+    script's closing guard covers them. Returns the rows and the CPU
+    path's jobs, as `phase_suites` does."""
+    from jepsen_tpu_torch.suites import (cql_proto, dgraph, fauna_query,
+                                         faunadb, reql_proto, rethinkdb,
+                                         yugabyte)
+    slice_modules = [m.__name__ for m in (
+        cql_proto, yugabyte, fauna_query, faunadb, dgraph, reql_proto,
+        rethinkdb)]
+    # the longest CPU checks first, so that they run beside the later runs
+    out, cpu = drive_suites(("faunadb", "yugabyte", "dgraph"), dev, root,
+                            wgl_closure, wgl_dedup, pool)
+    out["modules"] = slice_modules
+    log(f"suites2: {len(slice_modules)} modules of the slice imported")
+    return out, cpu
 
 
 def write_report(path, report) -> None:
@@ -3672,7 +3901,7 @@ def main() -> int:
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
 
-    # the CPU checks of phases 4, 6, 8, 9, 11, 12, 13 and 14 run in worker
+    # the CPU checks of phases 4, 6, 8, 9 and 11-15 run in worker
     # processes (spawned: this process holds a CUDA context) beside the
     # card's runs; those that need nothing of the card's runs start now:
     # phase 8's dense stream, the main path's agreement runs and phase
@@ -3695,7 +3924,7 @@ def main() -> int:
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                cpu_batches, cpu_agree) -> int:
-    """Phases 2-15 of `main`, given the worker pool and its first jobs."""
+    """Phases 2-16 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -3848,9 +4077,21 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                                             elle_kernels, pool)
     phase_done("workloads")
 
-    # -- phase 14: the etcd and hazelcast suites' own maps, the web UI -----
-    suites = phase_suites(dev, wgl_closure, wgl_dedup, pool)
-    phase_done("suites")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="suites-") as root:
+        # -- phase 14: the etcd and hazelcast suites' own maps, the web UI -
+        suites, suites_cpu = phase_suites(dev, wgl_closure, wgl_dedup, pool,
+                                          root)
+        phase_done("suites")
+
+        # -- phase 15: the dgraph, yugabyte and faunadb suites' registers --
+        # phase 14's CPU checks run in the pool beside these runs; both
+        # phases' runs are held against theirs after them
+        suites2, suites2_cpu = phase_suites2(dev, wgl_closure, wgl_dedup,
+                                             pool, root)
+        same_as_cpu(suites, suites_cpu)
+        same_as_cpu(suites2, suites2_cpu)
+    phase_done("suites 2, and both suite phases' CPU checks")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -3882,6 +4123,10 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             "online", "abort", "cli-test", "cli-analyze")),
         # phase 14's single-register check (the hazelcast suite's map)
         "suite_launches": suites["hazelcast"]["k1_launches"],
+        # phase 15's per-key checks walked alone (the yugabyte and
+        # faunadb registers' composes)
+        "suite2_launches": sum(suites2[k]["k1_launches"]
+                               for k in ("yugabyte", "faunadb")),
         "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
         "stream_shape_ms": k1["shapes"][3]["ms"],
         "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
@@ -3908,6 +4153,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "run_launches": sum(run_path[r]["k2_launches"] for r in (
             "online", "abort", "cli-test", "cli-analyze")),
         "suite_launches": suites["hazelcast"]["k2_launches"],
+        "suite2_launches": sum(suites2[k]["k2_launches"]
+                               for k in ("yugabyte", "faunadb")),
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -3941,6 +4188,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             # the etcd suite's independent check (phase 14)
             "suite_launches": suites["etcd"][
                 "k1_launches" if mod is wgl_closure else "k2_launches"],
+            # the dgraph suite's independent check (phase 15)
+            "suite2_launches": suites2["dgraph"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
@@ -3952,7 +4202,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,
             "search_chaos": search_chaos, "run_path": run_path,
-            "suites": suites,
+            "suites": suites, "suites2": suites2,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

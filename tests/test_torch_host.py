@@ -494,16 +494,21 @@ import json, sys, tempfile, urllib.request
 from jepsen_tpu_torch import cli, core, db, os_, repl, web
 from jepsen_tpu_torch import __main__ as entry
 from jepsen_tpu_torch.suites import (SUITES, aerospike, as_proto, bson_proto,
-                                     cockroach, cp_shim, etcd, hazelcast,
+                                     cockroach, cp_shim, cql_proto, dgraph,
+                                     etcd, fauna_query, faunadb, hazelcast,
                                      mongodb, mysql_proto, netutil,
-                                     pg_proto, suite, tidb)
-assert suite("etcd") is etcd and "dgraph" in SUITES
+                                     pg_proto, reql_proto, rethinkdb, suite,
+                                     tidb, yugabyte)
+assert suite("etcd") is etcd and "zookeeper" in SUITES
+for name, mod in (("dgraph", dgraph), ("yugabyte", yugabyte),
+                  ("faunadb", faunadb), ("rethinkdb", rethinkdb)):
+    assert suite(name) is mod, name
 try:
-    suite("dgraph")
+    suite("zookeeper")
 except ModuleNotFoundError:
     pass
 else:
-    raise AssertionError("dgraph is not ported yet")
+    raise AssertionError("zookeeper is not ported yet")
 server, port = cp_shim.serve()
 t = hazelcast.hazelcast_test({
     "nodes": ["n1", "n2", "n3"], "concurrency": 3, "ssh": {"dummy": True},
@@ -550,9 +555,10 @@ print("LEAKED", leaked)
 
 
 def test_the_suites_web_and_commands_never_import_jax_or_the_jax_package():
-    """The thirteen suite and protocol modules, `web`, `repl` and
-    `cli.main` in a fresh interpreter: the hazelcast cas-register map
-    runs through core.run against the CP shim on the CPU, `repl` and
+    """The twenty suite and protocol modules, `web`, `repl` and
+    `cli.main` in a fresh interpreter (`suite` resolves the dgraph,
+    yugabyte, faunadb and rethinkdb suites, and not zookeeper): the
+    hazelcast cas-register map runs through core.run against the CP shim on the CPU, `repl` and
     the web UI read its store, the command runner refuses bad
     arguments with 254, and `staticcheck` runs the style and metrics
     analyzers with their exit codes."""
@@ -596,7 +602,10 @@ def test_port_sources_name_no_jax_import():
             "suites/mysql_proto.py", "suites/tidb.py", "suites/pg_proto.py",
             "suites/cockroach.py", "suites/bson_proto.py",
             "suites/mongodb.py", "suites/as_proto.py",
-            "suites/aerospike.py"} <= names
+            "suites/aerospike.py", "suites/cql_proto.py",
+            "suites/yugabyte.py", "suites/fauna_query.py",
+            "suites/faunadb.py", "suites/dgraph.py",
+            "suites/reql_proto.py", "suites/rethinkdb.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()

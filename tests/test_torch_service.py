@@ -457,6 +457,10 @@ def test_service_shed_backpressure_deferred(tmp_path, monkeypatch):
     assert svc.result("slow", timeout_s=10) == {}
     sr = store.load_streamed_results(run_dir)
     assert sr["deferred"] is True and "backpressure" in sr["reason"]
+    # the sibling shares the service-wide timeout, which `offer` reads on
+    # each call: on a loaded host its walk can fall 0.3 s behind its
+    # 4-op queue and be shed too, so it is fed under a wide one
+    svc.shed_timeout_s = 60.0
     ops, solo = _hist(62)
     svc.admit("fine", {"linear": _wgl_spec()})
     for op in ops:

@@ -1,0 +1,33 @@
+"""The rethinkdb cases of tests/test_suites_small.py (a ReQL round trip
+through the port's `reql_proto`, the document CAS client, the DB
+commands over the dummy remote, and hermetic core.run runs of the
+document-cas workload, one against a fake that serves a phantom read)
+run on the port's rethinkdb suite. That file's other cases test suites
+the port has not ported yet, so their imports and cases are left out.
+
+The suite's document-cas workload checks on CUDA unless the opts name a
+device; an autouse fixture fills in device="cpu" when the opts given to
+`rethinkdb_test` name none.
+
+tests/fake_rethinkdb.py decodes and encodes with the JAX package's
+protocol module (`jepsen_tpu.suites.reql_proto`) while the port's client
+speaks through its own copy: the cases are also a wire-level parity
+check of the two copies."""
+
+import pytest
+
+import torch_mirror
+from jepsen_tpu_torch.suites import rethinkdb
+
+_cases = torch_mirror.cases(
+    "test_suites_small",
+    drop_statements=(r"^from jepsen_tpu\.suites import \(logcabin",
+                     r"(?m)^def test_(?!reql|rethinkdb)"))
+# the dropped import also brought `rethinkdb`, which the kept cases use
+_cases["test_rethinkdb_hermetic_run"].__globals__["rethinkdb"] = rethinkdb
+globals().update(_cases)
+
+
+@pytest.fixture(autouse=True)
+def _checkers_on_the_cpu(monkeypatch):
+    torch_mirror.on_cpu(monkeypatch, rethinkdb, "rethinkdb_test")

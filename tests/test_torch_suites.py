@@ -1,23 +1,34 @@
 """The port's suites against the JAX package's, side by side at a small
-size: the etcd register, hazelcast cas-register and lock, and tidb
-append maps, each built by its suite in both packages under one
-generator seed at concurrency 1, with the map's time-limited generator
-replaced by a `gen.limit` over the same workload, one op in flight at a
-time, and no nemesis (etcd's register takes two threads per key, so it
-runs two processes with one op in flight). Each run goes to a fresh
-fake of the suite's data plane (tests/fake_etcd.py, `suites.cp_shim`,
-tests/fake_mysql.py). The two histories are equal op for op (all fields
-but `time`), and both packages' checkers give each stored history the
-same result, the port's on the CPU. Last, `chip_smoke.py`'s phase 14
-maps (the etcd and hazelcast suites' own, concurrency 10, a partition
-nemesis) run at a small size on the CPU against their CPU-path check."""
+size: the etcd register, hazelcast cas-register and lock, tidb append,
+dgraph linearizable-register, faunadb register, yugabyte
+ycql/single-key-acid and rethinkdb document-cas maps, each built by its
+suite in both packages under one generator seed at concurrency 1, with
+the map's time-limited generator replaced by a `gen.limit` over the
+same workload, one op in flight at a time, and no nemesis (the keyed
+register workloads take two threads per key, so they run two processes
+with one op in flight). Each run goes to a fresh fake of the suite's
+data plane (tests/fake_etcd.py, `suites.cp_shim`, tests/fake_mysql.py,
+fake_dgraph.py, fake_fauna.py, fake_cql.py, fake_rethinkdb.py). The two
+histories are equal op for op (all fields but `time`), and both
+packages' checkers give each stored history the same result, the
+port's on the CPU. Last, `chip_smoke.py`'s phase 14 and 15 maps (the
+etcd, hazelcast, dgraph, yugabyte and faunadb suites' own, concurrency
+10, a partition nemesis) run at a small size on the CPU against their
+CPU-path check."""
+
+import concurrent.futures
+import threading
 
 import pytest
 import torch
 
 import chip_smoke
+from fake_cql import FakeCQLServer
+from fake_dgraph import FakeDgraph
 from fake_etcd import FakeEtcd
+from fake_fauna import FakeFauna
 from fake_mysql import FakeMySQLServer
+from fake_rethinkdb import FakeRethinkDB
 
 import jepsen_tpu.db as jdb
 import jepsen_tpu.os_ as jos
@@ -27,7 +38,9 @@ from jepsen_tpu import independent as jind
 from jepsen_tpu import suites as jsuites
 from jepsen_tpu import store as jstore
 from jepsen_tpu.suites import cp_shim as jshim
+from jepsen_tpu.suites import cql_proto as jcql
 from jepsen_tpu.suites import mysql_proto as jmysql
+from jepsen_tpu.suites import reql_proto as jreql
 
 import jepsen_tpu_torch.db as tdb
 import jepsen_tpu_torch.os_ as tos
@@ -37,13 +50,32 @@ from jepsen_tpu_torch import independent as tind
 from jepsen_tpu_torch import suites as tsuites
 from jepsen_tpu_torch import store as tstore
 from jepsen_tpu_torch.suites import cp_shim as tshim
+from jepsen_tpu_torch.suites import cql_proto as tcql
 from jepsen_tpu_torch.suites import mysql_proto as tmysql
+from jepsen_tpu_torch.suites import reql_proto as treql
+from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
 
 JAX = dict(core=jcore, gen=jgen, ind=jind, suites=jsuites, store=jstore,
-           db=jdb, os_=jos, shim=jshim, mysql=jmysql, opts={})
+           db=jdb, os_=jos, shim=jshim, mysql=jmysql, cql=jcql,
+           reql=jreql, opts={})
 PORT = dict(core=tcore, gen=tgen, ind=tind, suites=tsuites, store=tstore,
-            db=tdb, os_=tos, shim=tshim, mysql=tmysql,
-            opts={"device": "cpu"})
+            db=tdb, os_=tos, shim=tshim, mysql=tmysql, cql=tcql,
+            reql=treql, opts={"device": "cpu"})
+
+# the keyed register workloads: two threads per key on one node
+TWO_PROCESSES = ("etcd", "dgraph", "faunadb", "yugabyte", "rethinkdb")
+# each suite's own options for the side-by-side run: no nemesis, and
+# no per-key pacing (faunadb's 0.1 s stagger and 0.5 s delay,
+# yugabyte's 1 s acid-stagger). faunadb's registers start nil, so a
+# key takes the 30 ops of its own e2e test (tests/test_suite_faunadb.py)
+# to land an ok cas, which the compose's stats checker asks of each f
+SUITE_OPTS = {"dgraph": {"nemesis": [], "per-key-limit": 10,
+                         "dgraph-conn-retry-delay": 0.0},
+              "faunadb": {"nemesis": [], "register-stagger": 0,
+                          "register-delay": 0, "ops-per-key": 30,
+                          "fauna-conn-retry-delay": 0.0},
+              "yugabyte": {"acid-stagger": 0},
+              "rethinkdb": {"per-key-limit": 10}}
 
 
 @pytest.fixture
@@ -86,6 +118,27 @@ def _data_plane(pkg, suite):
         server, port = pkg["shim"].serve()
         url = f"http://127.0.0.1:{port}"
         return {"shim-url-fn": lambda node: url}, server.shutdown
+    if suite == "dgraph":
+        f = FakeDgraph()
+        conn = pkg["suites"].suite("dgraph").DgraphConn
+        return {"dgraph-conn-fn": lambda node: conn(
+            "127.0.0.1", f.port, timeout_s=5.0)}, f.stop
+    if suite == "faunadb":
+        f = FakeFauna()
+        conn = pkg["suites"].suite("faunadb").FaunaConn
+        return {"fauna-conn-fn": lambda node, linearized=False: conn(
+            "127.0.0.1", f.port, linearized=linearized,
+            timeout_s=5.0)}, f.stop
+    if suite == "yugabyte":
+        f = FakeCQLServer()
+        conn = pkg["cql"].Conn
+        return {"cql-conn-fn": lambda node: conn("127.0.0.1", f.port)}, \
+            f.stop
+    if suite == "rethinkdb":
+        f = FakeRethinkDB()
+        conn = pkg["reql"].Conn
+        return {"reql-conn-fn": lambda node: conn("127.0.0.1", f.port)}, \
+            f.stop
     f = FakeMySQLServer()
     conn = pkg["mysql"].Conn
     return {"sql-conn-fn": lambda node: conn("127.0.0.1", f.port)}, f.stop
@@ -95,12 +148,14 @@ def _suite_run(pkg, suite, workload, n, store_dir, seed):
     """The suite's own map for `workload` on one node, its generator
     replaced by n invocations of the workload's, one at a time, run
     through the package's core.run against a fresh data plane. The
-    etcd register workload gives each key two threads per node, so it
-    runs two processes; the others run one."""
+    keyed register workloads give each key two threads per node, so
+    they run two processes; the others run one."""
     gen, mod = pkg["gen"], pkg["suites"].suite(suite)
-    opts = {"nodes": ["n1"], "concurrency": 2 if suite == "etcd" else 1,
+    opts = {"nodes": ["n1"],
+            "concurrency": 2 if suite in TWO_PROCESSES else 1,
             "ssh": {"dummy": True}, "workload": workload, "ops-per-key": 10, "nemesis": "none",
-            "faults": ["none"], "store-dir": str(store_dir), **pkg["opts"]}
+            "faults": ["none"], "store-dir": str(store_dir),
+            **SUITE_OPTS.get(suite, {}), **pkg["opts"]}
     wire, stop = _data_plane(pkg, suite)
     try:
         # the map's builders draw from the rng (`mix` when it is
@@ -108,9 +163,14 @@ def _suite_run(pkg, suite, workload, n, store_dir, seed):
         with gen.fixed_rng(seed):
             t = getattr(mod, f"{suite}_test")(opts)
             w = mod.WORKLOADS[workload](opts)
+            g = w["generator"]
+            if isinstance(g, gen.Stagger):
+                # dgraph's register workloads pace their ops on the
+                # host's clock (`gen.stagger(1/100, ...)`)
+                g = g.gen
             t.update(wire, db=pkg["db"].noop, os=pkg["os_"].noop,
                      generator=gen.clients(_one_at_a_time(gen, gen.limit(
-                         n, w["generator"]))))
+                         n, g))))
             return pkg["core"].run(t)
     finally:
         stop()
@@ -144,7 +204,11 @@ def _verdicts(r):
 
 
 CASES = [("etcd", "register", True), ("hazelcast", "cas-register", False),
-         ("hazelcast", "lock", False), ("tidb", "append", False)]
+         ("hazelcast", "lock", False), ("tidb", "append", False),
+         ("dgraph", "linearizable-register", True),
+         ("faunadb", "register", True),
+         ("yugabyte", "ycql/single-key-acid", True),
+         ("rethinkdb", "document-cas", True)]
 
 
 @pytest.mark.parametrize("suite,workload,keyed", CASES,
@@ -169,48 +233,59 @@ def test_suite_run_equals_the_jax_run(tmp_path, _one_torch_thread, suite,
                 h = _rekey(h, pkg["ind"])
             with pkg["gen"].fixed_rng(45100):
                 w = pkg["suites"].suite(suite).WORKLOADS[workload](
-                    {"nodes": ["n1"], "ops-per-key": 10, **pkg["opts"]})
+                    {"nodes": ["n1"], "ops-per-key": 10,
+                     **SUITE_OPTS.get(suite, {}), **pkg["opts"]})
             got[name] = _verdicts(
                 w["checker"].check({"name": "recheck"}, h, {}))
         assert got["port"] == got["jax"] == wl["port"]
 
 
-@pytest.mark.parametrize("kind", ["etcd", "hazelcast"])
-def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch, kind):
-    """`chip_smoke.py`'s phase 14 maps at a small size on the CPU: the
-    suite's own map with its client, partition nemesis and checker
-    compose against its fake, valid, and its workload result equal,
-    whole but for device and duration, to the CPU path's check of the
-    stored history (`cpu_suite_check`)."""
+class _Inline:
+    """A worker pool that runs each job at once, in this process."""
+
+    def submit(self, fn, *a):
+        f = concurrent.futures.Future()
+        f.set_result(fn(*a))
+        return f
+
+
+@pytest.mark.parametrize("kind", ["etcd", "hazelcast", "dgraph", "yugabyte",
+                                  "faunadb"])
+def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
+                                              _one_torch_thread, kind):
+    """`chip_smoke.py`'s phase 14 and 15 maps at a small size on the CPU,
+    through `drive_suite` with each fake in a child process of its own:
+    the suite's own map with its client, partition nemesis and checker
+    compose, valid, its nemesis ops and iptables cuts there, its plain
+    K1/K2 calls (counted as the card's launches) equal to what its
+    results report, and its workload result equal, whole but for device
+    and duration, to the CPU path's check of the stored history
+    (`cpu_suite_check`)."""
     monkeypatch.setattr(chip_smoke, "SUITE_RUN", dict(
         chip_smoke.SUITE_RUN, invocations=400))
+    monkeypatch.setattr(chip_smoke, "SUITE2_INVOCATIONS", dict.fromkeys(
+        chip_smoke.SUITE2_INVOCATIONS, 400))
     monkeypatch.setattr(chip_smoke, "RUN_NEMESIS_S", 1.0)
     monkeypatch.setattr(chip_smoke, "RUN_NEMESIS_CYCLE_S", 0.2)
-    if kind == "etcd":
-        fake, url = chip_smoke.fake_etcd()
-        stop = fake.stop
-    else:
-        server, port = tshim.serve()
-        url, stop = f"http://127.0.0.1:{port}", server.shutdown
-    remote = chip_smoke.getent_remote()
-    try:
-        with tgen.fixed_rng(chip_smoke.SEED):
-            t = chip_smoke.suite_run_test(kind, "cpu", str(tmp_path),
-                                          remote, url)
-        clock = {}
-        t["checker"].checkers["workload"] = chip_smoke.clocked(
-            t["checker"].checkers["workload"], clock, "workload_check_s")
-        t["checker"] = chip_smoke.clocked(t["checker"], clock, "check_s")
-        done = tcore.run(t)
-    finally:
-        stop()
-    res = done["results"]
-    assert res["valid?"] is True, res
-    nem = [o for o in done["history"] if o["process"] == "nemesis"]
-    assert {o["f"] for o in nem} == {"start", "stop"}
-    assert len(done["history"]) == 800 + len(nem)
-    assert any("iptables" in a.get("cmd", "") for _, _, a in remote.log)
-    run_dir = str(tmp_path / done["name"] / "latest")
-    want, _ = chip_smoke.cpu_suite_check(kind, run_dir)
-    assert chip_smoke.strip_volatile(res["workload"]) == want
-    assert 0 < clock["workload_check_s"] <= clock["check_s"]
+    # one torch thread throughout, the CPU path's etcd check too
+    monkeypatch.setattr(chip_smoke, "CPU_WORKERS", 1)
+    monkeypatch.setattr(chip_smoke, "CPU_WORKER_THREADS", 1)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    lock = threading.Lock()
+    for mod, name in ((wgl_closure, "closure_round_plain"),
+                      (wgl_dedup, "dedup_plain")):
+        def counted(*a, _mod=mod, _plain=getattr(mod, name), **k):
+            with lock:
+                _mod.LAUNCHES += 1
+            return _plain(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    row, job = chip_smoke.drive_suite(
+        kind, "cpu", str(tmp_path), wgl_closure, wgl_dedup, _Inline(),
+        *chip_smoke.data_plane(kind))
+    assert row["ops"] == 2 * 400 + row["nemesis_ops"] and row["iptables"]
+    assert row["k1_launches"] > 0 and row["k2_launches"] == 0
+    assert 0 < row["workload_check_s"] <= row["check_s"]
+    if kind in ("yugabyte", "faunadb"):
+        # a compose per key: each key is walked alone
+        assert row["keys_alone"] == row["keys"] and not row["groups"]
+    chip_smoke.same_as_cpu({kind: row}, {kind: job})
