@@ -165,12 +165,27 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      set to 0 just before each run and read just after (dgraph's
      independent check launches K1 batched; yugabyte's and faunadb's
      composes walk each key alone); each workload result held against
-     the CPU path's as in phase 14. Phases 14 and 15 run each fake in a
-     spawned child process of its own (`data_plane`), and hold their runs
-     against the CPU path after phase 15's runs, so that the worker
-     pool checks phase 14's beside them. The phase imports the seven
+     the CPU path's as in phase 14. The phase imports the seven
      modules of the slice;
- 16. fail if any result other than the injected runs' carries a
+ 16. the suites a third time: the raftis suite's register map (one
+     register, its RESP client against tests/fake_resp.py's FakeRedis),
+     the rabbitmq suite's mutex map (the mutex model, its management-API
+     client against tests/fake_rabbitmq.py) and the ignite suite's
+     register map (keyed registers, its REST client against
+     tests/fake_es_ignite.py's FakeIgnite), each with the partition
+     nemesis of its `std_test` and its checker compose, cut as phase
+     15's (SUITE3_INVOCATIONS), through `core.run` on the card with
+     every kernel's launch count set to 0 just before each run and read
+     just after (raftis's and rabbitmq's single checks launch K1
+     unbatched, ignite's independent check K1 batched); each workload
+     result held against the CPU path's as in phase 14. Phases 14-16 run
+     each fake in a spawned child process of its own (`data_planes`), and
+     hold their runs against the CPU path after phase 16's runs, so that
+     the worker pool checks phase 14's and 15's beside the later runs.
+     The phase imports the nineteen modules of the slice (zookeeper,
+     consul and mongodb-smartos run only in the tests: their fakes
+     import the JAX package);
+ 17. fail if any result other than the injected runs' carries a
      'recovered' or 'degraded' stamp, or if jax or the JAX package was
      imported; print one JSON line of per-kernel numbers, the
      nvidia-smi line, and last the line {"ok": true, "device": {...}}.
@@ -432,9 +447,28 @@ SUITE_RUN = dict(concurrency=10, ops_per_key=500, invocations=11_000)
 # 1,013.7 s, so yugabyte's and faunadb's are cut to what keeps the whole
 # under 800 s
 SUITE2_INVOCATIONS = {"dgraph": 5_000, "yugabyte": 5_000, "faunadb": 2_000}
+# phase 16: the raftis register (one register over RESP), the rabbitmq
+# mutex (the mutex model, over the management HTTP API) and the ignite
+# register (keyed registers over REST) maps the same way, against
+# tests/fake_resp.py's FakeRedis, fake_rabbitmq.py and fake_es_ignite.py's
+# FakeIgnite, each in a child process. What each fake serves in about
+# 20 s under ten clients (on the H100's host: 3,759, 1,355 and 1,092
+# history ops/s) is 37,000, 13,000 and 10,000 invocations. The CPU path
+# checks the raftis register at 5.8-15.7 ms an invocation and ignite's
+# keys at 2.6-8.1 ms in the worker pool, which still works through
+# phases 14 and 15's checks, and the fakes slow down beside those
+# checks (ignite 463 history ops/s in the whole script): at 5,000, 10,000
+# and 8,000 the phase took 115.5 s and the script 939.0 s, so the counts
+# are cut to keep the phase, its checks included, near 60 s
+SUITE3_INVOCATIONS = {"raftis": 2_000, "rabbitmq": 6_000, "ignite": 4_000}
 SUITE_WORKLOADS = {"etcd": "register", "hazelcast": "cas-register",
                    "dgraph": "linearizable-register",
-                   "yugabyte": "ycql/single-key-acid", "faunadb": "register"}
+                   "yugabyte": "ycql/single-key-acid", "faunadb": "register",
+                   "raftis": "register", "rabbitmq": "mutex",
+                   "ignite": "register"}
+# the suites whose workload checks one object (a register, a mutex) with
+# a bare linearizability checker; the others' are keyed
+UNKEYED = ("hazelcast", "raftis", "rabbitmq")
 # each suite's own options beside SUITE_WORKLOADS': its partition nemesis,
 # and for faunadb and yugabyte no per-key pacing (0.1 s stagger and 0.5 s
 # delay; a 1 s stagger); each key keeps the suite's own per-key limits
@@ -445,15 +479,20 @@ SUITE_OPTS = {
     "dgraph": {"nemesis": ["partition-halves"]},
     "yugabyte": {"faults": ["partition"], "acid-stagger": 0},
     "faunadb": {"nemesis": ["single-node-partition"], "register-stagger": 0,
-                "register-delay": 0}}
+                "register-delay": 0},
+    "raftis": {"faults": ["partition"]}, "rabbitmq": {"faults": ["partition"]},
+    # ignite's keys take etcd's per-key limit: the workload's own default
+    # (none) leaves one key for the whole run
+    "ignite": {"faults": ["partition"],
+               "per-key-limit": SUITE_RUN["ops_per_key"]}}
 # the nemesis ops of each suite's bounded schedule (`cut_generator`), by
 # their fs: phase 12's start and stop, whose nemeses pick their own cut,
 # or, for the suites whose nemeses take a grudge, a start-partition of
 # the nodes in halves (`nemesis_op`) and a stop-partition
 SUITE_NEMESIS_FS = {
     "etcd": ("start", "stop"), "hazelcast": ("start", "stop"),
-    **dict.fromkeys(("dgraph", "yugabyte", "faunadb"),
-                    ("start-partition", "stop-partition"))}
+    **dict.fromkeys(("dgraph", "yugabyte", "faunadb", "raftis", "rabbitmq",
+                     "ignite"), ("start-partition", "stop-partition"))}
 # how long a fake's child process may take to start and to stop
 DATA_PLANE_START_S = 120
 DATA_PLANE_JOIN_S = 10
@@ -3452,7 +3491,7 @@ def fake_module(name: str):
 
 def start_data_plane(kind: str) -> tuple:
     """The fake data plane of a suite run, started in the calling
-    process (`data_plane`'s child): (its port, a function that stops
+    process (`data_planes`' child): (its port, a function that stops
     it)."""
     if kind == "hazelcast":
         from jepsen_tpu_torch.suites import cp_shim
@@ -3461,13 +3500,16 @@ def start_data_plane(kind: str) -> tuple:
     if kind == "etcd":
         fake = fake_module("fake_etcd").FakeEtcd()
         return fake.start(), fake.stop
-    if kind == "yugabyte":
+    if kind in ("yugabyte", "raftis"):
+        # tests/fake_cql.py and fake_resp.py import tests/netutil.py
         fake_module("netutil")
-        fake = fake_module("fake_cql").FakeCQLServer()
-    elif kind == "dgraph":
-        fake = fake_module("fake_dgraph").FakeDgraph()
-    else:
-        fake = fake_module("fake_fauna").FakeFauna()
+    name, cls = {"yugabyte": ("fake_cql", "FakeCQLServer"),
+                 "dgraph": ("fake_dgraph", "FakeDgraph"),
+                 "faunadb": ("fake_fauna", "FakeFauna"),
+                 "raftis": ("fake_resp", "FakeRedis"),
+                 "rabbitmq": ("fake_rabbitmq", "FakeRabbitMQ"),
+                 "ignite": ("fake_es_ignite", "FakeIgnite")}[kind]
+    fake = getattr(fake_module(name), cls)()
     return fake.port, fake.stop
 
 
@@ -3483,35 +3525,47 @@ def data_plane_child(kind: str, conn) -> None:
     stop()
 
 
-def data_plane(kind: str) -> tuple:
-    """A suite run's data plane, in a spawned child process of its own
+def data_planes(kinds) -> dict:
+    """Each kind's data plane in a spawned child process of its own
     (`start_data_plane`; the fake's server threads then do not share the
-    interpreter's lock with the clients): (its port, a function that
-    stops and joins it)."""
+    interpreter's lock with the clients), all started at once: {kind:
+    (its port, a function that stops and joins it)}."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
-    parent, child = ctx.Pipe()
-    proc = ctx.Process(target=data_plane_child, args=(kind, child),
-                       name=f"data-plane-{kind}", daemon=True)
-    proc.start()
-    child.close()
+    children = {}
 
-    def stop():
-        try:
-            parent.send("stop")
-        except OSError:
-            pass
-        proc.join(DATA_PLANE_JOIN_S)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-        parent.close()
+    def stopper(proc, parent):
+        def stop():
+            try:
+                parent.send("stop")
+            except OSError:
+                pass
+            proc.join(DATA_PLANE_JOIN_S)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            parent.close()
+        return stop
 
-    if not parent.poll(DATA_PLANE_START_S):
-        stop()
-        raise RuntimeError(f"{kind} data plane: no port in "
-                           f"{DATA_PLANE_START_S} s")
-    return parent.recv(), stop
+    for kind in kinds:
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=data_plane_child, args=(kind, child),
+                           name=f"data-plane-{kind}", daemon=True)
+        proc.start()
+        child.close()
+        children[kind] = parent, stopper(proc, parent)
+    out = {}
+    try:
+        for kind, (parent, stop) in children.items():
+            if not parent.poll(DATA_PLANE_START_S):
+                raise RuntimeError(f"{kind} data plane: no port in "
+                                   f"{DATA_PLANE_START_S} s")
+            out[kind] = parent.recv(), stop
+    except BaseException:
+        for _, stop in children.values():
+            stop()
+        raise
+    return out
 
 
 def suite_module(kind: str):
@@ -3520,8 +3574,8 @@ def suite_module(kind: str):
 
 
 def suite_opts(kind, dev, store_dir) -> dict:
-    """The options a user gives the suite's CLI for its phase 14 or 15
-    run: SUITE_WORKLOADS' workload, 5 nodes, concurrency 10, the
+    """The options a user gives the suite's CLI for its phase 14, 15 or
+    16 run: SUITE_WORKLOADS' workload, 5 nodes, concurrency 10, the
     suite's partition nemesis and SUITE_OPTS."""
     return {"nodes": list(RUN_NODES), "ssh": {"dummy": True},
             "concurrency": SUITE_RUN["concurrency"],
@@ -3532,10 +3586,14 @@ def suite_opts(kind, dev, store_dir) -> dict:
 def suite_wire(kind, port) -> dict:
     """The options pointing the suite's client at its data plane."""
     host = "127.0.0.1"
-    if kind in ("etcd", "hazelcast"):
+    url_fns = {"etcd": "client-url-fn", "hazelcast": "shim-url-fn",
+               "rabbitmq": "mgmt-url-fn", "ignite": "ignite-url-fn"}
+    if kind in url_fns:
         url = f"http://{host}:{port}"
-        return {"client-url-fn" if kind == "etcd" else "shim-url-fn":
-                lambda node: url}
+        return {url_fns[kind]: lambda node: url}
+    if kind == "raftis":
+        from jepsen_tpu_torch.suites import resp_proto
+        return {"resp-conn-fn": lambda node: resp_proto.Conn(host, port)}
     mod = suite_module(kind)
     if kind == "dgraph":
         return {"dgraph-conn-fn": lambda node: mod.DgraphConn(host, port)}
@@ -3548,7 +3606,7 @@ def suite_wire(kind, port) -> dict:
 def nemesis_op(f: str):
     """The op of f in a suite's nemesis schedule (SUITE_NEMESIS_FS): a
     start-partition cuts the nodes into two halves, in the grudge the
-    nemeses of phase 15's suites take."""
+    nemeses of phase 15's and 16's suites take."""
     from jepsen_tpu_torch.nemesis import partition
     if f != "start-partition":
         return {"type": "info", "f": f, "value": None}
@@ -3557,17 +3615,30 @@ def nemesis_op(f: str):
             partition.bisect(list(test["nodes"])))}
 
 
+def perf_maps(plot: dict) -> dict:
+    """A test map's plot options with a combined nemesis package's perf
+    specs, (name, start fs, stop fs, color) tuples, as the maps the perf
+    checker reads (`checker/perf.py: nemesis_ops`; ROADMAP F9)."""
+    return {**plot, "nemeses": [
+        n if isinstance(n, dict) else {"name": n[0], "start": set(n[1]),
+                                       "stop": set(n[2]), "color": n[3]}
+        for n in plot.get("nemeses") or ()]}
+
+
 def suite_invocations(kind) -> int:
-    return SUITE2_INVOCATIONS.get(kind, SUITE_RUN["invocations"])
+    return {**SUITE2_INVOCATIONS, **SUITE3_INVOCATIONS}.get(
+        kind, SUITE_RUN["invocations"])
 
 
 def suite_run_test(kind, dev, store_dir, remote, port) -> dict:
-    """The suite's own test map for phase 14 or 15: its generator
+    """The suite's own test map for phases 14-16: its generator
     replaced by `suite_invocations` of the workload's own generator
     without its pacing (dgraph's `gen.stagger(1/100, ...)` is stripped;
     faunadb's and yugabyte's are options, SUITE_OPTS sets them to 0)
     beside the bounded nemesis schedule (`cut_generator`), the remote,
-    `db.noop`, `os_.noop`, and the data plane at port."""
+    `db.noop`, `os_.noop`, the data plane at port, and the perf specs of
+    `std_test`'s nemesis package in the form the perf checker reads
+    (`perf_maps`)."""
     from jepsen_tpu_torch import db, os_
     from jepsen_tpu_torch import generator as gen
     mod = suite_module(kind)
@@ -3580,6 +3651,7 @@ def suite_run_test(kind, dev, store_dir, remote, port) -> dict:
         g = g.gen
     start, stop = map(nemesis_op, SUITE_NEMESIS_FS[kind])
     t.update({"remote": remote, "db": db.noop, "os": os_.noop,
+              "plot": perf_maps(t.get("plot") or {}),
               **suite_wire(kind, port),
               "generator": cut_generator(g, suite_invocations(kind),
                                          start=start, stop=stop)})
@@ -3610,7 +3682,7 @@ def strip_volatile(r):
 
 
 def cpu_suite_check(kind: str, run_dir: str) -> tuple:
-    """Phases 14 and 15's CPU path in a worker process: a card run's
+    """Phases 14-16's CPU path in a worker process: a card run's
     stored history (a keyed run's KVs re-wrapped, ROADMAP F6) checked by
     the suite's own workload checker on the CPU (its timelines written
     to a scratch store). Returns the result without its volatile
@@ -3622,7 +3694,7 @@ def cpu_suite_check(kind: str, run_dir: str) -> tuple:
     hist = store.load_test(run_dir)["history"]
     opts = suite_opts(kind, "cpu", None)
     threads = torch.get_num_threads()
-    if kind != "hazelcast":
+    if kind not in UNKEYED:
         hist = rekeyed(independent, hist)
     if kind == "etcd":
         # the phase's last check, alone in the pool for most of its run:
@@ -3662,7 +3734,7 @@ def key_walks(results: dict) -> dict:
 
 def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                 port, stop) -> tuple:
-    """One suite run of phase 14 or 15 through the port's core.run on
+    """One suite run of phases 14-16 through the port's core.run on
     the card against the data plane at port (stopped when the run
     ends), with every kernel's launch count set to 0 just before and
     read just after; its stored history goes to the CPU path in the
@@ -3688,7 +3760,9 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
         wall = time.perf_counter() - t0
         launches = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
     finally:
+        t1 = time.perf_counter()
         stop()
+        stop_s = time.perf_counter() - t1
     run_dir = os.path.dirname(store.path(done, "results.json"))
     job = pool.submit(cpu_suite_check, kind, run_dir)
     res = done["results"]
@@ -3705,8 +3779,8 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                workload_check_s=clock["workload_check_s"], ops=n_ops,
                ops_per_s=rate, nemesis_ops=len(nem), iptables=len(cut),
                k1_launches=launches[0], k2_launches=launches[1],
-               valid=w["valid?"])
-    if kind == "hazelcast":
+               valid=w["valid?"], plane_stop_s=stop_s)
+    if kind in UNKEYED:
         row.update({f: w.get(f) for f in (
             "analyzer", "dedup", "frontier-size", "max-frontier",
             "dense-shape", "closure-rounds", "dedup-launches",
@@ -3722,17 +3796,18 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                   f"{tot['groups']}, {tot['keys_alone']} keys walked "
                   f"alone {tot['analyzers']}")
         want = (tot["closure_rounds"], tot["dedup_launches"])
-    # a keyed run walks its registers with K1 whichever family its keys
-    # go to; the one register of hazelcast's may go to the sort family
-    walked = (row["k1_launches"] + row["k2_launches"] if kind == "hazelcast"
-              else row["k1_launches"])
-    launched = walked > 0 and (row["k1_launches"], row["k2_launches"]) == want
+    # a run walks with K1 whichever family its keys go to, but the one
+    # register of hazelcast's may go to the sort family
+    walked = row["k1_launches"] > 0 or (kind == "hazelcast"
+                                        and row["k2_launches"] > 0)
+    launched = walked and (row["k1_launches"], row["k2_launches"]) == want
     log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
         f"history ops ({rate:.0f} client ops/s), {len(nem)} nemesis ops, "
         f"{len(cut)} iptables commands, wall {wall:.3f} s (interpreter "
         f"{interp_s:.3f} s, check {row['check_s']:.3f} s, of which the "
         f"workload's on the card {row['workload_check_s']:.3f} s), K1 "
-        f"launches {row['k1_launches']}, K2 launches {row['k2_launches']}")
+        f"launches {row['k1_launches']}, K2 launches {row['k2_launches']}; "
+        f"data plane stopped in {stop_s:.3f} s")
     if res["valid?"] is not True or w["valid?"] is not True:
         raise AssertionError(f"{kind} suite run: {res['valid?']}, "
                              f"workload {w['valid?']}")
@@ -3769,7 +3844,10 @@ def drive_suites(kinds, dev, root, wgl_closure, wgl_dedup, pool) -> tuple:
     """`drive_suite` for each kind in turn, every data plane started at
     once first: the rows, and the CPU path's jobs."""
     out, cpu = {}, {}
-    planes = {kind: data_plane(kind) for kind in kinds}
+    t0 = time.perf_counter()
+    planes = data_planes(kinds)
+    log(f"data planes {', '.join(kinds)}: up in "
+        f"{time.perf_counter() - t0:.3f} s")
     try:
         for kind in kinds:
             out[kind], cpu[kind] = drive_suite(
@@ -3787,8 +3865,8 @@ def phase_suites(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
     under root (`drive_suites`); then the port's web UI over root. It
     also imports every module of the slice, so the script's closing
     guard covers them. Returns the rows and the CPU path's jobs, which
-    `same_as_cpu` holds the rows against after phase 15's runs (the
-    pool works through them beside those runs)."""
+    `same_as_cpu` holds the rows against after phase 16's runs (the
+    pool works through them beside phases 15 and 16's runs)."""
     import urllib.request
 
     from jepsen_tpu_torch import cli, repl, web
@@ -3861,6 +3939,37 @@ def phase_suites2(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
     return out, cpu
 
 
+def phase_suites3(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
+    """Phase 16: the raftis register, rabbitmq mutex and ignite register
+    maps, each the suite's own (client, checker compose, partition
+    nemesis), through the port's core.run on the card against
+    tests/fake_resp.py's FakeRedis, fake_rabbitmq.py and
+    fake_es_ignite.py's FakeIgnite, their runs stored under root
+    (`drive_suites`). It imports all nineteen modules of the slice, so
+    the script's closing guard covers them; zookeeper, consul and
+    mongodb-smartos have fakes that import the JAX package, so they run
+    only in the tests. Returns the rows and the CPU path's jobs, as
+    `phase_suites` does."""
+    from jepsen_tpu_torch.suites import (chronos, consul, crate, disque,
+                                         elasticsearch, galera, ignite,
+                                         logcabin, mongodb_smartos,
+                                         mysql_cluster, percona,
+                                         postgres_rds, rabbitmq, raftis,
+                                         resp_proto, robustirc, stolon,
+                                         zk_proto, zookeeper)
+    slice_modules = [m.__name__ for m in (
+        resp_proto, raftis, disque, rabbitmq, ignite, elasticsearch, crate,
+        chronos, galera, percona, mysql_cluster, stolon, postgres_rds,
+        logcabin, robustirc, mongodb_smartos, zk_proto, zookeeper,
+        consul)]
+    # the longest CPU checks first, so that they run beside the later runs
+    out, cpu = drive_suites(("raftis", "ignite", "rabbitmq"), dev, root,
+                            wgl_closure, wgl_dedup, pool)
+    out["modules"] = slice_modules
+    log(f"suites3: {len(slice_modules)} modules of the slice imported")
+    return out, cpu
+
+
 def write_report(path, report) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
@@ -3901,7 +4010,7 @@ def main() -> int:
     log(f"built {sorted(build_logs) or 'nothing (fresh)'}")
     phase_done("build")
 
-    # the CPU checks of phases 4, 6, 8, 9 and 11-15 run in worker
+    # the CPU checks of phases 4, 6, 8, 9 and 11-16 run in worker
     # processes (spawned: this process holds a CUDA context) beside the
     # card's runs; those that need nothing of the card's runs start now:
     # phase 8's dense stream, the main path's agreement runs and phase
@@ -3924,7 +4033,7 @@ def main() -> int:
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                cpu_batches, cpu_agree) -> int:
-    """Phases 2-16 of `main`, given the worker pool and its first jobs."""
+    """Phases 2-17 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
                                   telemetry)
@@ -4085,13 +4194,20 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         phase_done("suites")
 
         # -- phase 15: the dgraph, yugabyte and faunadb suites' registers --
-        # phase 14's CPU checks run in the pool beside these runs; both
-        # phases' runs are held against theirs after them
+        # phase 14's CPU checks run in the pool beside these runs
         suites2, suites2_cpu = phase_suites2(dev, wgl_closure, wgl_dedup,
+                                             pool, root)
+        phase_done("suites 2")
+
+        # -- phase 16: the raftis register, rabbitmq mutex, ignite register
+        # phases 14 and 15's CPU checks run in the pool beside these runs;
+        # the three phases' runs are held against theirs after them
+        suites3, suites3_cpu = phase_suites3(dev, wgl_closure, wgl_dedup,
                                              pool, root)
         same_as_cpu(suites, suites_cpu)
         same_as_cpu(suites2, suites2_cpu)
-    phase_done("suites 2, and both suite phases' CPU checks")
+        same_as_cpu(suites3, suites3_cpu)
+    phase_done("suites 3, and the three suite phases' CPU checks")
     log(f"phases: {sum(phase_s.values()):.1f} s in all")
 
     if any(m == "jax" or m.startswith("jax.") or m == "jepsen_tpu"
@@ -4127,6 +4243,10 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         # faunadb registers' composes)
         "suite2_launches": sum(suites2[k]["k1_launches"]
                                for k in ("yugabyte", "faunadb")),
+        # phase 16's single-object checks (the raftis register and the
+        # rabbitmq mutex)
+        "suite3_launches": sum(suites3[k]["k1_launches"]
+                               for k in ("raftis", "rabbitmq")),
         "stream_shape": [k1["shapes"][3]["S"], k1["shapes"][3]["P"]],
         "stream_shape_ms": k1["shapes"][3]["ms"],
         "stream_shape_bound_ms": k1["shapes"][3]["bound_ms"],
@@ -4155,6 +4275,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "suite_launches": suites["hazelcast"]["k2_launches"],
         "suite2_launches": sum(suites2[k]["k2_launches"]
                                for k in ("yugabyte", "faunadb")),
+        "suite3_launches": sum(suites3[k]["k2_launches"]
+                               for k in ("raftis", "rabbitmq")),
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
@@ -4191,6 +4313,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             # the dgraph suite's independent check (phase 15)
             "suite2_launches": suites2["dgraph"][
                 "k1_launches" if mod is wgl_closure else "k2_launches"],
+            # the ignite suite's independent check (phase 16)
+            "suite3_launches": suites3["ignite"][
+                "k1_launches" if mod is wgl_closure else "k2_launches"],
             "shape": shape,
             "shapes": (k1b if mod is wgl_closure else k2b)["shapes"]})
     if args.out:
@@ -4202,7 +4327,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,
             "search_chaos": search_chaos, "run_path": run_path,
-            "suites": suites, "suites2": suites2,
+            "suites": suites, "suites2": suites2, "suites3": suites3,
             "main_path": {k: {f: v for f, v in r.items()
                               if f not in ("configs", "final-paths", "op",
                                            "previous-ok")}

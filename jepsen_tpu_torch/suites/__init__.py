@@ -8,8 +8,8 @@ reference suite exposes `-main` via `jepsen.cli` (e.g.
 The port's copies of the JAX package's suites. Every checker a suite
 builds takes `device=opts.get("device")`: CUDA unless the options name
 another device (the suites' CLIs take ``--device``). `SUITES` names
-every suite of the JAX package; `suite(name)` of one the port has not
-ported yet raises `ModuleNotFoundError`, as its import would."""
+every suite of the JAX package, and `suite(name)` returns the port's
+module for each of them."""
 
 from __future__ import annotations
 

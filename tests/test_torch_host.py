@@ -490,25 +490,22 @@ def test_the_run_path_never_imports_jax_or_the_jax_package():
 
 
 _GUARD_SUITES = r"""
-import json, sys, tempfile, urllib.request
+import importlib, json, sys, tempfile, urllib.request
 from jepsen_tpu_torch import cli, core, db, os_, repl, web
 from jepsen_tpu_torch import __main__ as entry
-from jepsen_tpu_torch.suites import (SUITES, aerospike, as_proto, bson_proto,
-                                     cockroach, cp_shim, cql_proto, dgraph,
-                                     etcd, fauna_query, faunadb, hazelcast,
-                                     mongodb, mysql_proto, netutil,
-                                     pg_proto, reql_proto, rethinkdb, suite,
-                                     tidb, yugabyte)
-assert suite("etcd") is etcd and "zookeeper" in SUITES
-for name, mod in (("dgraph", dgraph), ("yugabyte", yugabyte),
-                  ("faunadb", faunadb), ("rethinkdb", rethinkdb)):
-    assert suite(name) is mod, name
-try:
-    suite("zookeeper")
-except ModuleNotFoundError:
-    pass
-else:
-    raise AssertionError("zookeeper is not ported yet")
+from jepsen_tpu_torch.suites import SUITES, cp_shim, hazelcast, suite
+# the protocol and helper modules beside the 27 suites
+HELPERS = ("as_proto", "bson_proto", "cp_shim", "cql_proto", "fauna_query",
+           "mysql_proto", "netutil", "pg_proto", "reql_proto", "resp_proto",
+           "zk_proto")
+mods = [importlib.import_module(f"jepsen_tpu_torch.suites.{name}")
+        for name in HELPERS + SUITES]
+assert len(set(mods)) == 38 and len(SUITES) == 27
+for name in SUITES:
+    mod = suite(name)
+    assert mod is sys.modules[f"jepsen_tpu_torch.suites.{name}"], name
+    assert callable(mod.main), name
+assert suite("postgres-rds") is suite("postgres_rds")
 server, port = cp_shim.serve()
 t = hazelcast.hazelcast_test({
     "nodes": ["n1", "n2", "n3"], "concurrency": 3, "ssh": {"dummy": True},
@@ -555,10 +552,10 @@ print("LEAKED", leaked)
 
 
 def test_the_suites_web_and_commands_never_import_jax_or_the_jax_package():
-    """The twenty suite and protocol modules, `web`, `repl` and
-    `cli.main` in a fresh interpreter (`suite` resolves the dgraph,
-    yugabyte, faunadb and rethinkdb suites, and not zookeeper): the
-    hazelcast cas-register map runs through core.run against the CP shim on the CPU, `repl` and
+    """The suites package and its 38 suite and protocol modules, `web`,
+    `repl` and `cli.main` in a fresh interpreter (`suite` resolves every
+    name in `SUITES` to the port's module): the hazelcast cas-register
+    map runs through core.run against the CP shim on the CPU, `repl` and
     the web UI read its store, the command runner refuses bad
     arguments with 254, and `staticcheck` runs the style and metrics
     analyzers with their exit codes."""
@@ -605,7 +602,15 @@ def test_port_sources_name_no_jax_import():
             "suites/aerospike.py", "suites/cql_proto.py",
             "suites/yugabyte.py", "suites/fauna_query.py",
             "suites/faunadb.py", "suites/dgraph.py",
-            "suites/reql_proto.py", "suites/rethinkdb.py"} <= names
+            "suites/reql_proto.py", "suites/rethinkdb.py",
+            "suites/zk_proto.py", "suites/zookeeper.py", "suites/consul.py",
+            "suites/resp_proto.py", "suites/raftis.py", "suites/disque.py",
+            "suites/rabbitmq.py", "suites/galera.py", "suites/percona.py",
+            "suites/mysql_cluster.py", "suites/stolon.py",
+            "suites/postgres_rds.py", "suites/logcabin.py",
+            "suites/robustirc.py", "suites/elasticsearch.py",
+            "suites/crate.py", "suites/ignite.py", "suites/chronos.py",
+            "suites/mongodb_smartos.py"} <= names
     for p in paths + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
@@ -614,3 +619,15 @@ def test_port_sources_name_no_jax_import():
                                      "import jepsen_tpu.",
                                      "from jepsen_tpu ",
                                      "from jepsen_tpu.")), (p, s)
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """The two package trees, module by module: the port has a file of
+    the same name for each of the JAX package's but the Pallas closure
+    kernel, which it ports as `checker/wgl_closure.py`."""
+    def tree(pkg):
+        return {p.relative_to(REPO / pkg).as_posix()
+                for p in (REPO / pkg).rglob("*.py")}
+    port = tree("jepsen_tpu_torch")
+    assert tree("jepsen_tpu") - port == {"checker/wgl_pallas.py"}
+    assert "checker/wgl_closure.py" in port

@@ -1,8 +1,8 @@
 """The mongodb cases of tests/test_suites_catalog.py (the document CAS
 client and its error classification against tests/fake_mongo.py, and a
 hermetic core.run of the register and set workloads) run on the port's
-mongodb suite. That file's other cases test suites the port has not
-ported yet, so their imports and cases are left out.
+mongodb suite. That file's other cases run in
+tests/test_torch_suites_catalog.py, so they are left out here.
 
 The suite's register workload checks on CUDA unless the opts name a
 device; an autouse fixture fills in device="cpu" when the opts given to
@@ -20,9 +20,7 @@ from jepsen_tpu_torch.suites import mongodb
 
 globals().update(torch_mirror.cases(
     "test_suites_catalog",
-    drop_statements=(r"^from jepsen_tpu\.suites import \(disque",
-                     r"^from jepsen_tpu\.suites\.resp_proto ",
-                     r"(?m)^def test_(?!mongodb)")))
+    drop_statements=(r"(?m)^def test_(?!mongodb)",)))
 
 
 @pytest.fixture(autouse=True)

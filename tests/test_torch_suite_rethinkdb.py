@@ -2,8 +2,8 @@
 through the port's `reql_proto`, the document CAS client, the DB
 commands over the dummy remote, and hermetic core.run runs of the
 document-cas workload, one against a fake that serves a phantom read)
-run on the port's rethinkdb suite. That file's other cases test suites
-the port has not ported yet, so their imports and cases are left out.
+run on the port's rethinkdb suite. That file's other cases run in
+tests/test_torch_suites_small.py, so they are left out here.
 
 The suite's document-cas workload checks on CUDA unless the opts name a
 device; an autouse fixture fills in device="cpu" when the opts given to
@@ -19,13 +19,9 @@ import pytest
 import torch_mirror
 from jepsen_tpu_torch.suites import rethinkdb
 
-_cases = torch_mirror.cases(
+globals().update(torch_mirror.cases(
     "test_suites_small",
-    drop_statements=(r"^from jepsen_tpu\.suites import \(logcabin",
-                     r"(?m)^def test_(?!reql|rethinkdb)"))
-# the dropped import also brought `rethinkdb`, which the kept cases use
-_cases["test_rethinkdb_hermetic_run"].__globals__["rethinkdb"] = rethinkdb
-globals().update(_cases)
+    drop_statements=(r"(?m)^def test_(?!reql|rethinkdb)",)))
 
 
 @pytest.fixture(autouse=True)

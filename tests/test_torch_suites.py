@@ -1,18 +1,20 @@
 """The port's suites against the JAX package's, side by side at a small
 size: the etcd register, hazelcast cas-register and lock, tidb append,
 dgraph linearizable-register, faunadb register, yugabyte
-ycql/single-key-acid and rethinkdb document-cas maps, each built by its
+ycql/single-key-acid, rethinkdb document-cas, raftis register, rabbitmq
+mutex and ignite register maps, each built by its
 suite in both packages under one generator seed at concurrency 1, with
 the map's time-limited generator replaced by a `gen.limit` over the
 same workload, one op in flight at a time, and no nemesis (the keyed
 register workloads take two threads per key, so they run two processes
 with one op in flight). Each run goes to a fresh fake of the suite's
 data plane (tests/fake_etcd.py, `suites.cp_shim`, tests/fake_mysql.py,
-fake_dgraph.py, fake_fauna.py, fake_cql.py, fake_rethinkdb.py). The two
-histories are equal op for op (all fields but `time`), and both
-packages' checkers give each stored history the same result, the
-port's on the CPU. Last, `chip_smoke.py`'s phase 14 and 15 maps (the
-etcd, hazelcast, dgraph, yugabyte and faunadb suites' own, concurrency
+fake_dgraph.py, fake_fauna.py, fake_cql.py, fake_rethinkdb.py,
+fake_resp.py, fake_rabbitmq.py, fake_es_ignite.py). The two histories
+are equal op for op (all fields but `time`), and both packages' checkers
+give each stored history the same result, the port's on the CPU. Last,
+`chip_smoke.py`'s phase 14-16 maps (the etcd, hazelcast, dgraph,
+yugabyte, faunadb, raftis, rabbitmq and ignite suites' own, concurrency
 10, a partition nemesis) run at a small size on the CPU against their
 CPU-path check."""
 
@@ -25,9 +27,12 @@ import torch
 import chip_smoke
 from fake_cql import FakeCQLServer
 from fake_dgraph import FakeDgraph
+from fake_es_ignite import FakeIgnite
 from fake_etcd import FakeEtcd
 from fake_fauna import FakeFauna
 from fake_mysql import FakeMySQLServer
+from fake_rabbitmq import FakeRabbitMQ
+from fake_resp import FakeRedis
 from fake_rethinkdb import FakeRethinkDB
 
 import jepsen_tpu.db as jdb
@@ -41,6 +46,7 @@ from jepsen_tpu.suites import cp_shim as jshim
 from jepsen_tpu.suites import cql_proto as jcql
 from jepsen_tpu.suites import mysql_proto as jmysql
 from jepsen_tpu.suites import reql_proto as jreql
+from jepsen_tpu.suites import resp_proto as jresp
 
 import jepsen_tpu_torch.db as tdb
 import jepsen_tpu_torch.os_ as tos
@@ -53,17 +59,19 @@ from jepsen_tpu_torch.suites import cp_shim as tshim
 from jepsen_tpu_torch.suites import cql_proto as tcql
 from jepsen_tpu_torch.suites import mysql_proto as tmysql
 from jepsen_tpu_torch.suites import reql_proto as treql
+from jepsen_tpu_torch.suites import resp_proto as tresp
 from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
 
 JAX = dict(core=jcore, gen=jgen, ind=jind, suites=jsuites, store=jstore,
            db=jdb, os_=jos, shim=jshim, mysql=jmysql, cql=jcql,
-           reql=jreql, opts={})
+           reql=jreql, resp=jresp, opts={})
 PORT = dict(core=tcore, gen=tgen, ind=tind, suites=tsuites, store=tstore,
             db=tdb, os_=tos, shim=tshim, mysql=tmysql, cql=tcql,
-            reql=treql, opts={"device": "cpu"})
+            reql=treql, resp=tresp, opts={"device": "cpu"})
 
 # the keyed register workloads: two threads per key on one node
-TWO_PROCESSES = ("etcd", "dgraph", "faunadb", "yugabyte", "rethinkdb")
+TWO_PROCESSES = ("etcd", "dgraph", "faunadb", "yugabyte", "rethinkdb",
+                 "ignite")
 # each suite's own options for the side-by-side run: no nemesis, and
 # no per-key pacing (faunadb's 0.1 s stagger and 0.5 s delay,
 # yugabyte's 1 s acid-stagger). faunadb's registers start nil, so a
@@ -75,7 +83,8 @@ SUITE_OPTS = {"dgraph": {"nemesis": [], "per-key-limit": 10,
                           "register-delay": 0, "ops-per-key": 30,
                           "fauna-conn-retry-delay": 0.0},
               "yugabyte": {"acid-stagger": 0},
-              "rethinkdb": {"per-key-limit": 10}}
+              "rethinkdb": {"per-key-limit": 10},
+              "ignite": {"per-key-limit": 10}}
 
 
 @pytest.fixture
@@ -139,6 +148,16 @@ def _data_plane(pkg, suite):
         conn = pkg["reql"].Conn
         return {"reql-conn-fn": lambda node: conn("127.0.0.1", f.port)}, \
             f.stop
+    if suite == "raftis":
+        f = FakeRedis()
+        conn = pkg["resp"].Conn
+        return {"resp-conn-fn": lambda node: conn("127.0.0.1", f.port)}, \
+            f.stop
+    if suite in ("rabbitmq", "ignite"):
+        f = FakeRabbitMQ() if suite == "rabbitmq" else FakeIgnite()
+        url = f"http://127.0.0.1:{f.port}"
+        return {"mgmt-url-fn" if suite == "rabbitmq" else "ignite-url-fn":
+                lambda node: url}, f.stop
     f = FakeMySQLServer()
     conn = pkg["mysql"].Conn
     return {"sql-conn-fn": lambda node: conn("127.0.0.1", f.port)}, f.stop
@@ -208,7 +227,8 @@ CASES = [("etcd", "register", True), ("hazelcast", "cas-register", False),
          ("dgraph", "linearizable-register", True),
          ("faunadb", "register", True),
          ("yugabyte", "ycql/single-key-acid", True),
-         ("rethinkdb", "document-cas", True)]
+         ("rethinkdb", "document-cas", True), ("raftis", "register", False),
+         ("rabbitmq", "mutex", False), ("ignite", "register", True)]
 
 
 @pytest.mark.parametrize("suite,workload,keyed", CASES,
@@ -250,10 +270,10 @@ class _Inline:
 
 
 @pytest.mark.parametrize("kind", ["etcd", "hazelcast", "dgraph", "yugabyte",
-                                  "faunadb"])
+                                  "faunadb", "raftis", "rabbitmq", "ignite"])
 def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
                                               _one_torch_thread, kind):
-    """`chip_smoke.py`'s phase 14 and 15 maps at a small size on the CPU,
+    """`chip_smoke.py`'s phase 14-16 maps at a small size on the CPU,
     through `drive_suite` with each fake in a child process of its own:
     the suite's own map with its client, partition nemesis and checker
     compose, valid, its nemesis ops and iptables cuts there, its plain
@@ -263,8 +283,9 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
     (`cpu_suite_check`)."""
     monkeypatch.setattr(chip_smoke, "SUITE_RUN", dict(
         chip_smoke.SUITE_RUN, invocations=400))
-    monkeypatch.setattr(chip_smoke, "SUITE2_INVOCATIONS", dict.fromkeys(
-        chip_smoke.SUITE2_INVOCATIONS, 400))
+    for counts in ("SUITE2_INVOCATIONS", "SUITE3_INVOCATIONS"):
+        monkeypatch.setattr(chip_smoke, counts, dict.fromkeys(
+            getattr(chip_smoke, counts), 400))
     monkeypatch.setattr(chip_smoke, "RUN_NEMESIS_S", 1.0)
     monkeypatch.setattr(chip_smoke, "RUN_NEMESIS_CYCLE_S", 0.2)
     # one torch thread throughout, the CPU path's etcd check too
@@ -281,7 +302,7 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
         monkeypatch.setattr(mod, name, counted)
     row, job = chip_smoke.drive_suite(
         kind, "cpu", str(tmp_path), wgl_closure, wgl_dedup, _Inline(),
-        *chip_smoke.data_plane(kind))
+        *chip_smoke.data_planes([kind])[kind])
     assert row["ops"] == 2 * 400 + row["nemesis_ops"] and row["iptables"]
     assert row["k1_launches"] > 0 and row["k2_launches"] == 0
     assert 0 < row["workload_check_s"] <= row["check_s"]
@@ -289,3 +310,45 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
         # a compose per key: each key is walked alone
         assert row["keys_alone"] == row["keys"] and not row["groups"]
     chip_smoke.same_as_cpu({kind: row}, {kind: job})
+
+
+def _std_partition_run(pkg, tmp_path, plot=None):
+    """The raftis register map as `std_test` builds it under its default
+    partition fault (a `nemesis.combined` package), a second long,
+    against a fresh FakeRedis over the dummy remote; `plot` rewrites
+    the map's plot options first."""
+    wire, stop = _data_plane(pkg, "raftis")
+    try:
+        t = pkg["suites"].suite("raftis").raftis_test({
+            "nodes": ["n1", "n2", "n3"], "concurrency": 3,
+            "ssh": {"dummy": True}, "rate": 200, "time-limit": 1,
+            "nemesis-interval": 0.2, "store-dir": str(tmp_path),
+            **pkg["opts"]})
+        t.update(wire, db=pkg["db"].noop, os=pkg["os_"].noop,
+                 remote=chip_smoke.getent_remote())
+        if plot is not None:
+            t["plot"] = plot(t["plot"])
+        return pkg["core"].run(t)["results"]
+    finally:
+        stop()
+
+
+def test_combined_perf_specs_end_a_std_test_run_unknown(tmp_path):
+    """ROADMAP F9, the reference's own behaviour: `nemesis.combined`'s
+    packages give their perf specs as (name, start, stop, color)
+    tuples, which `std_test` hands the perf checker as the plot's
+    nemeses, and the perf checker reads only maps, so a std_test map
+    with a fault ends `unknown` in both packages though its workload is
+    valid. `chip_smoke.perf_maps` gives the port's run the maps, and
+    then the run is valid."""
+    for name, pkg in (("port", PORT), ("jax", JAX)):
+        r = _std_partition_run(pkg, tmp_path / name)
+        assert r["valid?"] == "unknown", (name, r["valid?"])
+        assert r["workload"]["valid?"] is True
+        errors = [v["error"] for v in r["perf"].values()
+                  if isinstance(v, dict) and "error" in v]
+        assert r["perf"]["valid?"] == "unknown" and errors
+        assert all("'tuple' object has no attribute 'get'" in e
+                   for e in errors)
+    r = _std_partition_run(PORT, tmp_path / "maps", chip_smoke.perf_maps)
+    assert r["valid?"] is True and r["perf"]["valid?"] is True, r
