@@ -28,11 +28,23 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      headline with the default phantom read, a 10k-op counter history,
      the concurrency-11 history and the adversarial history, the last two
      under a wall-time budget), with every kernel's launch count set to 0
-     just before and read just after; then hold verdicts, culprit ops,
-     counts and final carries against the port's own CPU path (run in a
-     worker process from the end of phase 1 on), and trace
-     the first 250 steps of four walks with torch.profiler for the
-     device's busy share;
+     just before and read just after (each dense walk launches K3, the
+     dense step walk, whose reported rounds are the result's
+     closure-rounds, and never K1 alone; K2 on the hash route); then hold
+     verdicts, culprit ops, counts (a dense walk's host syncs are K3's,
+     fewer than the CPU path's) and final carries against the port's
+     own CPU path (run in a worker process from the end of phase 1 on),
+     and trace the first 250 steps of four walks with torch.profiler for
+     the device's busy share;
+ 4b. hold K3 against the eager walk, its plain version, on the card: the
+     headline, the adversarial and concurrency-11 histories forced
+     dense, the hazelcast batch's four dense groups (batched), the dense
+     stream's first three chunks and a rabbitmq-shaped mutex (S = 4,
+     P = 3), each with its final carry equal element for element and its
+     rounds equal; each walk's wall both ways with host syncs and
+     launches, and torch.profiler traces of the headline and the
+     hazelcast batch's largest group (both ways on the profile prefix,
+     K3 over the whole walk) for the device's busy share;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
      and at P = 0-3 and 19 with B = 4; K2 on all four outputs at
@@ -43,7 +55,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
   6. drive the batch path — `analysis_gpu_batch` and the independent
      checker over a key-sharded history — at full size: the hazelcast
      shape (100 keys of 500 register ops, three corrupted, dense groups
-     P = 4-10, K1 batched) and 32 counter keys on the sort family's hash
+     P = 4-10, K3 batched) and 32 counter keys on the sort family's hash
      route (two corrupted, K2 batched on both routes), with every
      kernel's launch count set to 0 just before each run and read just
      after; then the dense batch again under an injected OOM (the
@@ -61,7 +73,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      bound, and 1,000-node rings against the CPU path; the G1c history
      again under an injected OOM (one retry, the same result);
   8. the streaming-and-tier phase, five runs at full size: the
-     adversarial history streamed on the dense engine (16 slots, K1 at
+     adversarial history streamed on the dense engine (16 slots, K3 at
      (8, 16)); a register history with a phantom read streamed op by op
      on the sort engine's hash route (K2) until the violation shows; the
      dense stream again with a checkpoint every 2 chunks under a device
@@ -69,7 +81,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      the 10,000-txn rw-register history through WrStream; and the
      headline at tier 'screen' (sample 0 and 1) and under the
      competition race. Every kernel's launch count is set to 0 just
-     before each stream and read just after (K1 and K2 must launch);
+     before each stream and read just after (K3 and K2 must launch);
      each WGL stream's final carry is held against the offline walk of
      its engine on the card, each result against the CPU path's (the
      dense stream through the first chunk of its full-size run), and feed,
@@ -77,9 +89,9 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      runs in a worker process from the end of phase 1 on);
   9. the verification service on the card: one VerificationService, 16
      streams of a 1,000-op register history fed from 16 threads (streams
-     0-7 dense, K1; 8-15 packed sort on the hash route, K2; streams 5 and
+     0-7 dense, K3; 8-15 packed sort on the hash route, K2; streams 5 and
      13 invalid), every kernel's launch count set to 0 just before the
-     16-stream run and read just after, each stream's own K1/K2 counts
+     16-stream run and read just after, each stream's own K3/K2 counts
      adding up to them, each result equal to the stream alone on the card
      and on the CPU path (in worker processes; the dense streams on their
      first 400 history ops, three chunks and a checkpoint); the wall and
@@ -90,20 +102,20 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      and two ServiceClients over the socket with /metrics and /healthz;
  10. the sharded phase: over a one-rank NCCL group on the card,
      check_batch_sharded of phase 6's hazelcast batch (per_key equal to
-     phase 6's verdicts, the JAX package's group plan, K1 launched),
+     phase 6's verdicts, the JAX package's group plan, K3 launched),
      of its counter batch (K2 launched) and of the hazelcast batch again
      under an injected OOM (the split), list_append.check of phase 7's
      G1c history over the mesh (equal to phase 7's result), and the
      closure of a 4,096-node ring with and without the mesh, every
      collective on CUDA tensors; then four gloo ranks sharing the card,
      each building both kernels afresh into one directory at once and
-     walking its block of the hazelcast batch through K1 (every rank's
+     walking its block of the hazelcast batch through K3 (every rank's
      result equal to the one-rank run's); dryrun_multichip(4) on the
      card; and entry() on the card against the CPU path;
  11. the search-and-chaos phase: the scenario search's pinned
      planted-bug find (phased-register, seed 2) with its batch
      escalation auditing clean histories through analysis_gpu_batch
-     (dense groups, K1 batched), a register search escalating through an
+     (dense groups, K3 batched), a register search escalating through an
      in-process VerificationService on the card, and run_chaos on both
      chaos workloads (every oracle green), every kernel's launch count
      set to 0 just before each run and read just after, each result
@@ -115,9 +127,9 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      dummy remote, all on the card: the etcd suite's register test map
      (5 nodes, concurrency 10, 5,000 invocations over about 10 keys of
      500, a partition nemesis, the etcd checker compose) with an
-     in-process keyed CAS client, its independent check launching K1
+     in-process keyed CAS client, its independent check launching K3
      batched; a 10,000-invocation single-register run with `online`,
-     its dense stream launching K1 during the run and `analyze`
+     its dense stream launching K3 during the run and `analyze`
      reusing the streamed verdict; the same at 20,000 invocations with
      a lying client and `abort-on-violation`, stopping early; and the CLI's `test` and
      `analyze` on a 2,000-invocation register map, both exiting 0 with
@@ -133,7 +145,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      and then (one version back); the monotonic run must end invalid
      with G-single-realtime and the sequential one with
      G-single-process, each after at least one classifier call on the
-     card and none of K1 or K2, with the classifier's call count and
+     card and none of K1, K2 or K3, with the classifier's call count and
      every kernel's launch count set to 0 just before each run and read
      just after; each workload result is held, whole, against the CPU
      path's check of the run's stored history in a worker process;
@@ -146,8 +158,8 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      (`suites/cp_shim.py`), both through `core.run` over the dummy
      remote with `db.noop` and `os_.noop`, every kernel's launch count
      set to 0 just before each run and read just after (the etcd run's
-     independent check launches K1 batched; the hazelcast run's single
-     check K1 or K2); each workload result held, whole but for its
+     independent check launches K3 batched; the hazelcast run's single
+     check K3 or K2); each workload result held, whole but for its
      device and duration, against the CPU path's check of the run's
      stored history in a worker process; then the port's web UI
      (`web.serve`) over the phase's store, whose home page lists both
@@ -163,7 +175,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      14's (SUITE2_INVOCATIONS) and without the workloads' own pacing,
      through `core.run` on the card with every kernel's launch count
      set to 0 just before each run and read just after (dgraph's
-     independent check launches K1 batched; yugabyte's and faunadb's
+     independent check launches K3 batched; yugabyte's and faunadb's
      composes walk each key alone); each workload result held against
      the CPU path's as in phase 14. The phase imports the seven
      modules of the slice;
@@ -176,8 +188,8 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      nemesis of its `std_test` and its checker compose, cut as phase
      15's (SUITE3_INVOCATIONS), through `core.run` on the card with
      every kernel's launch count set to 0 just before each run and read
-     just after (raftis's and rabbitmq's single checks launch K1
-     unbatched, ignite's independent check K1 batched); each workload
+     just after (raftis's and rabbitmq's single checks launch K3
+     unbatched, ignite's independent check K3 batched); each workload
      result held against the CPU path's as in phase 14. Phases 14-16 run
      each fake in a spawned child process of its own (`data_planes`), and
      hold their runs against the CPU path after phase 16's runs, so that
@@ -223,6 +235,10 @@ COUNTER = dict(n_ops=10_000, seed=SEED)
 # wall-time budgets of the two escalating sort runs (analysis_gpu's
 # budget_s), and their chunk size, so that the budget is read often
 AT_CAP_BUDGET_S = 90
+# phase 4b: the rabbitmq-shaped mutex's ops (the suite's run holds about
+# 12,000 history ops) and the dense stream's chunks K3 walks both ways
+K3_MUTEX_OPS = 6_000
+K3_STREAM_CHUNKS = 3
 ADVERSARIAL_BUDGET_S = 150
 BUDGET_CHUNK = 1024
 # every P from 0 to 19: P <= 3 is the byte-per-thread path, P = 0-3
@@ -286,7 +302,7 @@ ELLE_FLAGS = ("G0", "G1c", "G-single", "G2-item")
 # the streaming-and-tier phase (bench.py's streaming and recovery
 # sections at N_OPS = 10,000): the adversarial history streamed on the
 # dense engine with the register's state range declared up front and a
-# concurrency hint of 12 (16 slots: K1 at (8, 16)); the register history
+# concurrency hint of 12 (16 slots: K3 at (8, 16)); the register history
 # corrupted by a phantom read of 10**6 streamed on the sort engine op by
 # op until the violation shows, with the phantom inside the declared
 # range so that the config packs at 8 slots and the dedup is the hash
@@ -318,7 +334,7 @@ STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device", "host-syncs",
 # 16 streams of register_history(1_000, concurrency=5, values=5,
 # crash_rate=0.0005, seed=300 + i), fed from 16 threads; streams 0-7 dense
 # (engine 'auto', state range [-1, 4], concurrency hint 5: S = 8, P = 16,
-# K1), streams 8-15 packed sort on the hash route (state range
+# K3), streams 8-15 packed sort on the hash route (state range
 # [-1, 10**6], 8 slots: K2); streams 5 and 13 invalid by one read changed
 # to 4 and to 999 (corrupt seeds 31 and 2: the changed reads are history
 # ops 38 and 159). A checkpoint every 2 chunks; chunks of 64 steps, the
@@ -361,9 +377,9 @@ SHARDED_JOIN_S = 300
 # JAX package's pinned planted-bug find (seed 2 finds the kill-AND-
 # partition lost write at simulation 56 of 78) with the batch escalation
 # and an audit sample of clean histories, which analysis_gpu_batch walks
-# in dense groups (K1 batched); a wall budget per escalation wide enough
+# in dense groups (K3 batched); a wall budget per escalation wide enough
 # that neither the card nor the CPU path cuts a walk short, so both
-# launch K1 as often; a small register search escalating through an
+# walk as many rounds; a small register search escalating through an
 # in-process service on the card; the chaos harness on its fixed
 # workload (sort engine, 8 slots, F = 128: the xla-sort route, as in the
 # JAX package) for both workloads; and the chaos command as a user runs
@@ -500,6 +516,151 @@ DATA_PLANE_JOIN_S = 10
 SUITE_VOLATILE = ("device", "duration-ms")
 
 
+def mutex_history(n_ops, concurrency=3, seed=SEED):
+    """A valid mutex history shaped like the rabbitmq suite's: each of
+    `concurrency` processes acquires, or releases what it holds; an
+    acquire completes ok when the lock is free and fails when it is held
+    (the suite's client fails it). States 0 and 1 (S = 4), P =
+    concurrency."""
+    import random
+
+    from jepsen_tpu_torch.history import History
+    rng = random.Random(seed)
+    ops, t, holder, emitted = [], 0, None, 0
+    inflight = [None] * concurrency
+    while emitted < n_ops or any(f is not None for f in inflight):
+        p = rng.randrange(concurrency)
+        t += rng.randint(1, 10)
+        f = inflight[p]
+        if f is not None:
+            ok = f == "release" or holder is None
+            holder = (p if f == "acquire" else None) if ok else holder
+            ops.append({"type": "ok" if ok else "fail", "f": f,
+                        "value": None, "process": p, "time": t})
+            inflight[p] = None
+        elif emitted < n_ops:
+            inflight[p] = "release" if holder == p else "acquire"
+            ops.append({"type": "invoke", "f": inflight[p], "value": None,
+                        "process": p, "time": t})
+            emitted += 1
+    return History(ops)
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count, and the closure rounds K3 ran, to
+    0."""
+    from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
+    wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+    wgl_walk.LAUNCHES = wgl_walk.ROUNDS = 0
+
+
+def launch_counts() -> dict:
+    """The launch counts since `zero_launches`: K1's and K2's, K3's (the
+    dense walk) and the closure rounds K3 ran, which stand for the dense
+    walks' rounds (K1's launches before K3 took the walk)."""
+    from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
+    return {"k1_launches": wgl_closure.LAUNCHES,
+            "k2_launches": wgl_dedup.LAUNCHES,
+            "k3_launches": wgl_walk.LAUNCHES, "k3_rounds": wgl_walk.ROUNDS}
+
+
+class WalkSyncs:
+    """The host reads of the dense walks in this process, by engine shape
+    "s_lo,S,P": K3's walks (`DenseKernel._walk_k3`) and the eager walks
+    (`run_range_eager`, `run_range_batch_eager`: the CPU path's, and the
+    card's in the K3 phase). A K3 walk must read the host once to start
+    and once at the end of each of its launches; `hold` refuses any walk
+    that read otherwise. Launches are counted per thread, so walks in
+    other threads do not blur a walk's count. Install with
+    `walk_syncs()`."""
+
+    def __init__(self, wgl, wgl_walk):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.k3 = collections.Counter()
+        self.eager = collections.Counter()
+        self.calls = self.launches = 0
+        self.bad = []
+        D = wgl.DenseKernel
+        real_launch, real_k3 = wgl_walk.launch, D._walk_k3
+
+        def launch(*a, **kw):
+            out = real_launch(*a, **kw)
+            self.local.n = getattr(self.local, "n", 0) + 1
+            return out
+
+        def walk_k3(k, *a):
+            s0, self.local.n = k.syncs, 0
+            out = real_k3(k, *a)
+            reads, n = k.syncs - s0, self.local.n
+            with self.lock:
+                self.k3[self.shape(k)] += reads
+                self.calls += 1
+                self.launches += n
+                if reads != 1 + n:
+                    self.bad.append((self.shape(k), reads, n))
+            return out
+
+        def eager(real):
+            def walk(k, *a):
+                s0 = k.syncs
+                out = real(k, *a)
+                with self.lock:
+                    self.eager[self.shape(k)] += k.syncs - s0
+                return out
+            return walk
+
+        wgl_walk.launch = launch
+        D._walk_k3 = walk_k3
+        D.run_range_eager = eager(D.run_range_eager)
+        D.run_range_batch_eager = eager(D.run_range_batch_eager)
+
+    @staticmethod
+    def shape(k) -> str:
+        return f"{k.s_lo},{k.S},{k.P}"
+
+    def snap(self) -> tuple:
+        with self.lock:
+            return (collections.Counter(self.k3),
+                    collections.Counter(self.eager), self.calls,
+                    self.launches)
+
+    def since(self, snap) -> dict:
+        """The reads, K3 calls and launches since `snap`: {"k3": {shape:
+        reads}, "eager": {shape: reads}, "calls", "launches"}."""
+        k3, eager, calls, launches = self.snap()
+        return {"k3": dict(k3 - snap[0]), "eager": dict(eager - snap[1]),
+                "calls": calls - snap[2], "launches": launches - snap[3]}
+
+    def hold(self) -> None:
+        if self.bad:
+            raise AssertionError(f"K3 walks whose host reads are not one "
+                                 f"to start and one a launch (shape, "
+                                 f"reads, launches): {self.bad[:5]}")
+
+
+_WALK_SYNCS = None
+
+
+def walk_syncs() -> WalkSyncs:
+    """This process's WalkSyncs, installed at the first call."""
+    global _WALK_SYNCS
+    if _WALK_SYNCS is None:
+        from jepsen_tpu_torch.checker import wgl, wgl_walk
+        _WALK_SYNCS = WalkSyncs(wgl, wgl_walk)
+    return _WALK_SYNCS
+
+
+def same_syncs_but_walks(label, g_syncs, g_k3, c_syncs, c_eager) -> None:
+    """Hold a card result's host reads to the CPU path's: K3's walks read
+    the host once to start and once a window (`WalkSyncs.hold`), the
+    eager walks every round, and every other read is the same on both."""
+    if g_syncs - g_k3 != c_syncs - c_eager or not g_syncs < c_syncs:
+        raise AssertionError(f"{label}: {g_syncs} host syncs on the card "
+                             f"({g_k3} in K3 walks), {c_syncs} on the CPU "
+                             f"path ({c_eager} in eager walks)")
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -609,7 +770,8 @@ def k1_l2_bytes(S, P, mft) -> int:
 
 def real_k1_inputs(wgl, model, hist, dev, steps, keep=8):
     """The (table, mft) pairs of the last `keep` closure rounds in the
-    first `steps` merged steps of the dense walk: real inputs of K1."""
+    first `steps` merged steps of the dense walk (the eager walk, which
+    launches K1 a round): real inputs of K1."""
     seen = collections.deque(maxlen=keep)
     kernel = wgl.closure_round
 
@@ -619,7 +781,7 @@ def real_k1_inputs(wgl, model, hist, dev, steps, keep=8):
 
     wgl.closure_round = record
     try:
-        prefix_walk(wgl, model, hist, dev, engine="dense")(steps)
+        prefix_walk(wgl, model, hist, dev, eager=True, engine="dense")(steps)
         torch.cuda.synchronize()
     finally:
         wgl.closure_round = kernel
@@ -1048,7 +1210,7 @@ def no_stamps(label, results) -> None:
                                  f"{r.get('recovered')} {r.get('error')}")
 
 
-def run_batch(label, fn, wgl, wgl_closure, wgl_dedup, carry_to_numpy):
+def run_batch(label, fn, wgl, wgl_dedup, carry_to_numpy):
     """One run of the batch path with every kernel's launch count set to
     0 just before and read just after, and each group walk's final
     batched carry kept (host copies, in walk order)."""
@@ -1061,9 +1223,9 @@ def run_batch(label, fn, wgl, wgl_closure, wgl_dedup, carry_to_numpy):
         return carry
 
     wgl._batch_walk = record
-    wgl_closure.LAUNCHES = 0
-    wgl_dedup.LAUNCHES = 0
+    zero_launches()
     cuda0 = wgl_dedup.cuda_launches()
+    snap = walk_syncs().snap()
     try:
         t = time.perf_counter()
         rs = fn()
@@ -1072,15 +1234,16 @@ def run_batch(label, fn, wgl, wgl_closure, wgl_dedup, carry_to_numpy):
     finally:
         wgl._batch_walk = walk
     tot = walk_totals(rs)
-    rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
-               k2_launches=wgl_dedup.LAUNCHES,
+    rec = dict(wall_s=wall, **launch_counts(),
+               walk_reads=walk_syncs().since(snap),
                k2_cuda_launches=wgl_dedup.cuda_launches() - cuda0,
                verdicts=[r["valid?"] for r in rs],
                invalid=[i for i, r in enumerate(rs) if r["valid?"] is False],
                op_index={i: r.get("op-index") for i, r in enumerate(rs)
                          if r["valid?"] is False}, **tot)
-    log(f"batch {label}: {len(rs)} keys, wall {wall:.3f} s, K1 launches "
-        f"{rec['k1_launches']}, K2 launches {rec['k2_launches']} "
+    log(f"batch {label}: {len(rs)} keys, wall {wall:.3f} s, K3 launches "
+        f"{rec['k3_launches']} ({rec['k3_rounds']} rounds), K2 launches "
+        f"{rec['k2_launches']} "
         f"({rec['k2_cuda_launches']} CUDA launches), host syncs "
         f"{tot['host_syncs']}, groups [kind, shape..., keys] "
         f"{tot['groups']}, invalid keys {rec['op_index']}")
@@ -1089,9 +1252,9 @@ def run_batch(label, fn, wgl, wgl_closure, wgl_dedup, carry_to_numpy):
 
 def check_batch(label, rs, rec, bad, dense) -> None:
     """Hold a batch run to what its histories are: the corrupted keys
-    invalid with an op-index, the rest valid, K1 launched on the dense
-    groups and K2 on the sort group's hash route, each as often as the
-    walks counted."""
+    invalid with an op-index, the rest valid, K3 launched on the dense
+    groups (its rounds the walks' count, K1 never alone) and K2 on the
+    sort group's hash route as often as the walks counted."""
     if rec["invalid"] != sorted(bad) or any(
             not isinstance(rec["op_index"][i], int) for i in bad):
         raise AssertionError(f"{label}: invalid keys {rec['op_index']}")
@@ -1100,15 +1263,17 @@ def check_batch(label, rs, rec, bad, dense) -> None:
     if any(r["analyzer"] != "gpu-wgl-batch" or r["device"] != "cuda"
            for r in rs):
         raise AssertionError(f"{label}: a key left the batch path")
-    k1, k2 = rec["k1_launches"], rec["k2_launches"]
+    k1, k2, k3 = rec["k1_launches"], rec["k2_launches"], rec["k3_launches"]
     if dense:
-        if k1 <= 0 or k1 != rec["closure_rounds"] or k2 != 0 \
-                or any(g[0] != "dense" for g in rec["groups"]):
-            raise AssertionError(f"{label}: K1 {k1} for "
-                                 f"{rec['closure_rounds']} rounds, K2 {k2}")
+        if k3 <= 0 or rec["k3_rounds"] != rec["closure_rounds"] or k1 != 0 \
+                or k2 != 0 or any(g[0] != "dense" for g in rec["groups"]):
+            raise AssertionError(f"{label}: K3 {k3} with {rec['k3_rounds']}"
+                                 f" rounds for {rec['closure_rounds']}, K1 "
+                                 f"{k1}, K2 {k2}")
         return
     singles = (5 * k2 - rec["k2_cuda_launches"]) // 4
-    if k1 != 0 or k2 <= 0 or k2 != rec["dedup_launches"] or singles <= 0 \
+    if k1 != 0 or k3 != 0 or k2 <= 0 or k2 != rec["dedup_launches"] \
+            or singles <= 0 \
             or singles >= k2 or any(r["dedup"] != "pallas-hash" for r in rs):
         raise AssertionError(f"{label}: K1 {k1}, K2 {k2} "
                              f"({rec['k2_cuda_launches']} CUDA launches) for "
@@ -1119,12 +1284,26 @@ BATCH_AGREE_KEYS = ("valid?", "op-index", "max-frontier", "dedup",
                     "analyzer", "op-count", "batch-walk")
 
 
+def without_dense_syncs(fields: dict) -> dict:
+    """A key's compared fields without its batch walk's host syncs where
+    the walk is dense: K3 reads the host once a window, the CPU path's
+    eager walk every round, so those counts differ by design, and every
+    K3 walk on the card is held to its own count (`WalkSyncs.hold`, at
+    each phase's end); every other walk count is the same on both."""
+    walk = fields.get("batch-walk")
+    if not walk or walk["group"][0] != "dense":
+        return fields
+    return dict(fields, **{"batch-walk": {k: v for k, v in walk.items()
+                                          if k != "host-syncs"}})
+
+
 def cpu_batch(kind: str) -> tuple:
     """Phase 6's CPU path in a worker process: the hazelcast ("dense") or
     the counter ("sort") batch through analysis_gpu_batch on the CPU,
     with each group walk's final batched carry. It needs nothing of the
-    card's run. Returns each key's compared fields, the carries and the
-    seconds it took."""
+    card's run. Returns each key's compared fields, the carries, the
+    seconds it took and the host reads of its eager dense walks by
+    engine shape."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl
@@ -1140,10 +1319,11 @@ def cpu_batch(kind: str) -> tuple:
         return carry
 
     wgl._batch_walk = record
+    snap = walk_syncs().snap()
     rs = wgl.analysis_gpu_batch(model, hists, device="cpu",
                                 slots=BATCH_SLOTS)
     return ([{k: r.get(k) for k in BATCH_AGREE_KEYS} for r in rs], carries,
-            time.perf_counter() - t)
+            time.perf_counter() - t, walk_syncs().since(snap)["eager"])
 
 
 def same_carries(label, a, b) -> None:
@@ -1156,7 +1336,7 @@ def same_carries(label, a, b) -> None:
                                      f"differs")
 
 
-def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+def phase_batch(dev, models, synth, wgl, wgl_dedup,
                 independent, linearizable, platform, carry_to_numpy,
                 cpu_batches) -> dict:
     """The batch path at full size on the card, under injection, and
@@ -1167,7 +1347,7 @@ def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
     out = {}
 
     def run(label, fn):
-        return run_batch(label, fn, wgl, wgl_closure, wgl_dedup,
+        return run_batch(label, fn, wgl, wgl_dedup,
                          carry_to_numpy)
 
     dense_rs, out["dense"], dense_carries = run(
@@ -1237,8 +1417,22 @@ def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
     for label, kind, g_rs, g_carries in (
             ("hazelcast", "dense", dense_rs, dense_carries),
             ("counter", "sort", sort_rs, sort_carries)):
-        c_rs, c_carries, cpu_s = cpu_batches[kind].result()
+        c_rs, c_carries, cpu_s, c_eager = cpu_batches[kind].result()
+        g_k3 = out[kind]["walk_reads"]["k3"]
         for i, (a, b) in enumerate(zip(g_rs, c_rs)):
+            a, b = dict(a), dict(b)
+            if kind == "dense":
+                # K3 reads the host once a window, the CPU path's eager
+                # walk at every round: every other read and walk count
+                # is equal
+                a["batch-walk"], b["batch-walk"] = (
+                    dict(a["batch-walk"]), dict(b["batch-walk"]))
+                ga, gb = (a["batch-walk"].pop("host-syncs"),
+                          b["batch-walk"].pop("host-syncs"))
+                shape = ",".join(map(str, a["batch-walk"]["group"][1:]))
+                same_syncs_but_walks(f"{label} key {i}", ga,
+                                     g_k3.get(shape, 0), gb,
+                                     c_eager.get(shape, 0))
             for key in BATCH_AGREE_KEYS:
                 if a.get(key) != b.get(key):
                     raise AssertionError(f"{label} key {i}: {key} gpu "
@@ -1246,7 +1440,8 @@ def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
         same_carries(label, g_carries, c_carries)
         out[f"{label}_cpu_s"] = cpu_s
         log(f"{label} batch: GPU and CPU agree on every key (verdict, "
-            f"op-index, max-frontier, dedup, walk counts) and on the final "
+            f"op-index, max-frontier, dedup, walk counts; host syncs but "
+            f"for the walks' own) and on the final "
             f"batched carry of each of {len(g_carries)} group walks; CPU "
             f"path {cpu_s:.3f} s in a worker process")
     out["cpu_agreement_wait_s"] = time.perf_counter() - t0
@@ -1268,10 +1463,11 @@ def phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
     return out
 
 
-def batch_prefix_walk(wgl, model, hists, device):
+def batch_prefix_walk(wgl, model, hists, device, eager=False):
     """A function walking the first n lockstep steps of the batch's
-    largest dispatch group, as analysis_gpu_batch's walk does, and the
-    group's key count."""
+    largest dispatch group, as analysis_gpu_batch's walk does (or with
+    the eager walk, K3's plain version, where `eager`), and the group's
+    key count."""
     pre = [wgl.encode_ops_for_model(model, h) for h in hists]
     srange = wgl._state_range(model.device_model, model, pre)
     dense, sort_idx = wgl._dispatch_groups(
@@ -1285,20 +1481,23 @@ def batch_prefix_walk(wgl, model, hists, device):
                              wgl._bucket(len(idx), lo=1))
     xs = wgl.stage_steps(x, device)
     init = [model.device_state()] * len(ns)
-    return (lambda n: k.check_chunk_batch(xs, np.minimum(ns, n),
-                                          k.init_carry_batch(init)),
+    walk = k.run_range_batch_eager if eager else k.check_chunk_batch
+    return (lambda n: walk(xs, np.minimum(ns, n), k.init_carry_batch(init)),
             len(idx))
 
 
-def prefix_walk(wgl, model, hist, device, **kw):
+def prefix_walk(wgl, model, hist, device, eager=False, **kw):
     """A function walking the first n merged steps of `hist` on the
     engine `plan` picks (the sort family at frontier F), as
-    analysis_gpu's walk does."""
+    analysis_gpu's walk does (or, on the dense engine where `eager`, with
+    the eager walk, K3's plain version)."""
     pl = wgl.plan(model, hist, **kw)
     k = pl.kernel(device, kw.get("frontier", 256))
-    xs = wgl.stage_steps(wgl.build_steps(pl.ops, pl.slots).x, device)
+    steps = wgl.build_steps(pl.ops, pl.slots)
+    xs = wgl.stage_steps(steps.x, device)
     init = model.device_state()
-    return lambda n: k.check_chunk(xs, n, k.init_carry(init))
+    walk = k.run_range_eager if eager else k.check_chunk
+    return lambda n: walk(xs, min(n, steps.n), k.init_carry(init))
 
 
 def profile_walk(walk, n) -> dict:
@@ -1330,10 +1529,264 @@ def profile_walk(walk, n) -> dict:
             row[1] += e.duration_ns()
     busy_s = sum(ns for _c, ns in by_name.values()) / 1e9
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    k3 = [v for name, v in by_name.items() if "dense_walk" in name]
     return {"wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / wall,
             "kernel_launches": sum(c for c, _ns in by_name.values()),
+            "k3_launches": sum(c for c, _ns in k3),
+            "k3_ms": sum(ns for _c, ns in k3) / 1e6,
             "top": [(name[:60], c, ns / 1e6) for name, (c, ns) in top]}
+
+
+def k3_bound(S, P, keys, launches, steps, completions,
+             pair_rounds) -> tuple[float, str]:
+    """The least time an H100 could take for a K3 walk on these inputs,
+    and what bounds it: the larger of bytes over the HBM rate and
+    operations over the fp32 rate (the data sheet gives no INT32 rate; an
+    SM issues no more INT32 than fp32 operations a clock).
+
+    Bytes, each input read once and each output written once: at each
+    launch every key's carry in and out (table S x 2^P bytes, e, att,
+    count and max_count, three int32 slot words and an occupancy byte a
+    slot) and its slots' next-state rows (int16 P x S), and at each step
+    walked its row (5 int32) and next-state row (int16 S). The table
+    stays on chip between passes, so its passes are no bytes here. Left
+    out, which keeps this a floor: the per-step round maxima (4 bytes a
+    window step) and the launch's scalar sums.
+
+    Operations, 32-bit words of four cells each: a round ORs half a row
+    into its row for each listed (source state, slot) pair, so the walk's
+    pair rounds (K3 counts them: `wgl_walk.PAIR_ROUNDS`) times 2^P / 8
+    ORs; each step's count pass a popcount a word, and each completion a
+    gather a word. For a batch, `steps`, `completions` and `pair_rounds`
+    sum over the keys."""
+    C = 1 << P
+    carry = 2 * (S * C + 16 + 13 * P) + 2 * P * S
+    nbytes = launches * keys * carry + steps * (20 + 2 * S)
+    ops = pair_rounds * C / 8 + (steps + completions) * S * C / 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy) -> dict:
+    """One walk with K3 (`walk3(k3)`) and with the eager walk
+    (`walke(ke)`, K3's plain version) on the card, K3 first and last:
+    the carries element for element and the rounds equal, K3's host
+    syncs one per call and one per launch, each side's wall (K3 the
+    later of its two), host syncs and launches, and K3's pair rounds."""
+    from jepsen_tpu_torch.checker import wgl_walk
+    ws = walk_syncs()
+
+    def timed(fn, k):
+        r0, s0, l0, p0 = (k.rounds, k.syncs, wgl_walk.LAUNCHES,
+                          wgl_walk.PAIR_ROUNDS)
+        snap = ws.snap()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c = fn(k)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t, carry_to_numpy(c), k.rounds - r0,
+                k.syncs - s0, wgl_walk.LAUNCHES - l0, ws.since(snap)["calls"],
+                wgl_walk.PAIR_ROUNDS - p0)
+
+    timed(walk3, k3)
+    e = timed(walke, ke)
+    g = timed(walk3, k3)
+    err = max((int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+               if a.size else 0) for a, b in zip(g[1], e[1]))
+    if err or g[2] != e[2] or any(
+            a.dtype != b.dtype or a.shape != b.shape
+            for a, b in zip(g[1], e[1])):
+        raise AssertionError(f"K3 {label}: carry differs by {err}, rounds "
+                             f"{g[2]} against the eager walk's {e[2]}")
+    if g[3] != g[5] + g[4] or not g[3] < e[3]:
+        raise AssertionError(f"K3 {label}: {g[3]} host syncs for {g[5]} "
+                             f"calls and {g[4]} launches (the eager walk "
+                             f"{e[3]})")
+    return {"k3_wall_s": g[0], "eager_wall_s": e[0], "rounds": g[2],
+            "k3_syncs": g[3], "eager_syncs": e[3], "k3_launches": g[4],
+            "k3_calls": g[5], "pair_rounds": g[6], "max_abs_err": err,
+            "carry": g[1]}
+
+
+def dense_groups(wgl, model, hists, device):
+    """The dense dispatch groups of a batch as analysis_gpu_batch forms
+    them: (P, a kernel factory, staged (B, T, 5) steps, stops, initial
+    states) each."""
+    pre = [wgl.encode_ops_for_model(model, h) for h in hists]
+    srange = wgl._state_range(model.device_model, model, pre)
+    dense, _sort = wgl._dispatch_groups(
+        srange, [wgl.required_slots(o) for o in pre], "auto",
+        n_events=max(wgl.event_count(o) for o in pre))
+    out = []
+    for P, (d, idx) in sorted(dense.items()):
+        x, ns = wgl._stack_steps([wgl.build_steps(pre[i], d[2]) for i in idx],
+                                 wgl._bucket(len(idx), lo=1))
+        out.append((P, lambda d=d: wgl.DenseKernel(model.device_model, *d,
+                                                   device),
+                    wgl.stage_steps(x, device), ns,
+                    [model.device_state()] * len(ns)))
+    return out
+
+
+def stream_chunks(wgl, streaming, model, hist, device, n_chunks) -> tuple:
+    """The first n_chunks chunks a dense stream (STREAM_DENSE) hands its
+    engine: (kernel shape, [(step matrix, n, carry before) ...]), as the
+    stream staged them, read by wrapping the engine's check_stream_chunk
+    while the history is fed."""
+    seen = []
+    real = wgl.DenseKernel.check_stream_chunk
+
+    def record(k, xs, n, carry):
+        seen.append(((k.s_lo, k.S, k.P), xs.host.copy(), n,
+                     tuple(t.clone() for t in carry)))
+        return real(k, xs, n, carry)
+
+    wgl.DenseKernel.check_stream_chunk = record
+    try:
+        s = streaming.WglStream(model, device=device, **STREAM_DENSE)
+        for op in hist.ops:
+            s.feed(op)
+            if len(seen) >= n_chunks:
+                break
+    finally:
+        wgl.DenseKernel.check_stream_chunk = real
+    shapes = {c[0] for c in seen}
+    if len(seen) < n_chunks or len(shapes) != 1:
+        raise AssertionError(f"dense stream: {len(seen)} chunks, shapes "
+                             f"{shapes}")
+    return seen[0][0], [c[1:] for c in seen]
+
+
+def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
+             head) -> dict:
+    """Phase 4b: K3 (the dense step walk) against the eager walk, its
+    plain version, on the card: the headline, the forced-dense
+    adversarial and at-cap histories, the four dense groups of the
+    hazelcast batch, the dense stream's first three chunks and a
+    rabbitmq-shaped mutex, each walked both ways with its carry equal
+    element for element and its rounds equal, each wall timed both ways
+    with host syncs and launches; torch.profiler traces of the headline
+    and of the hazelcast batch's largest group, both ways on the profile
+    prefix and K3 over the whole walk, for the card's busy share."""
+    reg = models.cas_register()
+    out = {"walks": {}, "profiles": {}}
+
+    def record(label, row, S, P, steps, completions):
+        bound_ms, bound_by = k3_bound(
+            S, P, row.get("keys", 1), row["k3_launches"], steps,
+            completions, row["pair_rounds"])
+        row.update(S=S, P=P, steps=steps, completions=completions,
+                   launches_per_step=row["k3_launches"] / max(steps, 1),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        row.pop("carry")
+        out["walks"][label] = row
+        log(f"K3 {label} (S={S}, P={P}, {steps} steps): K3 "
+            f"{row['k3_wall_s']:.4f} s, {row['k3_syncs']} host syncs, "
+            f"{row['k3_launches']} launches "
+            f"({row['launches_per_step']:.5f} a step); eager "
+            f"{row['eager_wall_s']:.4f} s, {row['eager_syncs']} host "
+            f"syncs; {row['rounds']} rounds both ways; carry equal; bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}; "
+            f"{row['pair_rounds']} pair rounds")
+
+    def done_steps(x, e_start, e_end):
+        """Steps walked, and those with a completion, between two e's."""
+        x = x.reshape(-1, x.shape[-2], x.shape[-1])
+        e_start = np.broadcast_to(e_start, (x.shape[0],))
+        e_end = np.broadcast_to(e_end, (x.shape[0],))
+        comp = sum(int((x[b, e_start[b]:e_end[b], 0] != 0).sum())
+                   for b in range(x.shape[0]))
+        return int((e_end - e_start).sum()), comp
+
+    # one key: the main path's dense histories and a rabbitmq-shaped mutex
+    adv = synth.adversarial_register_history(**ADVERSARIAL)
+    singles = [("headline", reg, head, {}),
+               ("adversarial-dense", reg, adv, {"engine": "dense"}),
+               ("at-cap-dense", reg, synth.adversarial_register_history(
+                   **AT_CAP), {"engine": "dense"}),
+               ("rabbitmq-mutex", models.mutex(),
+                mutex_history(K3_MUTEX_OPS), {})]
+    for label, model, hist, kw in singles:
+        pl = wgl.plan(model, hist, **kw)
+        _lo, S, P = pl.decision.dense
+        steps = wgl.build_steps(pl.ops, pl.slots)
+        xs = wgl.stage_steps(steps.x, dev)
+        init = model.device_state()
+        row = walk_pair(
+            pl.kernel(dev, 256), pl.kernel(dev, 256), label,
+            lambda k: k.check_chunk(xs, steps.n, k.init_carry(init)),
+            lambda k: k.run_range_eager(xs, steps.n, k.init_carry(init)),
+            carry_to_numpy)
+        record(label, row, S, P, *done_steps(steps.x, 0, int(row["carry"][0])))
+    if out["walks"]["rabbitmq-mutex"]["S"] != 4 \
+            or out["walks"]["rabbitmq-mutex"]["P"] != 3:
+        raise AssertionError(f"mutex: {out['walks']['rabbitmq-mutex']}")
+
+    # the hazelcast batch's four dense groups, batched
+    (_reg, hz), _ = batch_histories(models, synth)
+    for P, make, xs, ns, init in dense_groups(wgl, reg, hz, dev):
+        k3 = make()
+        row = walk_pair(
+            k3, make(), f"hazelcast P={P}",
+            lambda k: k.check_chunk_batch(xs, ns, k.init_carry_batch(init)),
+            lambda k: k.run_range_batch_eager(xs, ns,
+                                              k.init_carry_batch(init)),
+            carry_to_numpy)
+        row["keys"] = len(ns)
+        record(f"hazelcast P={P} ({len(ns)} rows)", row, k3.S, P,
+               *done_steps(xs.host, 0, row["carry"][0]))
+
+    # the dense stream's first three chunks, e rebased per chunk
+    (s_lo, S, P), chunks = stream_chunks(wgl, streaming, reg, adv, dev,
+                                         K3_STREAM_CHUNKS)
+
+    def stream_walk(k, eager):
+        carry = chunks[0][2]
+        for x, n, _before in chunks:
+            xs = wgl.stage_steps(x, dev)
+            if eager:
+                o = k.run_range_eager(xs, n, (k._i32(0),) + tuple(carry[1:]))
+                carry = (o[0] + carry[0],) + tuple(o[1:])
+            else:
+                carry = k.check_stream_chunk(xs, n, carry)
+        return carry
+
+    def make():
+        return wgl.DenseKernel(reg.device_model, s_lo, S, P, dev)
+
+    row = walk_pair(make(), make(), "dense stream",
+                    lambda k: stream_walk(k, False),
+                    lambda k: stream_walk(k, True), carry_to_numpy)
+    steps = sum(n for _x, n, _c in chunks)
+    comp = sum(int((x[:n, 0] != 0).sum()) for x, n, _c in chunks)
+    record(f"dense stream, first {len(chunks)} chunks", row, S, P, steps,
+           comp)
+
+    # where the time goes, both ways
+    for label, walk3, walke, n_prefix, full in (
+            ("headline", prefix_walk(wgl, reg, head, dev),
+             prefix_walk(wgl, reg, head, dev, eager=True),
+             PROFILE_WALK_STEPS, 10 ** 9),
+            ("hazelcast largest group",
+             batch_prefix_walk(wgl, reg, hz, dev)[0],
+             batch_prefix_walk(wgl, reg, hz, dev, eager=True)[0],
+             BATCH_PROFILE_STEPS, 10 ** 9)):
+        prof = {"eager_prefix": profile_walk(walke, n_prefix),
+                "k3_prefix": profile_walk(walk3, n_prefix),
+                "k3_full": profile_walk(walk3, full)}
+        out["profiles"][label] = prof
+        for how, pr in prof.items():
+            steps = n_prefix if how != "k3_full" else None
+            log(f"K3 profile {label}, {how} ({steps or 'all'} steps): wall "
+                f"{pr['wall_s']:.4f} s, device busy "
+                f"{pr['device_busy_s']:.4f} s "
+                f"({100 * pr['busy_share']:.2f}%), "
+                f"{pr['kernel_launches']} kernel launches, K3 "
+                f"{pr['k3_launches']} launches in {pr['k3_ms']:.3f} ms; "
+                f"top {pr['top'][:3]}")
+    return out
 
 
 def final_carry(wgl, carry_to_numpy, model, hist, device, **kw):
@@ -1374,19 +1827,22 @@ def agreement_runs(models, synth, head=None):
 
 def cpu_agreement() -> dict:
     """The agreement runs on the CPU path, in a worker process: label ->
-    (result, final carry, seconds of the check)."""
+    (result, final carry, seconds of the check, host reads of the check's
+    eager dense walks)."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl
     from jepsen_tpu_torch.checker.linear import linearizable
+    ws = walk_syncs()
     out = {}
     for label, model, hist, kw in agreement_runs(models, synth):
-        t = time.perf_counter()
+        t, snap = time.perf_counter(), ws.snap()
         c = linearizable(model, device="cpu", **kw).check({}, hist, {})
         cpu_s = time.perf_counter() - t
+        eager = sum(ws.since(snap)["eager"].values())
         ckw = {k: v for k, v in kw.items() if k != "max_frontier"}
         out[label] = (c, final_carry(wgl, carry_to_numpy, model, hist,
-                                     "cpu", **ckw), cpu_s)
+                                     "cpu", **ckw), cpu_s, eager)
     return out
 
 
@@ -1422,9 +1878,12 @@ def main_path_runs(models, synth):
 
 def check_run(label, r, launches, expect) -> None:
     """Hold one main-path result to its expectation and to the kernels'
-    launch counts."""
+    launch counts (`launch_counts` over its run): a dense walk launches
+    K3, whose rounds are the result's, and never K1 alone."""
     verdicts, analyzer, dedups, p_want = expect
-    k1, k2 = launches
+    k1, k2, k3 = (launches[k] for k in ("k1_launches", "k2_launches",
+                                        "k3_launches"))
+    dense = analyzer == "gpu-wgl-dense"
     if r["valid?"] not in verdicts or r["analyzer"] != analyzer \
             or r["dedup"] not in dedups:
         raise AssertionError(f"{label}: {r['valid?']} {r['analyzer']} "
@@ -1435,15 +1894,16 @@ def check_run(label, r, launches, expect) -> None:
                              f"overflow: {r.get('error')}")
     if r["valid?"] is False and not isinstance(r.get("op-index"), int):
         raise AssertionError(f"{label}: no op-index")
-    if k2 != r["dedup-launches"] or k1 != (
-            r["closure-rounds"] if analyzer == "gpu-wgl-dense" else 0):
-        raise AssertionError(f"{label}: K1 {k1} / K2 {k2} launches for "
-                             f"{r['closure-rounds']} rounds and "
+    if k2 != r["dedup-launches"] or k1 != 0 or (k3 > 0) != dense \
+            or launches["k3_rounds"] != (r["closure-rounds"] if dense
+                                         else 0):
+        raise AssertionError(f"{label}: K1 {k1} / K2 {k2} / K3 {k3} "
+                             f"launches, K3 rounds {launches['k3_rounds']}, "
+                             f"for {r['closure-rounds']} rounds and "
                              f"{r['dedup-launches']} hash dedups")
     if p_want is not None:
-        if r["dense-shape"][1:] != [8, p_want] or k1 <= 0:
-            raise AssertionError(f"{label}: shape {r['dense-shape']}, "
-                                 f"{k1} K1 launches")
+        if r["dense-shape"][1:] != [8, p_want]:
+            raise AssertionError(f"{label}: shape {r['dense-shape']}")
     elif r["dedup"] == "pallas-hash" and k2 <= 0:
         raise AssertionError(f"{label}: no K2 launch on the hash route")
 
@@ -1837,9 +2297,9 @@ def same_carry(label, a, b) -> None:
             raise AssertionError(f"{label}: carry element {i} differs")
 
 
-def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
-                 streaming, screen, linear, wr, platform, carry_to_numpy,
-                 cpu_headline, pool, cpu_dense) -> dict:
+def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
+                 platform, carry_to_numpy, cpu_headline, pool,
+                 cpu_dense) -> dict:
     """The streaming-and-tier phase: five runs at full size on the card,
     each against the CPU path and (the WGL streams) against the offline
     walk of the same engine, with every kernel's launch count set to 0
@@ -1855,11 +2315,11 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
         walk of its engine (`walk`: one already made of the same
         history and engine); with snap=n, its carry after its first n
         chunks is kept under out[label]['snapshot']."""
-        wgl_closure.LAUNCHES = 0
-        wgl_dedup.LAUNCHES = 0
+        zero_launches()
         s, r, fed, feed_s, tail_s, shot = stream_run(
             streaming, reg, hist, dev, abort=abort, snap=snap, **kw)
-        k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        n = launch_counts()
+        k1, k2, k3 = n["k1_launches"], n["k2_launches"], n["k3_launches"]
         if walk is None:
             walk = stream_offline_walk(wgl, carry_to_numpy, reg, hist, s,
                                        dev)
@@ -1868,8 +2328,7 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
                    fed=fed, ops=len(hist.ops), feed_s=feed_s,
                    tail_s=tail_s, offline_walk_s=walk[1],
                    chunks=r["chunks"], checkpoints=s.checkpoint_seq,
-                   slots=s.p, engine=s.engine, dedup=r["dedup"],
-                   k1_launches=k1, k2_launches=k2,
+                   slots=s.p, engine=s.engine, dedup=r["dedup"], **n,
                    closure_rounds=r["closure-rounds"],
                    dedup_launches=r["dedup-launches"],
                    host_syncs=r["host-syncs"],
@@ -1880,16 +2339,19 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
             f"{feed_s:.3f} s, tail {tail_s:.3f} s, offline walk "
             f"{walk[1]:.3f} s, {r['chunks']} chunks, {s.checkpoint_seq} "
             f"checkpoints, engine {s.engine} P={s.p} dedup {r['dedup']}, "
-            f"K1 launches {k1}, K2 launches {k2}, host syncs "
-            f"{r['host-syncs']}, recovered {r.get('recovered')}; final "
+            f"K3 launches {k3} ({n['k3_rounds']} rounds), K2 launches "
+            f"{k2}, host syncs {r['host-syncs']}, recovered "
+            f"{r.get('recovered')}; final "
             f"carry equals the offline walk's")
         if r["valid?"] is not expect \
                 or s.device.type != torch.device(dev).type \
                 or r["device"] != str(s.device):
             raise AssertionError(f"{label}: {r['valid?']} on {r['device']}")
-        if k1 != (r["closure-rounds"] if s.engine == "dense" else 0) \
-                or k2 != r["dedup-launches"]:
-            raise AssertionError(f"{label}: K1 {k1} / K2 {k2} launches for "
+        dense = s.engine == "dense"
+        if k1 != 0 or (k3 > 0) != dense or k2 != r["dedup-launches"] \
+                or n["k3_rounds"] != (r["closure-rounds"] if dense else 0):
+            raise AssertionError(f"{label}: K1 {k1} / K2 {k2} / K3 {k3} "
+                                 f"launches, K3 rounds {n['k3_rounds']}, for "
                                  f"{r['closure-rounds']} rounds and "
                                  f"{r['dedup-launches']} hash dedups")
         out[label] = rec
@@ -1897,15 +2359,15 @@ def phase_stream(dev, models, synth, wgl, wgl_closure, wgl_dedup,
             rec["snapshot"] = shot
         return s, r, walk
 
-    # 1. the dense stream: K1 at (8, 16); the CPU path on the prefix the
+    # 1. the dense stream: K3 at (8, 16); the CPU path on the prefix the
     # card's stream had been fed when it dispatched its first chunk(s)
     adv = synth.adversarial_register_history(**ADVERSARIAL)
     s, dense_result, dense_walk = card_stream(
         "dense", adv, True, snap=STREAM_CPU_DENSE_CHUNKS, **STREAM_DENSE)
-    if s.p != 16 or out["dense"]["k1_launches"] <= 0 \
+    if s.p != 16 or out["dense"]["k3_launches"] <= 0 \
             or "snapshot" not in out["dense"]:
         raise AssertionError(f"dense stream: P={s.p}, "
-                             f"{out['dense']['k1_launches']} K1 launches, "
+                             f"{out['dense']['k3_launches']} K3 launches, "
                              f"{s.chunks} chunks")
     snap_ops, snap_chunks, snap_carry = out["dense"].pop("snapshot")
     adv_cut = type(adv)(adv.ops[:snap_ops])
@@ -2210,7 +2672,7 @@ def service_run(service, model, dev, hists, idx, profile=False) -> dict:
     return out
 
 
-def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
+def phase_service(dev, models, synth, streaming,
                   service, store, telemetry, platform, pool) -> dict:
     """Phase 9: the verification service on the card. Sixteen streams
     (8 dense, K1; 8 packed sort, K2) in one service, each result held
@@ -2270,12 +2732,10 @@ def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
     for m in SERVICE_COUNTS:
         idx = ([0] if m == 1 else [0, 1, 8, 9] if m == 4 else list(range(n)))
         if m == n:
-            wgl_closure.LAUNCHES = 0
-            wgl_dedup.LAUNCHES = 0
+            zero_launches()
         run = service_run(service, model, dev, hists, idx)
         if m == n:
-            launches = {"closure_round": wgl_closure.LAUNCHES,
-                        "dedup": wgl_dedup.LAUNCHES}
+            launches = launch_counts()
             clean = run
         ops = sum(len(hists[i]) for i in idx)
         scaling[m] = {"wall_s": run["wall"], "ops": ops,
@@ -2297,13 +2757,14 @@ def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
         if i in dense and (r["analyzer"] != "gpu-wgl-dense-streaming"
                            or r["closure-rounds"] <= 0
                            or r["dedup-launches"] != 0):
-            raise AssertionError(f"s{i}: not a dense stream on K1: {r}")
+            raise AssertionError(f"s{i}: not a dense stream on K3: {r}")
         if i not in dense and (r["dedup"] != "pallas-hash"
                                or r["dedup-launches"] <= 0):
             raise AssertionError(f"s{i}: not a hash stream on K2: {r}")
-    if (k1, k2) != (launches["closure_round"], launches["dedup"]):
-        raise AssertionError(f"service: streams count K1 {k1} / K2 {k2}, "
-                             f"the kernels {launches}")
+    if (k1, k2) != (launches["k3_rounds"], launches["k2_launches"]) \
+            or launches["k1_launches"] != 0 or launches["k3_launches"] <= 0:
+        raise AssertionError(f"service: streams count {k1} rounds / K2 "
+                             f"{k2}, the kernels {launches}")
     st = clean["status"]
     if any(v["state"] != "verdict" for v in st["streams"].values()) \
             or st["budget"]["capacity"] != st["budget"]["initial"]:
@@ -2321,8 +2782,9 @@ def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
     out["budget"] = st["budget"]
     out["isolation_overhead"] = {
         f"s{i}": clean["lat"][i] / solo_s[i] for i in (0, 8)}
-    log(f"service: 16 streams: K1 {launches['closure_round']} launches "
-        f"(streams 0-7), K2 {launches['dedup']} (streams 8-15), each "
+    log(f"service: 16 streams: K3 {launches['k3_launches']} launches "
+        f"with {launches['k3_rounds']} rounds (streams 0-7), K2 "
+        f"{launches['k2_launches']} (streams 8-15), each "
         f"stream's own counts adding up to them; every stream in verdict, "
         f"budget at its initial capacity; s0 served {clean['lat'][0]:.3f} "
         f"s against {solo_s[0]:.3f} s alone "
@@ -2507,18 +2969,18 @@ def phase_service(dev, models, synth, wgl_closure, wgl_dedup, streaming,
 
 
 def sharded_rank(build_dir, mesh) -> dict:
-    """One of the four gloo ranks sharing the card: build both kernels
+    """One of the four gloo ranks sharing the card: build the kernels
     afresh into build_dir (the four ranks at once, so the builders race
     on the same files), then walk this rank's block of the hazelcast
-    batch (dense: K1) and of the counter batch (hash route: K2) through
-    check_batch_sharded. Returns each batch's result, K1 and K2 counts
-    (set to 0 just before its check) and wall, the rank's collectives and
+    batch (dense: K3) and of the counter batch (hash route: K2) through
+    check_batch_sharded. Returns each batch's result, launch counts (set
+    to 0 just before its check) and wall, the rank's collectives and
     what it built."""
     from pathlib import Path
 
     import torch.distributed as dist
     from jepsen_tpu_torch import _build, models
-    from jepsen_tpu_torch.checker import synth, wgl, wgl_closure, wgl_dedup
+    from jepsen_tpu_torch.checker import synth, wgl
     cuda = mesh.device.type == "cuda"
     _build.BUILD = Path(build_dir)
     t = time.perf_counter()
@@ -2528,8 +2990,7 @@ def sharded_rank(build_dir, mesh) -> dict:
                built=built, build_s=build_s)
     for label, (model, hists) in zip(("hazelcast", "counter"),
                                      batch_histories(models, synth)):
-        wgl_closure.LAUNCHES = 0
-        wgl_dedup.LAUNCHES = 0
+        zero_launches()
         t = time.perf_counter()
         ok, per_key, info = wgl.check_batch_sharded(model, hists, mesh,
                                                     slots=BATCH_SLOTS,
@@ -2537,9 +2998,7 @@ def sharded_rank(build_dir, mesh) -> dict:
         if cuda:
             torch.cuda.synchronize()
         out[label] = dict(all_ok=ok, per_key=per_key.tolist(), info=info,
-                          wall_s=time.perf_counter() - t,
-                          k1_launches=wgl_closure.LAUNCHES,
-                          k2_launches=wgl_dedup.LAUNCHES)
+                          wall_s=time.perf_counter() - t, **launch_counts())
     out["calls"] = {f"{op}/{d}": n for (op, d), n in mesh.calls.items()}
     return out
 
@@ -2550,7 +3009,7 @@ def ring_adjacency(n) -> np.ndarray:
     return a
 
 
-def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
+def phase_sharded(dev, models, synth, wgl, kernels,
                   list_append, platform, parallel, graft_entry, batch, elle,
                   smi) -> dict:
     """The sharded phase: check_batch_sharded, the Elle mesh path and the
@@ -2575,7 +3034,7 @@ def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
         try:
             out["world1"] = sharded_world1(
                 mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
-                wgl_closure, wgl_dedup, kernels, list_append, platform,
+                kernels, list_append, platform,
                 elle)
         finally:
             dist.destroy_process_group()
@@ -2598,7 +3057,8 @@ def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
                                          f"or info differ from the one-rank "
                                          f"run")
             hz_r, cnt_r = rk["hazelcast"], rk["counter"]
-            if hz_r["k1_launches"] <= 0 or hz_r["k2_launches"] != 0 \
+            if hz_r["k3_launches"] <= 0 or hz_r["k1_launches"] != 0 \
+                    or hz_r["k2_launches"] != 0 \
                     or cnt_r["k2_launches"] <= 0 or rk["backend"] != "gloo" \
                     or torch.device(rk["device"]).type != dev.type:
                 raise AssertionError(f"gloo rank {r}: {rk}")
@@ -2611,8 +3071,8 @@ def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
         for r, rk in enumerate(ranks):
             log(f"sharded gloo rank {r}/{SHARDED_RANKS} on {rk['device']}: "
                 f"built {rk['built']} in {rk['build_s']:.3f} s, hazelcast "
-                f"{rk['hazelcast']['wall_s']:.3f} s (K1 launches "
-                f"{rk['hazelcast']['k1_launches']}), counter "
+                f"{rk['hazelcast']['wall_s']:.3f} s (K3 launches "
+                f"{rk['hazelcast']['k3_launches']}), counter "
                 f"{rk['counter']['wall_s']:.3f} s (K2 launches "
                 f"{rk['counter']['k2_launches']}), collectives "
                 f"{rk['calls']}; per_key and info equal to the one-rank "
@@ -2642,27 +3102,24 @@ def phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup, kernels,
 
 
 def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
-                   wgl_closure, wgl_dedup, kernels, list_append, platform,
+                   kernels, list_append, platform,
                    elle) -> dict:
     """The one-rank NCCL runs of the sharded phase."""
     out = {}
 
     def run(label, fn):
-        wgl_closure.LAUNCHES = 0
-        wgl_dedup.LAUNCHES = 0
+        zero_launches()
         kernels.LAUNCHES = 0
         calls = collections.Counter(mesh.calls)
         t = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
-        rec = dict(wall_s=time.perf_counter() - t,
-                   k1_launches=wgl_closure.LAUNCHES,
-                   k2_launches=wgl_dedup.LAUNCHES,
+        rec = dict(wall_s=time.perf_counter() - t, **launch_counts(),
                    classifier_calls=kernels.LAUNCHES,
                    collectives={f"{op}/{d}": n for (op, d), n in
                                 (mesh.calls - calls).items()})
-        log(f"sharded {label}: wall {rec['wall_s']:.3f} s, K1 launches "
-            f"{rec['k1_launches']}, K2 launches {rec['k2_launches']}, "
+        log(f"sharded {label}: wall {rec['wall_s']:.3f} s, K3 launches "
+            f"{rec['k3_launches']}, K2 launches {rec['k2_launches']}, "
             f"classifier calls {rec['classifier_calls']}, collectives "
             f"{rec['collectives']}")
         return r, rec
@@ -2676,7 +3133,8 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
     if ok is not False or pk.tolist() != want_hz \
             or info != {"groups": SHARDED_GROUPS,
                         "attested": {"steps": 4, "carry": 4}} \
-            or rec["k1_launches"] <= 0 or rec["k2_launches"] != 0:
+            or rec["k3_launches"] <= 0 or rec["k1_launches"] != 0 \
+            or rec["k2_launches"] != 0:
         raise AssertionError(f"sharded hazelcast: {ok} {info} {rec}")
     if not all(k.endswith("/" + dev.type) for k in rec["collectives"]) \
             or not rec["collectives"]:
@@ -2730,7 +3188,8 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
 
 def counting_plain():
     """Count the plain versions' calls of K1 and K2 in this (CPU) process:
-    the launches the card's run of the same work must make."""
+    the K2 launches the card's run of the same work must make, and the
+    closure rounds its K3 walks must report."""
     from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
     counts = {"k1": 0, "k2": 0}
     k1, k2 = wgl_closure.closure_round_plain, wgl_dedup.dedup_plain
@@ -2785,13 +3244,13 @@ def same_but_wall(label, got, want) -> None:
         raise AssertionError(f"{label}: differs from the CPU path in {diff}")
 
 
-def phase_search_chaos(dev, wgl_closure, wgl_dedup, cpu_jobs) -> dict:
+def phase_search_chaos(dev, cpu_jobs) -> dict:
     """Phase 11: the scenario search and the self-chaos harness on the
     card. Every kernel's launch count set to 0 just before each run and
     read just after; each result equal to the CPU path's (in a worker
     process) but for its wall: the search with the batch escalation
-    finds the planted bug and launches K1 as often as the CPU path calls
-    its plain version; the service search and both chaos workloads
+    finds the planted bug and launches K3, whose rounds are the CPU
+    path's plain K1 calls; the service search and both chaos workloads
     likewise, every chaos oracle green; then the chaos command as a
     subprocess on the card, exiting 0 with the in-process run's result."""
     import tempfile
@@ -2800,21 +3259,21 @@ def phase_search_chaos(dev, wgl_closure, wgl_dedup, cpu_jobs) -> dict:
     out = {}
 
     def counted(label, fn):
-        wgl_closure.LAUNCHES = 0
-        wgl_dedup.LAUNCHES = 0
+        zero_launches()
         t = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
-                   k2_launches=wgl_dedup.LAUNCHES)
+        rec = dict(wall_s=wall, **launch_counts())
         want, counts, cpu_s = cpu_jobs[label].result()
         same_but_wall(label, r, want)
-        if (rec["k1_launches"], rec["k2_launches"]) != (counts["k1"],
-                                                        counts["k2"]):
-            raise AssertionError(f"{label}: K1/K2 launches "
-                                 f"{rec['k1_launches']}/{rec['k2_launches']}"
-                                 f", CPU path {counts}")
+        if (rec["k3_rounds"], rec["k2_launches"]) != (counts["k1"],
+                                                      counts["k2"]) \
+                or rec["k1_launches"] != 0:
+            raise AssertionError(f"{label}: K3 rounds / K2 launches "
+                                 f"{rec['k3_rounds']}/{rec['k2_launches']}"
+                                 f" (K1 {rec['k1_launches']}), CPU path "
+                                 f"{counts}")
         rec.update(cpu_s=cpu_s, result={k: v for k, v in r.items()
                                         if k not in ("violations",
                                                      "failures")})
@@ -2826,20 +3285,20 @@ def phase_search_chaos(dev, wgl_closure, wgl_dedup, cpu_jobs) -> dict:
             SearchConfig(device=str(dev), **cfg)))
         log(f"search {kind}: found {r['found']}, {r['simulations']} "
             f"simulations, {r['escalations']} escalations, wall "
-            f"{rec['wall_s']:.3f} s (CPU path {rec['cpu_s']:.3f} s), K1 "
-            f"launches {rec['k1_launches']}, K2 launches "
-            f"{rec['k2_launches']}, equal to the CPU path")
-        if kind == "batch" and (not r["found"] or rec["k1_launches"] <= 0):
-            raise AssertionError(f"search batch: found {r['found']}, K1 "
-                                 f"launches {rec['k1_launches']}")
+            f"{rec['wall_s']:.3f} s (CPU path {rec['cpu_s']:.3f} s), K3 "
+            f"launches {rec['k3_launches']} ({rec['k3_rounds']} rounds), "
+            f"K2 launches {rec['k2_launches']}, equal to the CPU path")
+        if kind == "batch" and (not r["found"] or rec["k3_launches"] <= 0):
+            raise AssertionError(f"search batch: found {r['found']}, K3 "
+                                 f"launches {rec['k3_launches']}")
     for w in CHAOS_WORKLOADS:
         r, rec = counted(f"chaos-{w}", lambda: run_chaos(
             ChaosConfig(device=str(dev), workload=w, **CHAOS)))
         log(f"chaos {w}: {r['schedules']} schedules, {r['coverage-bits']} "
             f"coverage bits, conjunction hits {r['conjunction-hits']}, "
             f"failures {len(r['failures'])}, wall {rec['wall_s']:.3f} s "
-            f"(CPU path {rec['cpu_s']:.3f} s), K1 launches "
-            f"{rec['k1_launches']}, K2 launches {rec['k2_launches']}, equal "
+            f"(CPU path {rec['cpu_s']:.3f} s), K3 launches "
+            f"{rec['k3_launches']}, K2 launches {rec['k2_launches']}, equal "
             f"to the CPU path")
         if r["failures"] or r["found"]:
             raise AssertionError(f"chaos {w}: oracle failures "
@@ -3076,7 +3535,7 @@ def interpreter_rate(hist) -> tuple[int, float]:
     return len(hist), (len(ts) / span if span else 0.0)
 
 
-def phase_run(dev, wgl_closure, wgl_dedup, pool) -> dict:
+def phase_run(dev, pool) -> dict:
     """Phase 12: the port's core.run on the card (register, online and
     abort runs, the CLI's test and analyze), each with every kernel's
     launch count set to 0 just before and read just after; each verdict
@@ -3085,10 +3544,10 @@ def phase_run(dev, wgl_closure, wgl_dedup, pool) -> dict:
     counts). The runs' stores live in a temporary directory."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="run-path-") as root:
-        return run_path_runs(dev, wgl_closure, wgl_dedup, pool, root)
+        return run_path_runs(dev, pool, root)
 
 
-def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
+def run_path_runs(dev, pool, root) -> dict:
     """`phase_run`'s runs, their stores under root."""
     from jepsen_tpu_torch import cli, core, models, store
     from jepsen_tpu_torch import generator as gen
@@ -3098,14 +3557,12 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
     out = {}
 
     def counted(label, fn):
-        wgl_closure.LAUNCHES = 0
-        wgl_dedup.LAUNCHES = 0
+        zero_launches()
         t = time.perf_counter()
         r = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        rec = dict(wall_s=wall, k1_launches=wgl_closure.LAUNCHES,
-                   k2_launches=wgl_dedup.LAUNCHES)
+        rec = dict(wall_s=wall, **launch_counts())
         out[label] = rec
         return r, rec
 
@@ -3133,8 +3590,9 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
     log(f"run register: valid?={res['valid?']}, {len(keyed)} keys, "
         f"{n_ops} history ops ({rate:.0f} ops/s in the interpreter), "
         f"{len(nem)} nemesis ops, {len(cut)} iptables commands, wall "
-        f"{rec['wall_s']:.3f} s, K1 launches {rec['k1_launches']}, K2 "
-        f"launches {rec['k2_launches']}, groups {tot['groups']}")
+        f"{rec['wall_s']:.3f} s, K3 launches {rec['k3_launches']} "
+        f"({rec['k3_rounds']} rounds), K2 launches {rec['k2_launches']}, "
+        f"groups {tot['groups']}")
     if res["valid?"] is not True or any(
             r["valid?"] is not True or r["analyzer"] != "gpu-wgl-batch"
             or r["device"] != dev.type for r in keyed.values()):
@@ -3147,11 +3605,12 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
                              f"{len(cut)} iptables commands")
     if missing:
         raise AssertionError(f"register run: the store lacks {missing}")
-    if rec["k1_launches"] <= 0 or (rec["k1_launches"], rec["k2_launches"]) \
-            != (tot["closure_rounds"], tot["dedup_launches"]):
-        raise AssertionError(f"register run: K1/K2 launches "
-                             f"{rec['k1_launches']}/{rec['k2_launches']} "
-                             f"for {tot}")
+    if rec["k3_launches"] <= 0 or rec["k1_launches"] != 0 or (
+            rec["k3_rounds"], rec["k2_launches"]) != (
+                tot["closure_rounds"], tot["dedup_launches"]):
+        raise AssertionError(f"register run: K3 rounds / K2 launches "
+                             f"{rec['k3_rounds']}/{rec['k2_launches']} "
+                             f"(K1 {rec['k1_launches']}) for {tot}")
 
     # -- the online run ----------------------------------------------------
     with gen.fixed_rng(SEED):
@@ -3175,16 +3634,18 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
     log(f"run online: valid?={res['valid?']} ({res.get('analyzer')}, "
         f"streamed {res.get('streamed')}), {n_ops} history ops "
         f"({rate:.0f} ops/s in the interpreter), wall {rec['wall_s']:.3f} "
-        f"s, K1 launches {rec['k1_launches']}, K2 launches "
-        f"{rec['k2_launches']}; offline on the card {offline['valid?']} "
+        f"s, K3 launches {rec['k3_launches']} ({rec['k3_rounds']} rounds), "
+        f"K2 launches {rec['k2_launches']}; offline on the card "
+        f"{offline['valid?']} "
         f"in {rec['offline_s']:.3f} s")
     if res.get("streamed") is not True or \
             res.get("analyzer") != "gpu-wgl-dense-streaming" or \
             done["streamed-results"]["linear"]["valid?"] is not True or \
-            rec["k1_launches"] <= 0 or res["valid?"] != offline["valid?"]:
+            rec["k3_launches"] <= 0 or rec["k1_launches"] != 0 or \
+            res["valid?"] != offline["valid?"]:
         raise AssertionError(f"online run: {res.get('analyzer')}, "
-                             f"streamed {res.get('streamed')}, K1 "
-                             f"{rec['k1_launches']}, offline "
+                             f"streamed {res.get('streamed')}, K3 "
+                             f"{rec['k3_launches']}, offline "
                              f"{offline['valid?']}")
 
     # -- the abort run -------------------------------------------------------
@@ -3218,7 +3679,7 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
     log(f"run abort: valid?={res['valid?']} at op {res.get('op-index')}, "
         f"aborted {done.get('aborted-on-violation')}, {n_ops} of "
         f"{2 * RUN_ABORT_INVOCATIONS} history ops, wall "
-        f"{rec['wall_s']:.3f} s, K1 launches {rec['k1_launches']}, K2 "
+        f"{rec['wall_s']:.3f} s, K3 launches {rec['k3_launches']}, K2 "
         f"launches {rec['k2_launches']}")
     if done.get("aborted-on-violation") is not True or res["valid?"] \
             is not False or n_ops >= 2 * RUN_ABORT_INVOCATIONS:
@@ -3253,23 +3714,23 @@ def run_path_runs(dev, wgl_closure, wgl_dedup, pool, root) -> dict:
     first, rec = counted("cli-test", lambda: command("test"))
     again, rec2 = counted("cli-analyze", lambda: command("analyze"))
     log(f"run cli: test exit {codes.get('test')} in {rec['wall_s']:.3f} s "
-        f"(K1 {rec['k1_launches']}, K2 {rec['k2_launches']}), analyze "
-        f"exit {codes.get('analyze')} in {rec2['wall_s']:.3f} s (K1 "
-        f"{rec2['k1_launches']}, K2 {rec2['k2_launches']}), valid? "
+        f"(K3 {rec['k3_launches']}, K2 {rec['k2_launches']}), analyze "
+        f"exit {codes.get('analyze')} in {rec2['wall_s']:.3f} s (K3 "
+        f"{rec2['k3_launches']}, K2 {rec2['k2_launches']}), valid? "
         f"{first['valid?']}, the same results: {first == again}")
     run_stamps("cli run", first)
     if codes != {"test": 0, "analyze": 0} or first != again or \
-            first["valid?"] is not True or rec["k1_launches"] <= 0:
+            first["valid?"] is not True or rec["k3_launches"] <= 0:
         raise AssertionError(f"cli: exits {codes}, results equal "
-                             f"{first == again}, K1 {rec['k1_launches']}")
+                             f"{first == again}, K3 {rec['k3_launches']}")
 
     # -- the CPU path on each stored history -------------------------------
     want, cpu_s = cpu_reg.result()
 
     def plain(per_key):
         return {str(k): json.loads(json.dumps(
-            {f: r.get(f) for f in BATCH_AGREE_KEYS}, default=str))
-            for k, r in per_key.items()}
+            without_dense_syncs({f: r.get(f) for f in BATCH_AGREE_KEYS}),
+            default=str)) for k, r in per_key.items()}
 
     got, want = plain(keyed), plain(want)
     if got != want:
@@ -3383,7 +3844,7 @@ def cpu_workload_check(kind: str, run_dir: str) -> tuple:
     return r, time.perf_counter() - t
 
 
-def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
+def phase_workloads(dev, elle_kernels, pool) -> dict:
     """Phase 13: the monotonic and sequential test maps through the
     port's core.run on the card, with every kernel's launch count and
     the classifier's call count set to 0 just before each run and read
@@ -3408,7 +3869,7 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
             with gen.fixed_rng(SEED):
                 t = workload_run_test(kind, dev, os.path.join(root, kind),
                                       remote, client=planted)
-            wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+            zero_launches()
             elle_kernels.LAUNCHES = 0
             with ElleRecorder(elle_kernels) as rec:
                 t0 = time.perf_counter()
@@ -3429,9 +3890,8 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
                 nemesis_ops=len(nem), planted=planted.planted,
                 classifier_calls=elle_kernels.LAUNCHES, buckets=buckets,
                 classifier_s=sum(rec.seconds),
-                certificates_s=sum(rec.cert_seconds),
-                k1_launches=wgl_closure.LAUNCHES,
-                k2_launches=wgl_dedup.LAUNCHES, valid=w["valid?"],
+                certificates_s=sum(rec.cert_seconds), **launch_counts(),
+                valid=w["valid?"],
                 anomaly_types=w.get("anomaly-types"))
             log(f"workload {kind}: valid?={w['valid?']} "
                 f"{w.get('anomaly-types')}, {n_ops} history ops "
@@ -3440,8 +3900,8 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
                 f"s, classifier calls {elle_kernels.LAUNCHES} in "
                 f"{row['classifier_s']:.3f} s (buckets e: [B, e, e] "
                 f"{buckets}), host certificates "
-                f"{row['certificates_s']:.3f} s, K1 "
-                f"{wgl_closure.LAUNCHES}, K2 {wgl_dedup.LAUNCHES}")
+                f"{row['certificates_s']:.3f} s, K1 {row['k1_launches']}, "
+                f"K2 {row['k2_launches']}, K3 {row['k3_launches']}")
             if res["valid?"] is not False or w["valid?"] is not False or \
                     WORKLOAD_ANOMALY[kind] not in w.get("anomaly-types", ()):
                 raise AssertionError(f"{kind} run: {res['valid?']}, "
@@ -3451,12 +3911,13 @@ def phase_workloads(dev, wgl_closure, wgl_dedup, elle_kernels, pool) -> dict:
                 raise AssertionError(f"{kind} run: {n_ops} ops, nemesis "
                                      f"{sorted({o['f'] for o in nem})}")
             if row["classifier_calls"] < 1 or row["k1_launches"] or \
-                    row["k2_launches"] or any(
+                    row["k2_launches"] or row["k3_launches"] or any(
                         int(e) > 4096 for bk in buckets for e in bk):
                 raise AssertionError(f"{kind} run: classifier calls "
                                      f"{row['classifier_calls']} {buckets}, "
-                                     f"K1/K2 {row['k1_launches']}/"
-                                     f"{row['k2_launches']}")
+                                     f"K1/K2/K3 {row['k1_launches']}/"
+                                     f"{row['k2_launches']}/"
+                                     f"{row['k3_launches']}")
             out[kind]["workload"] = w
         for kind, job in cpu.items():
             want, cpu_s = job.result()
@@ -3674,10 +4135,17 @@ def clocked(checker, clock: dict, key: str):
 
 
 def strip_volatile(r):
-    """A result without the fields that name where and how long it ran."""
+    """A result without the fields that name where and how long it ran,
+    and without a dense walk's host syncs: K3 reads the host once a
+    window (each K3 walk held to that by `WalkSyncs.hold` on the card),
+    the CPU path's eager walk every round."""
     if isinstance(r, dict):
+        group = r.get("group")
+        dense = str(r.get("analyzer", "")).startswith("gpu-wgl-dense") or (
+            isinstance(group, list) and group[:1] == ["dense"])
         return {k: strip_volatile(v) for k, v in r.items()
-                if k not in SUITE_VOLATILE}
+                if k not in SUITE_VOLATILE
+                and not (dense and k == "host-syncs")}
     return r
 
 
@@ -3732,7 +4200,7 @@ def key_walks(results: dict) -> dict:
     return tot
 
 
-def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
+def drive_suite(kind, dev, root, pool,
                 port, stop) -> tuple:
     """One suite run of phases 14-16 through the port's core.run on
     the card against the data plane at port (stopped when the run
@@ -3753,12 +4221,12 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
         compose.checkers["workload"] = clocked(
             compose.checkers["workload"], clock, "workload_check_s")
         t["checker"] = clocked(compose, clock, "check_s")
-        wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
+        zero_launches()
         t0 = time.perf_counter()
         done = core.run(t)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        launches = launch_counts()
     finally:
         t1 = time.perf_counter()
         stop()
@@ -3778,8 +4246,7 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                interpreter_s=interp_s, check_s=clock["check_s"],
                workload_check_s=clock["workload_check_s"], ops=n_ops,
                ops_per_s=rate, nemesis_ops=len(nem), iptables=len(cut),
-               k1_launches=launches[0], k2_launches=launches[1],
-               valid=w["valid?"], plane_stop_s=stop_s)
+               **launches, valid=w["valid?"], plane_stop_s=stop_s)
     if kind in UNKEYED:
         row.update({f: w.get(f) for f in (
             "analyzer", "dedup", "frontier-size", "max-frontier",
@@ -3796,17 +4263,20 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                   f"{tot['groups']}, {tot['keys_alone']} keys walked "
                   f"alone {tot['analyzers']}")
         want = (tot["closure_rounds"], tot["dedup_launches"])
-    # a run walks with K1 whichever family its keys go to, but the one
-    # register of hazelcast's may go to the sort family
-    walked = row["k1_launches"] > 0 or (kind == "hazelcast"
+    # a run walks with K3 whichever family its keys go to, but the one
+    # register of hazelcast's may go to the sort family; K3's rounds are
+    # the walks' count, and K1 never launches alone
+    walked = row["k3_launches"] > 0 or (kind == "hazelcast"
                                         and row["k2_launches"] > 0)
-    launched = walked and (row["k1_launches"], row["k2_launches"]) == want
+    launched = walked and row["k1_launches"] == 0 and (
+        row["k3_rounds"], row["k2_launches"]) == want
     log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
         f"history ops ({rate:.0f} client ops/s), {len(nem)} nemesis ops, "
         f"{len(cut)} iptables commands, wall {wall:.3f} s (interpreter "
         f"{interp_s:.3f} s, check {row['check_s']:.3f} s, of which the "
-        f"workload's on the card {row['workload_check_s']:.3f} s), K1 "
-        f"launches {row['k1_launches']}, K2 launches {row['k2_launches']}; "
+        f"workload's on the card {row['workload_check_s']:.3f} s), K3 "
+        f"launches {row['k3_launches']} ({row['k3_rounds']} rounds), K2 "
+        f"launches {row['k2_launches']}; "
         f"data plane stopped in {stop_s:.3f} s")
     if res["valid?"] is not True or w["valid?"] is not True:
         raise AssertionError(f"{kind} suite run: {res['valid?']}, "
@@ -3818,9 +4288,10 @@ def drive_suite(kind, dev, root, wgl_closure, wgl_dedup, pool,
                              f"{sorted({o['f'] for o in nem})}, {len(cut)} "
                              f"iptables commands")
     if not launched:
-        raise AssertionError(f"{kind} suite run: K1/K2 launches "
-                             f"{row['k1_launches']}/{row['k2_launches']} "
-                             f"({detail})")
+        raise AssertionError(f"{kind} suite run: K1/K2/K3 launches "
+                             f"{row['k1_launches']}/{row['k2_launches']}/"
+                             f"{row['k3_launches']}, K3 rounds "
+                             f"{row['k3_rounds']} ({detail})")
     row["workload"] = strip_volatile(w)
     return row, job
 
@@ -3840,7 +4311,7 @@ def same_as_cpu(out: dict, jobs: dict) -> None:
         f"{kind} ({out[kind]['cpu_s']:.3f} s)" for kind in jobs))
 
 
-def drive_suites(kinds, dev, root, wgl_closure, wgl_dedup, pool) -> tuple:
+def drive_suites(kinds, dev, root, pool) -> tuple:
     """`drive_suite` for each kind in turn, every data plane started at
     once first: the rows, and the CPU path's jobs."""
     out, cpu = {}, {}
@@ -3851,7 +4322,7 @@ def drive_suites(kinds, dev, root, wgl_closure, wgl_dedup, pool) -> tuple:
     try:
         for kind in kinds:
             out[kind], cpu[kind] = drive_suite(
-                kind, dev, root, wgl_closure, wgl_dedup, pool,
+                kind, dev, root, pool,
                 *planes.pop(kind))
     finally:
         for _, stop in planes.values():
@@ -3859,7 +4330,7 @@ def drive_suites(kinds, dev, root, wgl_closure, wgl_dedup, pool) -> tuple:
     return out, cpu
 
 
-def phase_suites(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
+def phase_suites(dev, pool, root) -> tuple:
     """Phase 14: the etcd and hazelcast suites' own test maps through the
     port's core.run on the card against their fakes, their runs stored
     under root (`drive_suites`); then the port's web UI over root. It
@@ -3880,8 +4351,7 @@ def phase_suites(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
         repl)] + [f"{cli.__name__}.{cli.main.__name__}"]
     # hazelcast first: its CPU check, one register walked on the plain
     # path, is the longer one
-    out, cpu = drive_suites(("hazelcast", "etcd"), dev, root, wgl_closure,
-                            wgl_dedup, pool)
+    out, cpu = drive_suites(("hazelcast", "etcd"), dev, root, pool)
     out["modules"] = slice_modules
 
     # -- the web UI over the phase's store -------------------------------
@@ -3916,7 +4386,7 @@ def phase_suites(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
     return out, cpu
 
 
-def phase_suites2(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
+def phase_suites2(dev, pool, root) -> tuple:
     """Phase 15: the dgraph linearizable-register, yugabyte
     ycql/single-key-acid and faunadb register maps, each the suite's
     own (client, checker compose, partition nemesis), through the
@@ -3933,13 +4403,13 @@ def phase_suites2(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
         rethinkdb)]
     # the longest CPU checks first, so that they run beside the later runs
     out, cpu = drive_suites(("faunadb", "yugabyte", "dgraph"), dev, root,
-                            wgl_closure, wgl_dedup, pool)
+                            pool)
     out["modules"] = slice_modules
     log(f"suites2: {len(slice_modules)} modules of the slice imported")
     return out, cpu
 
 
-def phase_suites3(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
+def phase_suites3(dev, pool, root) -> tuple:
     """Phase 16: the raftis register, rabbitmq mutex and ignite register
     maps, each the suite's own (client, checker compose, partition
     nemesis), through the port's core.run on the card against
@@ -3964,7 +4434,7 @@ def phase_suites3(dev, wgl_closure, wgl_dedup, pool, root) -> tuple:
         consul)]
     # the longest CPU checks first, so that they run beside the later runs
     out, cpu = drive_suites(("raftis", "ignite", "rabbitmq"), dev, root,
-                            wgl_closure, wgl_dedup, pool)
+                            pool)
     out["modules"] = slice_modules
     log(f"suites3: {len(slice_modules)} modules of the slice imported")
     return out, cpu
@@ -3995,6 +4465,8 @@ def main() -> int:
     mark = [time.perf_counter()]
 
     def phase_done(label):
+        if _WALK_SYNCS is not None:
+            _WALK_SYNCS.hold()
         now = time.perf_counter()
         phase_s[label] = now - mark[0]
         mark[0] = now
@@ -4039,10 +4511,13 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                                   telemetry)
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
-                                          wgl, wgl_closure, wgl_dedup)
+                                          wgl, wgl_closure, wgl_dedup,
+                                          wgl_walk)
     from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
     from jepsen_tpu_torch.checker.elle import list_append, wr
     from jepsen_tpu_torch.checker.linear import linearizable
+
+    ws = walk_syncs()
 
     # -- phase 2: K1 against its plain version --------------------------------
     runs = main_path_runs(models, synth)
@@ -4059,29 +4534,28 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     # -- phase 4: the main path -------------------------------------------------
     results = {}
     torch.cuda.reset_peak_memory_stats()
-    wgl_closure.LAUNCHES = 0
-    wgl_dedup.LAUNCHES = 0
+    zero_launches()
     for label, model, hist, kw, expect in runs:
-        before = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        before, snap = launch_counts(), ws.snap()
         t = time.perf_counter()
         r = linearizable(model, **kw).check({}, hist, {})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = (wgl_closure.LAUNCHES - before[0],
-                    wgl_dedup.LAUNCHES - before[1])
-        results[label] = dict(r, wall_s=wall, k1_launches=launches[0],
-                              k2_launches=launches[1])
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        results[label] = dict(r, wall_s=wall, walk_reads=ws.since(snap),
+                              **launches)
         log(f"{label}: valid?={r['valid?']} op-index={r.get('op-index')} "
             f"analyzer={r['analyzer']} dedup={r['dedup']} frontier-size="
             f"{r['frontier-size']} shape={r.get('dense-shape')} "
             f"max-frontier={r['max-frontier']} wall={wall:.3f} s K1 "
-            f"launches={launches[0]} K2 launches={launches[1]} closure "
-            f"rounds={r['closure-rounds']} host syncs={r['host-syncs']} "
-            f"error={r.get('error')}")
+            f"launches={launches['k1_launches']} K2 launches="
+            f"{launches['k2_launches']} K3 launches="
+            f"{launches['k3_launches']} (rounds {launches['k3_rounds']}) "
+            f"closure rounds={r['closure-rounds']} host syncs="
+            f"{r['host-syncs']} error={r.get('error')}")
         check_run(label, r, launches, expect)
     no_stamps("main path", list(results.values()))
-    main_launches = {"closure_round": wgl_closure.LAUNCHES,
-                     "dedup": wgl_dedup.LAUNCHES}
+    main_launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     phase_done("main path")
 
@@ -4092,16 +4566,24 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     for label, model, hist, kw in agreement_runs(models, synth,
                                                  hists["headline"][1]):
         t0 = time.perf_counter()
-        g = results.get(label) or linearizable(model, **kw).check(
-            {}, hist, {})
-        c, cc, cpu_s = cpu_side[label]
+        g = results.get(label)
+        if g is None:
+            snap = ws.snap()
+            g = dict(linearizable(model, **kw).check({}, hist, {}),
+                     walk_reads=ws.since(snap))
+        c, cc, cpu_s, c_eager = cpu_side[label]
         cpu_results[label] = c
+        dense = c["analyzer"] == "gpu-wgl-dense"
         for key in ("valid?", "op-index", "max-frontier", "frontier-size",
                     "dedup", "analyzer", "dense-shape", "closure-rounds",
-                    "dedup-launches", "host-syncs"):
+                    "dedup-launches") + (() if dense else ("host-syncs",)):
             if g.get(key) != c.get(key):
                 raise AssertionError(f"{label}: {key} gpu {g.get(key)} "
                                      f"!= cpu {c.get(key)}")
+        if dense:
+            same_syncs_but_walks(label, g["host-syncs"],
+                                 sum(g["walk_reads"]["k3"].values()),
+                                 c["host-syncs"], c_eager)
         ckw = {k: v for k, v in kw.items() if k != "max_frontier"}
         cg = final_carry(wgl, carry_to_numpy, model, hist, dev, **ckw)
         for i, (a, b) in enumerate(zip(cg, cc)):
@@ -4131,13 +4613,18 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             f"{pr['top']}")
     phase_done("profile")
 
+    # -- phase 4b: K3 against the eager walk, its plain version ------------
+    k3 = phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
+                  hists["headline"][1])
+    phase_done("K3 against the eager walk")
+
     # -- phase 5: K1 and K2 with a batch axis ---------------------------------
     k1b = phase_k1_batched(dev, wgl_closure)
     k2b = phase_k2_batched(dev, wgl_dedup)
     phase_done("batched K1 and K2 against their plain versions")
 
     # -- phase 6: the batch path, on the card and against the CPU -------------
-    batch = phase_batch(dev, models, synth, wgl, wgl_closure, wgl_dedup,
+    batch = phase_batch(dev, models, synth, wgl, wgl_dedup,
                         independent, linearizable, _platform, carry_to_numpy,
                         cpu_batches)
     phase_done("batch path")
@@ -4147,21 +4634,19 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     phase_done("elle")
 
     # -- phase 8: streaming, the tier and the race ----------------------------
-    streams = phase_stream(dev, models, synth, wgl, wgl_closure,
-                           wgl_dedup, streaming, screen, linear, wr,
-                           _platform, carry_to_numpy,
+    streams = phase_stream(dev, models, synth, wgl, streaming, screen,
+                           linear, wr, _platform, carry_to_numpy,
                            cpu_results["headline"], pool, cpu_dense)
     phase_done("streaming, tier and race")
 
     # -- phase 9: the verification service ------------------------------------
-    svc = phase_service(dev, models, synth, wgl_closure, wgl_dedup,
-                        streaming, service, store, telemetry, _platform,
-                        pool)
+    svc = phase_service(dev, models, synth, streaming, service, store,
+                        telemetry, _platform, pool)
     phase_done("verification service")
 
     # -- phase 10: key-sharded checking, the Elle mesh, the entries ---------
-    sharded = phase_sharded(dev, models, synth, wgl, wgl_closure, wgl_dedup,
-                            elle_kernels, list_append, _platform, parallel,
+    sharded = phase_sharded(dev, models, synth, wgl, elle_kernels,
+                            list_append, _platform, parallel,
                             graft_entry, batch, elle, smi)
     phase_done("sharded checking")
 
@@ -4173,37 +4658,33 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     # chaos run on its own would not have it
     import gc
     gc.freeze()
-    search_chaos = phase_search_chaos(dev, wgl_closure, wgl_dedup,
-                                      cpu_search_chaos_jobs(pool))
+    search_chaos = phase_search_chaos(dev, cpu_search_chaos_jobs(pool))
     phase_done("search and chaos")
 
     # -- phase 12: the run path -----------------------------------------------
-    run_path = phase_run(dev, wgl_closure, wgl_dedup, pool)
+    run_path = phase_run(dev, pool)
     phase_done("run path")
 
     # -- phase 13: the monotonic and sequential workloads -----------------
-    run_path["workloads"] = phase_workloads(dev, wgl_closure, wgl_dedup,
-                                            elle_kernels, pool)
+    run_path["workloads"] = phase_workloads(dev, elle_kernels, pool)
     phase_done("workloads")
 
     import tempfile
     with tempfile.TemporaryDirectory(prefix="suites-") as root:
         # -- phase 14: the etcd and hazelcast suites' own maps, the web UI -
-        suites, suites_cpu = phase_suites(dev, wgl_closure, wgl_dedup, pool,
+        suites, suites_cpu = phase_suites(dev, pool,
                                           root)
         phase_done("suites")
 
         # -- phase 15: the dgraph, yugabyte and faunadb suites' registers --
         # phase 14's CPU checks run in the pool beside these runs
-        suites2, suites2_cpu = phase_suites2(dev, wgl_closure, wgl_dedup,
-                                             pool, root)
+        suites2, suites2_cpu = phase_suites2(dev, pool, root)
         phase_done("suites 2")
 
         # -- phase 16: the raftis register, rabbitmq mutex, ignite register
         # phases 14 and 15's CPU checks run in the pool beside these runs;
         # the three phases' runs are held against theirs after them
-        suites3, suites3_cpu = phase_suites3(dev, wgl_closure, wgl_dedup,
-                                             pool, root)
+        suites3, suites3_cpu = phase_suites3(dev, pool, root)
         same_as_cpu(suites, suites_cpu)
         same_as_cpu(suites2, suites2_cpu)
         same_as_cpu(suites3, suites3_cpu)
@@ -4222,7 +4703,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "route": "cuda",
         "source": wgl_closure.SOURCE,
         "replaces": wgl_closure.REPLACES,
-        "launches": main_launches["closure_round"],
+        # K1's standalone launches: on every walk its round runs inside
+        # K3, so these are 0 wherever a walk is counted
+        "launches": main_launches["k1_launches"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_main["ms"],
         "plain_ms": k1_main["plain_ms"],
@@ -4232,7 +4715,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "shape": [k1_main["S"], k1_main["P"]],
         "stream_launches": streams["dense"]["k1_launches"]
         + streams["dense-recovery"]["k1_launches"],
-        "service_launches": svc["launches"]["closure_round"],
+        "service_launches": svc["launches"]["k1_launches"],
         # phase 12's unbatched K1: the online and abort streams and the
         # CLI's single-register checks
         "run_launches": sum(run_path[r]["k1_launches"] for r in (
@@ -4258,7 +4741,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "route": "cuda",
         "source": wgl_dedup.SOURCE,
         "replaces": wgl_dedup.REPLACES,
-        "launches": main_launches["dedup"],
+        "launches": main_launches["k2_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
@@ -4269,7 +4752,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "library_ms": None,
         "unique_ms": k2_main["unique_ms"],
         "stream_launches": streams["sort-abort"]["k2_launches"],
-        "service_launches": svc["launches"]["dedup"],
+        "service_launches": svc["launches"]["k2_launches"],
         "run_launches": sum(run_path[r]["k2_launches"] for r in (
             "online", "abort", "cli-test", "cli-analyze")),
         "suite_launches": suites["hazelcast"]["k2_launches"],
@@ -4280,6 +4763,60 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "shape": [k2_main["N"], k2_main["F"]],
         "shapes": k2["shapes"],
     }]
+    # K3, the dense step walk: ms is its device time a launch (a window of
+    # up to 1,024 steps) on the headline, plain_ms the eager walk's wall
+    # over the same windows, bound_ms k3_bound's over the same windows
+    hl = k3["walks"]["headline"]
+    hp = k3["profiles"]["headline"]["k3_full"]
+    kernels.append({
+        "name": "dense_walk", "route": "cuda", "source": wgl_walk.SOURCE,
+        "replaces": wgl_walk.REPLACES,
+        "launches": main_launches["k3_launches"],
+        "rounds": main_launches["k3_rounds"],
+        "max_abs_err": max(w["max_abs_err"] for w in k3["walks"].values()),
+        "ms": hp["k3_ms"] / hp["k3_launches"],
+        "plain_ms": hl["eager_wall_s"] * 1e3 / hl["k3_launches"],
+        "bound_ms": hl["bound_ms"] / hl["k3_launches"],
+        "bound_by": hl["bound_by"], "library_ms": None,
+        "shape": [hl["S"], hl["P"]],
+        "walk_ms": hl["k3_wall_s"] * 1e3,
+        "plain_walk_ms": hl["eager_wall_s"] * 1e3,
+        "stream_launches": sum(streams[k]["k3_launches"]
+                               for k in ("dense", "dense-recovery")),
+        "service_launches": svc["launches"]["k3_launches"],
+        "run_launches": sum(run_path[r]["k3_launches"] for r in (
+            "online", "abort", "cli-test", "cli-analyze")),
+        "suite_launches": suites["hazelcast"]["k3_launches"],
+        "suite2_launches": sum(suites2[k]["k3_launches"]
+                               for k in ("yugabyte", "faunadb")),
+        "suite3_launches": sum(suites3[k]["k3_launches"]
+                               for k in ("raftis", "rabbitmq")),
+        "walks": k3["walks"]})
+    # batched: the hazelcast batch's largest group (64 rows of 8 x 2^6)
+    hb = max((w for w in k3["walks"].values() if "keys" in w),
+             key=lambda w: w["keys"])
+    hbp = k3["profiles"]["hazelcast largest group"]["k3_full"]
+    kernels.append({
+        "name": "dense_walk_batched", "route": "cuda",
+        "source": wgl_walk.SOURCE,
+        # the same walk under jax.vmap (check_chunk_batch)
+        "replaces": wgl_walk.REPLACES,
+        "launches": batch["dense"]["k3_launches"],
+        "rounds": batch["dense"]["k3_rounds"],
+        "max_abs_err": hb["max_abs_err"],
+        "ms": hbp["k3_ms"] / hbp["k3_launches"],
+        "plain_ms": hb["eager_wall_s"] * 1e3 / hb["k3_launches"],
+        "bound_ms": hb["bound_ms"] / hb["k3_launches"],
+        "bound_by": hb["bound_by"], "library_ms": None,
+        "shape": [hb["keys"], hb["S"], hb["P"]],
+        "walk_ms": hb["k3_wall_s"] * 1e3,
+        "plain_walk_ms": hb["eager_wall_s"] * 1e3,
+        "sharded_launches": sharded["world1"]["hazelcast"]["k3_launches"],
+        "search_launches": search_chaos["search-batch"]["k3_launches"],
+        "run_launches": run_path["register"]["k3_launches"],
+        "suite_launches": suites["etcd"]["k3_launches"],
+        "suite2_launches": suites2["dgraph"]["k3_launches"],
+        "suite3_launches": suites3["ignite"]["k3_launches"]})
     # the batched launches: K1 at the hazelcast batch's largest group
     # (64 tables of 8 x 2^6), K2 at the counter batch's stage B
     k1b_main = next(r for r in k1b["shapes"] if r["B"] == 64)
@@ -4322,7 +4859,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         write_report(args.out, {
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
-            "profiles": profiles, "batch": batch,
+            "profiles": profiles, "k3": k3, "batch": batch,
             "elle": {k: v for k, v in elle.items()
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,

@@ -12,7 +12,9 @@ no GPU and no explicit CPU request they raise (see `_platform`).
 Ported so far: the offline linearizability check of a history
 (`checker.wgl.analysis_gpu`) on both engine families, the dense
 reachable-set table, whose closure round is the hand-written Hopper
-kernel `csrc/closure_round.cu`, and the sort frontier, whose hash dedup
+kernel `csrc/closure_round.cu` and whose whole step walk runs on the
+card as `csrc/dense_walk.cu` with that round inside, and the sort
+frontier, whose hash dedup
 is the hand-written Hopper kernel `csrc/dedup.cu`; the batched check of
 many histories (`checker.wgl.analysis_gpu_batch`, both kernels with a
 batch axis) behind the independent checker (`independent`); and the

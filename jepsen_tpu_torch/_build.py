@@ -4,7 +4,8 @@ Each source under `csrc/` compiles with nvcc, on its own, into a shared
 library with a plain C interface under `build/` at the repository root
 (git-ignored), at first use: ``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared -Xcompiler -fPIC``. A library newer than its source is
-reused. `build()` starts one nvcc per source, all at once, and waits for
+reused (a source's headers, `csrc/*.cuh`, count as part of it).
+`build()` starts one nvcc per source, all at once, and waits for
 them all; `library(name)` builds what it needs and loads it. Both run
 under one process-wide lock, so threads that reach a kernel first at the
 same time (a service's stream workers) run nvcc at most once per source
@@ -67,8 +68,9 @@ def command(name: str, out: Path, compiler: str = "nvcc") -> list[str]:
 
 def _fresh(name: str) -> bool:
     lib = lib_path(name)
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
     return lib.exists() and \
-        lib.stat().st_mtime >= (CSRC / f"{name}.cu").stat().st_mtime
+        lib.stat().st_mtime >= max(p.stat().st_mtime for p in srcs)
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:

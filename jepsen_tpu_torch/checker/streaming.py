@@ -7,8 +7,8 @@ incrementally into the same packed step stream the offline checker
 builds, batches steps into power-of-two chunks, and advances a
 device-resident WGL carry with the engines' `check_stream_chunk` entry,
 which walks each chunk through the same step walk as the offline check:
-K1 (`csrc/closure_round.cu`) on a dense stream's closure rounds, K2
-(`csrc/dedup.cu`) on a sort stream's hash dedup.
+K3 (`csrc/dense_walk.cu`) on a dense stream, K2 (`csrc/dedup.cu`) on a
+sort stream's hash dedup.
 
   * **One liveness read per chunk, one chunk late.** The read after
     chunk k is the summary of the carry *before* chunk k, so a
@@ -1160,8 +1160,8 @@ class WglStream:
                     f"unknown (re-run offline with a larger frontier)")
             else:
                 self._blame(ops, out)
-        # the port's counts (as analysis_gpu reports them): K1 launches
-        # on CUDA for dense, stage-B rounds for sort; K2 launches; reads
+        # the port's counts (as analysis_gpu reports them): closure
+        # rounds for dense, stage-B rounds for sort; K2 launches; reads
         out["closure-rounds"] = sum(k.rounds for k in self._kernels)
         out["dedup-launches"] = sum(k.dedups for k in self._kernels)
         out["host-syncs"] = sum(k.syncs for k in self._kernels)

@@ -13,8 +13,10 @@ Two engine families, picked per history by `select_engine`:
     T[state, pending-mask]. An :ok return keeps the configurations
     holding the op's bit and clears it (a gather along the mask axis);
     an invoke closes the table under linearization of every occupied
-    slot with closure rounds (`wgl_closure.closure_round`, the Hopper
-    kernel K1 on CUDA) until the popcount stops growing. Exact.
+    slot with closure rounds (K1's round, `wgl_closure.closure_round`)
+    until the popcount stops growing. Exact. On CUDA the whole walk is
+    K3 (`wgl_walk`, `csrc/dense_walk.cu`): a window of steps per launch,
+    the rounds inside it.
   * **sort** (`SortKernel`): a frontier of at most F configurations.
     An invoke linearizes the new op (stage A), then closes the frontier
     by expanding only the configurations each round added (stage B);
@@ -34,18 +36,20 @@ Engine and dedup names in results ("dense-table", "pallas-hash",
 results and calibration keys compare field for field: they name the
 route, not the implementation ("pallas-hash" runs K2 here).
 
-The step walks are eager Python loops: each step's control values (the
+The dense walk on CUDA is one kernel, K3, per window of up to 1,024
+steps, with one host read at the window's end. The sort walk, and the
+dense walk's plain version (`DenseKernel.run_range_eager`, what the CPU
+runs), are eager Python loops: each step's control values (the
 completion mask and the invoked slot) come from the host copy of the
-step matrix, the slot arguments from its device copy. A dense closure
-round costs one host read of the table's popcount, a sort stage-B round
-one read of "any legal candidate?"; those syncs and the launches around
-them set the pace (a persistent step-walk kernel is a later slice's
-work).
+step matrix, the slot arguments from its device copy. An eager dense
+closure round costs one host read of the table's popcount, a sort
+stage-B round one read of "any legal candidate?"; those syncs and the
+launches around them set the eager walks' pace.
 
 Batched keys (`analysis_gpu_batch`, the independent checker's entry):
 both engines also walk B independent histories in lockstep
-(`check_chunk_batch`, the JAX package's `jax.vmap` of the walk), one K1
-or K2 launch serving every key of a dispatch group. Both entries run
+(`check_chunk_batch`, the JAX package's `jax.vmap` of the walk), one K3
+window or K2 launch serving every key of a dispatch group. Both entries run
 under the recovery ladder (below `Device-fault recovery ladder`).
 
 Key-sharded batches (`check_batch_sharded`, the JAX package's
@@ -77,7 +81,7 @@ from ..history import (DeviceEncodingError, F_CAS, F_READ, F_WRITE,
                        KIND_OK, NIL, OpArray, UQ_COUNT_MAX, UQ_VALUES,
                        default_register_codec, encode_ops,
                        history as as_history)
-from . import abft, wgl_dedup
+from . import abft, wgl_dedup, wgl_walk
 from .wgl_closure import closure_round
 
 log = logging.getLogger(__name__)
@@ -625,8 +629,14 @@ class DenseKernel(_Engine):
     tensors on `device` and are never updated in place, so a caller may
     keep an earlier one (the lagged liveness read does).
 
-    `rounds` counts closure rounds (K1 launches on CUDA) and `syncs`
-    counts blocking device-to-host reads, over the kernel's life."""
+    The walk (`run_range`, `run_range_batch`) is K3 on CUDA (`_walk_k3`
+    around `wgl_walk.launch`: a window of steps per launch, closure
+    rounds inside) and the eager walk (`run_range_eager`,
+    `run_range_batch_eager`, K3's plain version) on the CPU.
+
+    `rounds` counts closure rounds (the eager walk's K1 launches, the
+    rounds K3 reports) and `syncs` counts blocking device-to-host reads,
+    over the kernel's life."""
 
     dedups = 0   # the dense family has no dedup (SortKernel counts K2's)
 
@@ -700,9 +710,22 @@ class DenseKernel(_Engine):
         return tb, cnt_t, cnt
 
     def run_range(self, xs: Staged, stop: int, carry) -> tuple:
-        """Walk steps [carry.e, stop) while the table is nonempty. The
-        walk stops after the step that empties the table, so a dead
-        carry's e is death + 1, as the JAX while_loop leaves it."""
+        """Walk steps [carry.e, stop) while the table is nonempty: K3 on
+        CUDA tensors, the eager walk on CPU tensors."""
+        if self._on_cpu(carry):
+            return self.run_range_eager(xs, stop, carry)
+        out = self._walk_k3(xs.dev[None], [stop],
+                            tuple(t[None] for t in carry))
+        return carry if out is None else tuple(t[0] for t in out)
+
+    check_chunk = run_range
+
+    def run_range_eager(self, xs: Staged, stop: int, carry) -> tuple:
+        """K3's plain version: walk steps [carry.e, stop) while the table
+        is nonempty, one host-driven step at a time (K1 per closure
+        round on CUDA). The walk stops after the step that empties the
+        table, so a dead carry's e is death + 1, as the JAX while_loop
+        leaves it."""
         e, count = self.fetch(torch.stack([carry[0], carry[7]]))
         if e >= stop or count <= 0:
             return carry
@@ -743,8 +766,6 @@ class DenseKernel(_Engine):
         return (self._i32(e), table, slots[0], slots[1], slots[2], occ,
                 att, count_t, maxc)
 
-    check_chunk = run_range
-
     # -- the batched walk (jax.vmap of run_range) --------------------------
     def _summary_row(self, carry):
         e, att, count, maxc = carry[0], carry[6], carry[7], carry[8]
@@ -784,9 +805,22 @@ class DenseKernel(_Engine):
 
     def run_range_batch(self, xs: Staged, stops, carry) -> tuple:
         """Walk each key b's steps [e_b, stops[b]) while its table is
-        nonempty, all keys in lockstep: per step one gather of each
-        key's row, one completion gather for the keys that complete, and
-        batched closure rounds for the keys that invoke. xs holds a
+        nonempty: K3 on CUDA tensors (one launch walks every key's
+        window), the eager lockstep walk on CPU tensors. xs holds a (B,
+        T, 5) step matrix; stops is a length-B sequence."""
+        if self._on_cpu(carry):
+            return self.run_range_batch_eager(xs, stops, carry)
+        out = self._walk_k3(xs.dev, stops, carry)
+        return carry if out is None else out
+
+    check_chunk_batch = run_range_batch
+
+    def run_range_batch_eager(self, xs: Staged, stops, carry) -> tuple:
+        """K3's plain version, batched: walk each key b's steps [e_b,
+        stops[b]) while its table is nonempty, all keys in lockstep: per
+        step one gather of each key's row, one completion gather for the
+        keys that complete, and batched closure rounds (one K1 launch a
+        round on CUDA) for the keys that invoke. xs holds a
         (B, T, 5) step matrix; stops is a length-B sequence."""
         start = self._walk_start(carry, stops, 7)
         if start is None:
@@ -837,7 +871,65 @@ class DenseKernel(_Engine):
         return (_h2d(e_h.astype(np.int32), dev), table, slots[0], slots[1],
                 slots[2], occ, att, count, maxc)
 
-    check_chunk_batch = run_range_batch
+    # -- K3: the walk on CUDA ------------------------------------------------
+    @staticmethod
+    def _on_cpu(carry) -> bool:
+        """Whether the walk is the eager one: the carry's table lies on
+        the CPU. On CUDA the walk is K3's, and nothing falls back."""
+        dev = carry[1].device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"the dense walk runs on CUDA (or its plain "
+                             f"version on the CPU), got {dev}")
+        return dev.type == "cpu"
+
+    def _walk_k3(self, x: torch.Tensor, stops, carry):
+        """K3 window after window over a batched carry and its (B, T, 5)
+        step matrix, up to `wgl_walk.WINDOW` steps of every key per
+        launch; None when no key has a step to walk (the caller keeps its
+        carry, as the eager walk does). One host read to start and one
+        at the end of each window."""
+        B, T = x.shape[0], x.shape[1]
+        e, table, sf, sa, sb, occ, att, count, maxc = carry
+        e_h, count_h = (np.asarray(v, np.int64).reshape(B) for v in
+                        self.fetch(torch.stack([e, count])))
+        stops = np.minimum(np.asarray(stops, np.int64).reshape(B), T)
+        active = (e_h < stops) & (count_h > 0)
+        if not active.any():
+            return None
+        dev, window = table.device, wgl_walk.WINDOW
+        x = x.contiguous()
+        sc = torch.stack([e, att, count, maxc]).to(torch.int32).contiguous()
+        table = table.contiguous()
+        if table.data_ptr() % 16:
+            table = table.clone()
+        slots = torch.stack([sf, sa, sb]).contiguous()
+        occ = occ.contiguous()
+        keys = torch.arange(B, device=dev)[:, None]
+        steps = torch.arange(window, device=dev)[None, :]
+        while not self._cancelled():
+            wend = np.where(active, np.minimum(stops, e_h + window), e_h)
+            W = int((wend - e_h).max())
+            rows = x[keys, (sc[0].to(torch.int64)[:, None]
+                            + steps[:, :W]).clamp_(max=T - 1)]  # (B, W, 5)
+            itr = wgl_walk.transition_rows(self.step, self.s_lo, self.S,
+                                           rows[..., 2], rows[..., 3],
+                                           rows[..., 4])
+            str0 = wgl_walk.transition_rows(self.step, self.s_lo, self.S,
+                                            slots[0], slots[1], slots[2])
+            sc, table, slots, occ, rounds, pairs = wgl_walk.launch(
+                x, _h2d(wend.astype(np.int32), dev), itr, str0, sc, table,
+                slots, occ, self.use_attest)
+            got = np.asarray(self.fetch(torch.cat([
+                sc[0].to(torch.int64), sc[2].to(torch.int64),
+                rounds.sum(dtype=torch.int64)[None], pairs])), np.int64)
+            e_h, count_h = got[:B], got[B:2 * B]
+            self.rounds += int(got[-2])
+            wgl_walk.count_rounds(int(got[-2]), int(got[-1]))
+            active = (e_h < stops) & (count_h > 0)
+            if not active.any():
+                break
+        return (sc[0], table, slots[0], slots[1], slots[2], occ, sc[1],
+                sc[2], sc[3])
 
 
 # ---------------------------------------------------------------------------
@@ -1676,8 +1768,8 @@ def _analysis_gpu_once(model, hist, *, device=None, frontier: int = 256,
     """Check one history on the GPU: one attempt, which the ladder
     (`analysis_gpu`) re-runs after a classified fault.
 
-    device: 'cuda' by default, where every dense closure round runs K1
-    and every hash dedup K2; 'cpu' runs their plain PyTorch versions.
+    device: 'cuda' by default, where every dense walk runs K3 and every
+    hash dedup K2; 'cpu' runs their plain PyTorch versions.
 
     engine: 'auto' picks the dense or the sort family by the cost model
     (`select_engine`); 'dense' / 'sort' force one. The sort family
@@ -2048,7 +2140,7 @@ def _analysis_gpu_batch_once(model, hists: list, _pre: list | None,
     The keys split into slot-bucketed dense groups and one sort group
     (`_dispatch_groups`), run cheapest first and the sort group last, so
     a pathological key starves only itself of budget. Each group walks
-    all its keys in lockstep (`check_chunk_batch`: K1 and K2 each take
+    all its keys in lockstep (`check_chunk_batch`: K3 and K2 each take
     all keys in one launch), B padded to a power of two with zero-step
     keys whose liveness is ignored, in chunks of chunk_entries steps
     with the liveness read one chunk late and budget_s / cancel polled
@@ -2276,7 +2368,7 @@ def _batch_walk(model, hists, items, results, dev, dense, srange, slots,
             if isinstance(r, dict):
                 r.setdefault("attested", {"steps": 1, "carry": 1})
     # the walk's counts, on each result it decided (escalated keys carry
-    # their own walk's): the group's shape, its keys, its K1 launches
+    # their own walk's): the group's shape, its keys, its closure rounds
     # (dense) or stage-B rounds (sort), its hash dedups and host reads
     walk = {"group": (["dense", *dense] if dense is not None
                       else ["sort", frontier, slots]),
@@ -2326,7 +2418,7 @@ def _batch_blame(model, hists, k, invalids, results, max_count,
 # Here every rank of a `parallel.Mesh` runs the same call on the same
 # histories: it builds the same groups, walks its own contiguous block of
 # each group's keys (padded to a multiple of the axis size with zero-step
-# keys, which stay alive and so count as valid) through K1 and K2 on its
+# keys, which stay alive and so count as valid) through K3 and K2 on its
 # device, and the ranks reduce the bad count and the attestation sum and
 # gather the per-key rows. A fault on one rank reaches every rank through
 # `parallel.agree` after each local dispatch, so all ranks take the same

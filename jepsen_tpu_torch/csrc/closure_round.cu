@@ -41,11 +41,7 @@
 //   * slot p < 4: the source columns lie in the same chunk j of the
 //     source row. A byte butterfly on the four words gives "byte i takes
 //     byte i ^ 2^p where bit p of i is set, else 0", the TPU kernel's lane
-//     roll plus iota mask:
-//       p = 0: (w << 8) & 0xFF00FF00 on each word
-//       p = 1: (w << 16) & 0xFFFF0000 on each word
-//       p = 2: words (x, y, z, w) -> (0, x, 0, z)
-//       p = 3: words (x, y, z, w) -> (0, 0, x, y)
+//     roll plus iota mask (closure_round.cuh, which K3 shares).
 // 0/1 bytes stay 0/1 under OR and AND, so there is no per-cell branch and
 // no early exit: every lane of a warp runs the same entry list.
 //
@@ -69,10 +65,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "closure_round.cuh"
+
 namespace {
 
+using jt_closure::butterfly;
+using jt_closure::kChunkLog;
+using jt_closure::or_into;
+
 constexpr int kThreads = 256;            // chunks per block (P >= 4)
-constexpr int kChunkLog = 4;             // 16 columns = one uint4
 constexpr int kMaxSlots = 30;            // C = 2^P must fit an int
 constexpr int kMaxRows = 65535;          // grid.y
 constexpr int kMaxBatch = 65535;         // grid.z (grid.y of the cells)
@@ -124,29 +125,6 @@ __device__ void list_sources(const uint8_t* __restrict__ mft, int S, int P,
     }
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void or_into(uint4& a, const uint4& b) {
-  a.x |= b.x;
-  a.y |= b.y;
-  a.z |= b.z;
-  a.w |= b.w;
-}
-
-// The in-chunk move of slot p < 4: byte i takes byte i ^ 2^p where bit p
-// of i is set, else 0.
-template <int p>
-__device__ __forceinline__ uint4 butterfly(const uint4& v) {
-  if (p == 0) {
-    return make_uint4((v.x << 8) & 0xFF00FF00u, (v.y << 8) & 0xFF00FF00u,
-                      (v.z << 8) & 0xFF00FF00u, (v.w << 8) & 0xFF00FF00u);
-  }
-  if (p == 1) {
-    return make_uint4((v.x << 16) & 0xFFFF0000u, (v.y << 16) & 0xFFFF0000u,
-                      (v.z << 16) & 0xFFFF0000u, (v.w << 16) & 0xFFFF0000u);
-  }
-  if (p == 2) return make_uint4(0u, v.x, 0u, v.z);
-  return make_uint4(0u, 0u, v.x, v.y);
 }
 
 template <int p>

@@ -12,7 +12,7 @@ each key's subhistory.
 Per-key subhistories are the batchable axis: when the subchecker is a
 device-model linearizability checker, every key goes through one call of
 `checker.wgl.analysis_gpu_batch`, whose walks check all keys of a group
-in lockstep with one K1 or K2 launch for all of them.
+in lockstep with one K3 or K2 launch for all of them.
 """
 
 from __future__ import annotations

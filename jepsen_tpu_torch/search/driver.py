@@ -24,7 +24,7 @@ guided-vs-random A/B at a fixed budget is an honest comparison.
 The port's copy of `jepsen_tpu/search/driver.py`. The simulations stay
 on host threads; escalation runs on the main thread, so the card is
 driven from one thread: the batch mode through
-`checker.wgl.analysis_gpu_batch` (K1 batched on the dense groups, K2 on
+`checker.wgl.analysis_gpu_batch` (K3 batched on the dense groups, K2 on
 the hash route), the service mode through an in-process
 `VerificationService`, both on `SearchConfig.device`. Results and
 artifacts equal the JAX package's on the same config, but for `wall-s`.

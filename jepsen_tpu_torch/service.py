@@ -53,7 +53,7 @@ On the card. The service runs on CUDA unless built with
 ``device="cpu"`` (`_platform.resolve_device`: no card and no explicit
 CPU raises), and every worker thread pins the service's card before it
 touches a tensor (PyTorch's current device is per thread). Every worker
-launches K1 (dense streams) and K2 (packed sort streams) on the card's
+launches K3 (dense streams) and K2 (packed sort streams) on the card's
 default stream, so kernels of different streams run one after another
 on the card. The walks are host-bound and share one interpreter lock,
 so the chunk budget grants one walk at a time (a chunk, a finish, a

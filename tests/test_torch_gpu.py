@@ -1,5 +1,6 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1, K2), scalar
-and batched, against their plain versions, both engine families and the
+and batched, against their plain versions, the dense step walk (K3)
+against the eager walk, both engine families and the
 batch entry on CUDA against the same engines on the CPU, the Elle
 classifier on CUDA against its CPU path, and the online streams, the
 tiered check and the competition race on CUDA against the CPU path.
@@ -20,7 +21,7 @@ import torch
 from jepsen_tpu_torch import _platform, models
 from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
 from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
-                                      wgl, wgl_closure, wgl_dedup)
+                                      wgl, wgl_closure, wgl_dedup, wgl_walk)
 from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
 from jepsen_tpu_torch.checker.elle import list_append as elle_append
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
@@ -31,6 +32,39 @@ from jepsen_tpu_torch.checker.wgl_dedup import dedup, dedup_plain
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+class _WalkSyncs:
+    """The host syncs the dense walks make, by engine shape (s_lo, S, P):
+    on the card K3's walks (`DenseKernel._walk_k3`, with their calls and
+    K3 launches), on the CPU the eager walks."""
+
+    def __init__(self, monkeypatch, card: bool):
+        self.syncs, self.calls, self.launches = {}, {}, {}
+        for name in (("_walk_k3",) if card else
+                     ("run_range_eager", "run_range_batch_eager")):
+            monkeypatch.setattr(wgl.DenseKernel, name,
+                                self._spy(getattr(wgl.DenseKernel, name)))
+
+    def _spy(self, real):
+        def counted(k, *a):
+            s0, l0 = k.syncs, wgl_walk.LAUNCHES
+            out = real(k, *a)
+            key = (k.s_lo, k.S, k.P)
+            for d, v in ((self.syncs, k.syncs - s0), (self.calls, 1),
+                         (self.launches, wgl_walk.LAUNCHES - l0)):
+                d[key] = d.get(key, 0) + v
+            return out
+        return counted
+
+    def total(self, d=None) -> int:
+        return sum((self.syncs if d is None else d).values())
+
+    def hold_k3(self):
+        """Each K3 walk reads the host once to start and once a window."""
+        assert self.syncs and all(
+            self.syncs[g] == self.calls[g] + self.launches[g]
+            for g in self.syncs), (self.syncs, self.calls, self.launches)
 
 
 @pytest.mark.gpu
@@ -72,21 +106,30 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-def test_cuda_analysis_matches_cpu():
+def test_cuda_analysis_matches_cpu(monkeypatch):
     _need_cuda()
     h = synth.register_history(600, concurrency=5, crash_rate=0.01,
                                seed=16)
     for hist in (h, synth.corrupt(h, seed=16, value=5)):
-        before = wgl_closure.LAUNCHES
+        before = wgl_walk.ROUNDS, wgl_closure.LAUNCHES
+        gw = _WalkSyncs(monkeypatch, card=True)
         g = wgl.analysis_gpu(models.cas_register(), hist,
                              chunk_entries=200)
-        assert wgl_closure.LAUNCHES - before == g["closure-rounds"] > 0
+        gw.hold_k3()
+        cw = _WalkSyncs(monkeypatch, card=False)
+        # the walk is K3's: its rounds are the result's, K1 runs inside it
+        assert wgl_walk.ROUNDS - before[0] == g["closure-rounds"] > 0
+        assert wgl_closure.LAUNCHES == before[1]
         c = wgl.analysis_gpu(models.cas_register(), hist, device="cpu",
                              chunk_entries=200)
         assert g["device"] == "cuda"
         for key in ("valid?", "op-index", "max-frontier", "op-count",
-                    "closure-rounds", "host-syncs", "final-paths"):
+                    "closure-rounds", "final-paths"):
             assert g.get(key) == c.get(key), key
+        # K3 reads the host once a window, the eager walk every round;
+        # every other read is the same on both
+        assert g["host-syncs"] - gw.total() == c["host-syncs"] - cw.total()
+        assert g["host-syncs"] < c["host-syncs"]
 
 
 @pytest.mark.gpu
@@ -277,7 +320,7 @@ def test_batched_dedup_matches_plain_and_each_row(B, N, F):
 
 
 @pytest.mark.gpu
-def test_cuda_batch_matches_cpu_on_both_families():
+def test_cuda_batch_matches_cpu_on_both_families(monkeypatch):
     _need_cuda()
     reg = models.cas_register()
     dense = [synth.register_history(200, concurrency=c, values=5,
@@ -289,17 +332,31 @@ def test_cuda_batch_matches_cpu_on_both_families():
     for model, hs, kw, k1, k2 in [(reg, dense, {}, True, False),
                                   (models.counter(), cnt, {"slots": 16},
                                    False, True)]:
-        b1, b2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+        b1, b2 = wgl_walk.LAUNCHES, wgl_dedup.LAUNCHES
+        gw = _WalkSyncs(monkeypatch, card=True)
         g = wgl.analysis_gpu_batch(model, hs, **kw)
-        assert (wgl_closure.LAUNCHES > b1) == k1
+        assert (wgl_walk.LAUNCHES > b1) == k1
         assert (wgl_dedup.LAUNCHES > b2) == k2
+        if k1:
+            gw.hold_k3()
+        cw = _WalkSyncs(monkeypatch, card=False)
         c = wgl.analysis_gpu_batch(model, hs, device="cpu", **kw)
         assert any(r["valid?"] is False for r in g)
         for a, b in zip(g, c):
             assert a["device"] == "cuda" and b["device"] == "cpu"
             for key in ("valid?", "op-index", "max-frontier", "dedup",
-                        "analyzer", "batch-walk"):
+                        "analyzer"):
                 assert a.get(key) == b.get(key), key
+            # K3 reads the host once a window: the dense walks' host
+            # syncs are its own, every other read and count the CPU
+            # path's
+            wa, wb = dict(a["batch-walk"]), dict(b["batch-walk"])
+            if k1:
+                shape = tuple(wa["group"][1:])
+                ga, gb = wa.pop("host-syncs"), wb.pop("host-syncs")
+                assert ga - gw.syncs[shape] == gb - cw.syncs[shape]
+                assert ga < gb
+            assert wa == wb
 
 
 def _elle_bucket(e, b, rng, density=0.4):
@@ -382,15 +439,15 @@ _STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device",
 
 def _stream_both(hist, **kw):
     """The same stream on CUDA and on the CPU: (cuda result, cpu result,
-    the CUDA stream, K1 launches, K2 launches) — the launch counts of
+    the CUDA stream, K3's closure rounds, K2 launches) — the counts of
     the CUDA run only."""
-    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
     s = streaming.WglStream(models.cas_register(), **kw)
     for op in hist.ops:
         s.feed(op)
     g = s.finish()
     torch.cuda.synchronize()
-    launches = (wgl_closure.LAUNCHES - k1, wgl_dedup.LAUNCHES - k2)
+    launches = (wgl_walk.ROUNDS - k1, wgl_dedup.LAUNCHES - k2)
     c = streaming.stream_check(models.cas_register(), hist, device="cpu",
                                **kw)
     return g, c, s, launches
@@ -538,14 +595,14 @@ def _svc_strip(r):
 @pytest.mark.gpu
 def test_cuda_concurrent_streams_count_their_own_launches():
     """Two streams fed from two threads at once, a dense one and a hash
-    one: each result's K1 / K2 counts are its own (equal to the stream
-    alone) and together they are the global counters' change."""
+    one: each result's K3 rounds / K2 counts are its own (equal to the
+    stream alone) and together they are the global counters' change."""
     _need_cuda()
     import threading
     picks = {"d0": _SVC_STREAMS["d0"], "s0": _SVC_STREAMS["s0"]}
     hists = {n: _svc_hist(sd, bad) for n, (sd, bad, _kw) in picks.items()}
     alone = {n: _svc_solo(hists[n], picks[n][2]) for n in picks}
-    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
     out = {}
     ths = [threading.Thread(target=lambda n=n: out.__setitem__(
         n, _svc_solo(hists[n], picks[n][2]))) for n in picks]
@@ -559,16 +616,16 @@ def test_cuda_concurrent_streams_count_their_own_launches():
         assert _svc_strip(out[n]) == _svc_strip(alone[n]), n
     assert out["d0"]["closure-rounds"] > 0
     assert out["s0"]["dedup-launches"] > 0
-    assert wgl_closure.LAUNCHES - k1 == out["d0"]["closure-rounds"]
+    assert wgl_walk.ROUNDS - k1 == out["d0"]["closure-rounds"]
     assert wgl_dedup.LAUNCHES - k2 == sum(r["dedup-launches"]
                                           for r in out.values())
 
 
 @pytest.mark.gpu
 def test_cuda_service_four_streams_match_their_solos():
-    """A VerificationService on the card with 4 streams (2 dense, K1; 2
+    """A VerificationService on the card with 4 streams (2 dense, K3; 2
     packed sort on the hash route, K2), fed from 4 threads: each result
-    equals the stream alone on the card, and the launches add up."""
+    equals the stream alone on the card, and the counts add up."""
     _need_cuda()
     import threading
     from jepsen_tpu_torch import service
@@ -587,7 +644,7 @@ def test_cuda_service_four_streams_match_their_solos():
         if "concurrency_hint" in kw:
             spec["concurrency-hint"] = kw["concurrency_hint"]
         svc.admit(n, {"linear": spec})
-    k1, k2 = wgl_closure.LAUNCHES, wgl_dedup.LAUNCHES
+    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
 
     def feed(n):
         for op in hists[n].ops:
@@ -609,9 +666,202 @@ def test_cuda_service_four_streams_match_their_solos():
         [True, False, True, False]
     assert res["d0"]["analyzer"] == "gpu-wgl-dense-streaming"
     assert res["s0"]["dedup"] == "pallas-hash"
-    assert wgl_closure.LAUNCHES - k1 == sum(
+    assert wgl_walk.ROUNDS - k1 == sum(
         res[n]["closure-rounds"] for n in ("d0", "d1"))
     assert wgl_dedup.LAUNCHES - k2 == sum(
         r["dedup-launches"] for r in res.values())
     assert all(s["state"] == "verdict" for s in st["streams"].values())
     assert st["calibration"]["platform"] == "cuda"
+
+
+# -- K3: the dense step walk against the eager walk on the card ---------------
+
+def _k3_case(name):
+    """(model, history, plan options) of a K3 walk: the three models of
+    the suites' single-object checks, and forced-dense tables that take
+    the kernel's grid path (P = 14, 19)."""
+    import chip_smoke
+    if name == "register":
+        return models.register(), synth.register_history(
+            3000, concurrency=5, cas=False, crash_rate=0.002, seed=61), {}
+    if name == "cas-register":
+        return models.cas_register(), synth.register_history(
+            3000, concurrency=5, crash_rate=0.002, seed=62), {}
+    if name == "cas-register-dies":
+        h = synth.register_history(3000, concurrency=5, crash_rate=0.002,
+                                   seed=63)
+        return models.cas_register(), synth.corrupt(h, seed=63, value=5), {}
+    if name == "mutex":
+        return models.mutex(), chip_smoke.mutex_history(3000, seed=64), {}
+    conc = {"adversarial-14": 6, "at-cap-19": 11}[name]
+    return models.cas_register(), synth.adversarial_register_history(
+        300, concurrency=conc, crashed_writes=8, front_load=True,
+        seed=65), {"engine": "dense"}
+
+
+def _same_carry(a, b, where):
+    for i, (u, v) in enumerate(zip(carry_to_numpy(a), carry_to_numpy(b))):
+        assert u.dtype == v.dtype and u.shape == v.shape, (where, i)
+        np.testing.assert_array_equal(u, v, err_msg=f"{where} element {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["register", "cas-register",
+                                  "cas-register-dies", "mutex",
+                                  "adversarial-14", "at-cap-19"])
+def test_k3_walk_matches_the_eager_walk(name, monkeypatch):
+    """check_chunk on CUDA is K3: the carry equals the eager walk's
+    element for element after every chunk (a carry resuming across
+    calls, and across K3's 1,024-step windows inside one call), the
+    rounds are exact, and so are the pair rounds K3 reports (the sum of
+    each eager round's listed transitions); K1 never launches."""
+    _need_cuda()
+    listed = []
+    real_round = wgl.closure_round
+
+    def counted(tb, mft):
+        listed.append(int(mft.sum()))
+        return real_round(tb, mft)
+
+    monkeypatch.setattr(wgl, "closure_round", counted)
+    model, hist, kw = _k3_case(name)
+    pl = wgl.plan(model, hist, **kw)
+    assert pl.decision.dense is not None
+    k3, ke = pl.kernel("cuda", 256), pl.kernel("cuda", 256)
+    steps = wgl.build_steps(pl.ops, pl.slots)
+    xs = wgl.stage_steps(steps.x, "cuda")
+    init = model.device_state()
+    c3, ce = k3.init_carry(init), ke.init_carry(init)
+    launches, pairs = wgl_walk.LAUNCHES, wgl_walk.PAIR_ROUNDS
+    for stop in (steps.n // 3, steps.n):
+        k1 = wgl_closure.LAUNCHES
+        c3 = k3.check_chunk(xs, stop, c3)
+        assert wgl_closure.LAUNCHES == k1, "K1 launched inside a K3 walk"
+        ce = ke.run_range_eager(xs, stop, ce)
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"{name} to {stop}")
+    assert k3.rounds == ke.rounds == len(listed) > 0
+    assert wgl_walk.PAIR_ROUNDS - pairs == sum(listed)
+    assert wgl_walk.LAUNCHES > launches
+    # a read to start each call, one at each window's end
+    assert k3.syncs == 2 + wgl_walk.LAUNCHES - launches
+    assert k3.syncs < ke.syncs
+    assert int(k3.digest(c3)) == int(ke.digest(ce))
+    if name == "cas-register-dies":
+        assert int(c3[7]) == 0 and int(c3[0]) < steps.n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,conc,n", [(64, 4, 300), (3, 6, 200)])
+def test_k3_batched_walk_matches_the_eager_lockstep_walk(B, conc, n):
+    """check_chunk_batch on CUDA is one K3 launch per window for every
+    key: keys of different stops, some dying mid-walk, each with the
+    eager lockstep walk's carry and the same round total. (64, P <= 10)
+    keeps the tables in shared memory; (3, P = 14) takes the global
+    path."""
+    _need_cuda()
+    model = models.cas_register()
+    if conc == 4:
+        hists = [synth.register_history(n + 13 * (i % 9), concurrency=4,
+                                        values=5, crash_rate=0.005,
+                                        seed=1000 + i) for i in range(B)]
+        for i in (3, 17, 40):
+            hists[i] = synth.corrupt(hists[i], seed=i, value=5)
+    else:
+        hists = [synth.adversarial_register_history(
+            n + 50 * i, concurrency=conc, crashed_writes=8,
+            front_load=True, seed=70 + i) for i in range(B)]
+    pre = [wgl.encode_ops_for_model(model, h) for h in hists]
+    srange = wgl._state_range(model.device_model, model, pre)
+    p = max(wgl.required_slots(o) for o in pre)
+    dense = wgl._dense_shape(srange, p)
+    steps = [wgl.build_steps(o, dense[2]) for o in pre]
+    x, ns = wgl._stack_steps(steps, B)
+    xs = wgl.stage_steps(x, "cuda")
+    k3 = wgl.DenseKernel(model.device_model, *dense, "cuda")
+    ke = wgl.DenseKernel(model.device_model, *dense, "cuda")
+    init = [model.device_state()] * B
+    c3, ce = k3.init_carry_batch(init), ke.init_carry_batch(init)
+    launches = wgl_walk.LAUNCHES
+    for stop in (int(ns.max()) // 2, int(ns.max())):
+        st = np.minimum(ns, stop)
+        c3 = k3.check_chunk_batch(xs, st, c3)
+        ce = ke.run_range_batch_eager(xs, st, ce)
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"batch to {stop}")
+    assert k3.rounds == ke.rounds > 0
+    assert k3.syncs == 2 + wgl_walk.LAUNCHES - launches
+    if conc == 4:
+        assert (carry_to_numpy(c3)[7] == 0).sum() == 3
+    # a block of keys with no step to walk (a sharded rank's padding)
+    # comes back as it was, with no launch and one read
+    launches, syncs = wgl_walk.LAUNCHES, k3.syncs
+    assert k3.check_chunk_batch(xs, np.zeros(B, np.int64), c3) is c3
+    assert wgl_walk.LAUNCHES == launches and k3.syncs == syncs + 1
+
+
+@pytest.mark.gpu
+def test_k3_stream_chunks_resume_like_the_eager_walk():
+    """check_stream_chunk on CUDA (K3, e rebased per chunk) against the
+    eager walk over the same chunks."""
+    _need_cuda()
+    h = synth.adversarial_register_history(600, concurrency=5,
+                                           crashed_writes=6,
+                                           front_load=True, seed=81)
+    pl = wgl.plan(models.cas_register(), h, engine="dense")
+    k3, ke = pl.kernel("cuda", 256), pl.kernel("cuda", 256)
+    steps = wgl.build_steps(pl.ops, pl.slots)
+    init = models.cas_register().device_state()
+    c3, ce = k3.init_carry(init), ke.init_carry(init)
+    chunk = 256
+    launches = wgl_walk.LAUNCHES
+    for lo in range(0, steps.n, chunk):
+        part = np.zeros((chunk, steps.x.shape[1]), np.int32)
+        part[:, 1] = -1
+        n = min(chunk, steps.n - lo)
+        part[:n] = steps.x[lo:lo + n]
+        xs = wgl.stage_steps(part, "cuda")
+        c3 = k3.check_stream_chunk(xs, n, c3)
+        out = ke.run_range_eager(xs, n, (ke._i32(0),) + tuple(ce[1:]))
+        ce = (out[0] + ce[0],) + tuple(out[1:])
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"stream chunk at {lo}")
+    assert k3.rounds == ke.rounds > 0
+    assert k3.syncs == len(range(0, steps.n, chunk)) + (
+        wgl_walk.LAUNCHES - launches)
+
+
+@pytest.mark.gpu
+def test_k3_refused_launch_raises_and_does_not_fall_back(monkeypatch):
+    """A launch the kernel refuses raises KernelLaunchError; the walk
+    never falls back to the eager walk or to the CPU."""
+    _need_cuda()
+    h = synth.register_history(200, concurrency=4, seed=91)
+    pl = wgl.plan(models.cas_register(), h)
+    k = pl.kernel("cuda", 256)
+    steps = wgl.build_steps(pl.ops, pl.slots)
+    xs = wgl.stage_steps(steps.x, "cuda")
+    carry = k.init_carry(models.cas_register().device_state())
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("fell back to the eager walk")
+
+    monkeypatch.setattr(wgl.DenseKernel, "run_range_eager", no_fallback)
+    real = wgl_walk._check
+    # a slot count past the kernel's 30: the C entry refuses the launch
+    monkeypatch.setattr(wgl_walk, "_check",
+                        lambda *a: real(*a)[:2] + (31,) + real(*a)[3:])
+    before = wgl_walk.LAUNCHES
+    with pytest.raises(_platform.KernelLaunchError):
+        k.check_chunk(xs, steps.n, carry)
+    assert wgl_walk.LAUNCHES == before
+    monkeypatch.setattr(wgl_walk, "_check", real)
+    with pytest.raises(ValueError):      # a table on another device
+        wgl_walk.launch(
+            xs.dev[None], torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 4, k.S), dtype=torch.int16, device="cuda"),
+            torch.zeros((1, k.P, k.S), dtype=torch.int16, device="cuda"),
+            torch.zeros((4, 1), dtype=torch.int32, device="cuda"),
+            carry[1][None].cpu(),
+            torch.zeros((3, 1, k.P), dtype=torch.int32, device="cuda"),
+            carry[5][None], True)

@@ -60,7 +60,8 @@ from jepsen_tpu_torch.suites import cql_proto as tcql
 from jepsen_tpu_torch.suites import mysql_proto as tmysql
 from jepsen_tpu_torch.suites import reql_proto as treql
 from jepsen_tpu_torch.suites import resp_proto as tresp
-from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
+from jepsen_tpu_torch.checker import wgl as twgl
+from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
 
 JAX = dict(core=jcore, gen=jgen, ind=jind, suites=jsuites, store=jstore,
            db=jdb, os_=jos, shim=jshim, mysql=jmysql, cql=jcql,
@@ -276,10 +277,11 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
     """`chip_smoke.py`'s phase 14-16 maps at a small size on the CPU,
     through `drive_suite` with each fake in a child process of its own:
     the suite's own map with its client, partition nemesis and checker
-    compose, valid, its nemesis ops and iptables cuts there, its plain
-    K1/K2 calls (counted as the card's launches) equal to what its
-    results report, and its workload result equal, whole but for device
-    and duration, to the CPU path's check of the stored history
+    compose, valid, its nemesis ops and iptables cuts there, its eager
+    walks, plain K1 rounds and plain K2 calls (counted as the card's K3
+    launches, K3 rounds and K2 launches) equal to what its results
+    report, and its workload result equal, whole but for device and
+    duration, to the CPU path's check of the stored history
     (`cpu_suite_check`)."""
     monkeypatch.setattr(chip_smoke, "SUITE_RUN", dict(
         chip_smoke.SUITE_RUN, invocations=400))
@@ -293,18 +295,26 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(chip_smoke, "CPU_WORKER_THREADS", 1)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     lock = threading.Lock()
-    for mod, name in ((wgl_closure, "closure_round_plain"),
-                      (wgl_dedup, "dedup_plain")):
-        def counted(*a, _mod=mod, _plain=getattr(mod, name), **k):
+    # on the card a dense walk is K3 (its rounds those of K1's plain
+    # version here) and the hash dedup K2
+    for mod, name, owner, count in (
+            (wgl_closure, "closure_round_plain", wgl_walk, "ROUNDS"),
+            (wgl_dedup, "dedup_plain", wgl_dedup, "LAUNCHES"),
+            (twgl.DenseKernel, "run_range_eager", wgl_walk, "LAUNCHES"),
+            (twgl.DenseKernel, "run_range_batch_eager", wgl_walk,
+             "LAUNCHES")):
+        def counted(*a, _owner=owner, _count=count,
+                    _plain=getattr(mod, name), **k):
             with lock:
-                _mod.LAUNCHES += 1
+                setattr(_owner, _count, getattr(_owner, _count) + 1)
             return _plain(*a, **k)
         monkeypatch.setattr(mod, name, counted)
     row, job = chip_smoke.drive_suite(
-        kind, "cpu", str(tmp_path), wgl_closure, wgl_dedup, _Inline(),
+        kind, "cpu", str(tmp_path), _Inline(),
         *chip_smoke.data_planes([kind])[kind])
     assert row["ops"] == 2 * 400 + row["nemesis_ops"] and row["iptables"]
-    assert row["k1_launches"] > 0 and row["k2_launches"] == 0
+    assert row["k3_launches"] > 0 and row["k1_launches"] == 0
+    assert row["k2_launches"] == 0
     assert 0 < row["workload_check_s"] <= row["check_s"]
     if kind in ("yugabyte", "faunadb"):
         # a compose per key: each key is walked alone
