@@ -29,13 +29,14 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      the concurrency-11 history and the adversarial history, the last two
      under a wall-time budget), with every kernel's launch count set to 0
      just before and read just after (each dense walk launches K3, the
-     dense step walk, whose reported rounds are the result's
-     closure-rounds, and never K1 alone; K2 on the hash route); then hold
-     verdicts, culprit ops, counts (a dense walk's host syncs are K3's,
-     fewer than the CPU path's) and final carries against the port's
-     own CPU path (run in a worker process from the end of phase 1 on),
-     and trace the first 250 steps of four walks with torch.profiler for
-     the device's busy share;
+     dense step walk, and each sort walk K3-sort, the sort step walk,
+     whose reported rounds and hash dedups are the result's
+     closure-rounds and dedup-launches; never K1 or K2 alone); then hold
+     verdicts, culprit ops, counts (a walk's host syncs are its
+     kernel's, fewer than the CPU path's) and final carries against the
+     port's own CPU path (run in a worker process from the end of phase
+     1 on), and trace the first 250 steps of four walks with
+     torch.profiler for the device's busy share;
  4b. hold K3 against the eager walk, its plain version, on the card: the
      headline, the adversarial and concurrency-11 histories forced
      dense, the hazelcast batch's four dense groups (batched), the dense
@@ -44,7 +45,15 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      rounds equal; each walk's wall both ways with host syncs and
      launches, and torch.profiler traces of the headline and the
      hazelcast batch's largest group (both ways on the profile prefix,
-     K3 over the whole walk) for the device's busy share;
+     K3 over the whole walk) for the device's busy share; then K3-sort
+     against the eager walk the same way (`phase_k3s`): the phantom and
+     counter walks whole (hash route), the concurrency-11 history at
+     F = 256 and 4,096 (lexicographic route) and the adversarial one's
+     F = 65,536 pass on a prefix (packed sort), the counter batch's sort
+     group (batched), the sort-abort stream's first three chunks and the
+     chaos workload's shape (8 slots, F = 128), carries, rounds and hash
+     dedups equal, walls, syncs and launches both ways, and profiles of
+     the phantom walk;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
      and at P = 0-3 and 19 with B = 4; K2 on all four outputs at
@@ -56,7 +65,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      checker over a key-sharded history — at full size: the hazelcast
      shape (100 keys of 500 register ops, three corrupted, dense groups
      P = 4-10, K3 batched) and 32 counter keys on the sort family's hash
-     route (two corrupted, K2 batched on both routes), with every
+     route (two corrupted, K3-sort batched), with every
      kernel's launch count set to 0 just before each run and read just
      after; then the dense batch again under an injected OOM (the
      ladder's split); then hold verdicts, culprit ops, counts and each
@@ -81,7 +90,8 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      the 10,000-txn rw-register history through WrStream; and the
      headline at tier 'screen' (sample 0 and 1) and under the
      competition race. Every kernel's launch count is set to 0 just
-     before each stream and read just after (K3 and K2 must launch);
+     before each stream and read just after (K3 and K3-sort must
+     launch; K2 never);
      each WGL stream's final carry is held against the offline walk of
      its engine on the card, each result against the CPU path's (the
      dense stream through the first chunk of its full-size run), and feed,
@@ -89,10 +99,11 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      runs in a worker process from the end of phase 1 on);
   9. the verification service on the card: one VerificationService, 16
      streams of a 1,000-op register history fed from 16 threads (streams
-     0-7 dense, K3; 8-15 packed sort on the hash route, K2; streams 5 and
-     13 invalid), every kernel's launch count set to 0 just before the
-     16-stream run and read just after, each stream's own K3/K2 counts
-     adding up to them, each result equal to the stream alone on the card
+     0-7 dense, K3; 8-15 packed sort on the hash route, K3-sort; streams
+     5 and 13 invalid), every kernel's launch count set to 0 just before
+     the 16-stream run and read just after, each stream's own rounds and
+     hash dedups adding up to K3's and K3-sort's (K1 and K2 never
+     launch), each result equal to the stream alone on the card
      and on the CPU path (in worker processes; the dense streams on their
      first 400 history ops, three chunks and a checkpoint); the wall and
      ops/s at 1, 4 and 16 streams, the device's busy share of a
@@ -103,7 +114,7 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
  10. the sharded phase: over a one-rank NCCL group on the card,
      check_batch_sharded of phase 6's hazelcast batch (per_key equal to
      phase 6's verdicts, the JAX package's group plan, K3 launched),
-     of its counter batch (K2 launched) and of the hazelcast batch again
+     of its counter batch (K3-sort launched) and of the hazelcast batch again
      under an injected OOM (the split), list_append.check of phase 7's
      G1c history over the mesh (equal to phase 7's result), and the
      closure of a 4,096-node ring with and without the mesh, every
@@ -119,8 +130,9 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      in-process VerificationService on the card, and run_chaos on both
      chaos workloads (every oracle green), every kernel's launch count
      set to 0 just before each run and read just after, each result
-     equal to the CPU path's (in a worker process) but for its wall and
-     each launch count equal to the CPU path's plain calls; then the
+     equal to the CPU path's (in a worker process) but for its wall, K3's
+     rounds and K3-sort's hash dedups equal to the CPU path's plain K1
+     and K2 calls; then the
      chaos command (`python -m jepsen_tpu_torch chaos`) as a subprocess
      on the card, exiting 0 with the in-process run's result;
  12. the run path: the port's `core.run` as a user drives it, over the
@@ -224,6 +236,10 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # outside the tensor cores, FMA = 2 ops
+# 32-bit integer operations (the data sheet gives no rate): 132 SMs of 64
+# INT32 lanes each (NVIDIA's H100 architecture whitepaper) at the 1.98 GHz
+# that the float32 peak's 132 x 128 lanes x 2 ops imply
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 SEED = 45100
 HEADLINE = dict(n_ops=10_000, concurrency=5, values=5, crash_rate=0.0005,
@@ -241,6 +257,23 @@ K3_MUTEX_OPS = 6_000
 K3_STREAM_CHUNKS = 3
 ADVERSARIAL_BUDGET_S = 150
 BUDGET_CHUNK = 1024
+# phase 4b's K3-sort walks: the at-cap history on the lexicographic route
+# at two of its escalated passes' frontiers, each walked until it dies
+# (at F = 4,096 after 3 windows of 124 steps); the adversarial history's
+# last escalated pass at F = 65,536 cut to a prefix (16 windows of 15
+# steps: the eager walk's time), the sort-abort stream's first 3 chunks;
+# the chaos workload's shape (8 slots, F = 128, no declared range:
+# unpacked) on a register history of K3S_CHAOS_OPS ops
+K3S_AT_CAP_F = (256, 4096)
+K3S_ADV_F = 65536
+K3S_ADV_STEPS = 240
+K3S_STREAM_CHUNKS = 3
+K3S_CHAOS_OPS = 2_000
+# the operations K3-sort's bound counts a dedup row: a hash insert is the
+# murmur finaliser's 8 (two multiplies, three shifts, three XORs); a radix
+# pass a digit's shift and mask, its count and its scatter (3)
+HASH_ROW_OPS = 8
+SORT_PASS_ROW_OPS = 3
 # every P from 0 to 19: P <= 3 is the byte-per-thread path, P = 0-3
 # inside a chunk are the byte butterflies; S = 3, 5, 24 and 30 are not
 # multiples of 8
@@ -360,8 +393,12 @@ SERVICE_CPU_DENSE_OPS = 400
 SERVICE_PROFILE_OPS = 300
 SERVICE_TIMING = ("duration-ms", "tail-latency-ms", "violation-at-op")
 SERVICE_COUNT_KEYS = ("closure-rounds", "dedup-launches", "host-syncs")
-CPU_WORKERS = 2
-CPU_WORKER_THREADS = 3
+# the CPU checks' worker processes and the threads of each: 3 x 2 of the
+# card host's 8 cores beside this process (the pool's checks, mostly
+# interpreter-bound eager walks, set the script's wall once the sort
+# escalations run on the card's grid path: 2 x 3 took longer)
+CPU_WORKERS = 3
+CPU_WORKER_THREADS = 2
 # the sharded phase (wgl.py:2424-2767, the Elle mesh path, the graft
 # entries): the batches of phase 6 and the G1c history of phase 7 over a
 # one-rank NCCL group on the card, then the hazelcast batch and the
@@ -547,59 +584,84 @@ def mutex_history(n_ops, concurrency=3, seed=SEED):
 
 
 def zero_launches() -> None:
-    """Set every kernel's launch count, and the closure rounds K3 ran, to
-    0."""
-    from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
+    """Set every kernel's launch count, and the rounds and hash dedups
+    the walk kernels ran, to 0."""
+    from jepsen_tpu_torch.checker import (wgl_closure, wgl_dedup,
+                                          wgl_sortwalk, wgl_walk)
     wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
     wgl_walk.LAUNCHES = wgl_walk.ROUNDS = 0
+    wgl_sortwalk.LAUNCHES = wgl_sortwalk.ROUNDS = wgl_sortwalk.DEDUPS = 0
+    wgl_sortwalk.ROWS = wgl_sortwalk.PASS_ROWS = 0
 
 
 def launch_counts() -> dict:
     """The launch counts since `zero_launches`: K1's and K2's, K3's (the
-    dense walk) and the closure rounds K3 ran, which stand for the dense
-    walks' rounds (K1's launches before K3 took the walk)."""
-    from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
+    dense walk) with the closure rounds it ran, which stand for the dense
+    walks' rounds (K1's launches before K3 took the walk), and K3-sort's
+    (the sort walk) with the stage-B rounds and hash dedups it ran, which
+    stand for the sort walks' (K2's launches before K3-sort took the
+    walk)."""
+    from jepsen_tpu_torch.checker import (wgl_closure, wgl_dedup,
+                                          wgl_sortwalk, wgl_walk)
     return {"k1_launches": wgl_closure.LAUNCHES,
             "k2_launches": wgl_dedup.LAUNCHES,
-            "k3_launches": wgl_walk.LAUNCHES, "k3_rounds": wgl_walk.ROUNDS}
+            "k3_launches": wgl_walk.LAUNCHES, "k3_rounds": wgl_walk.ROUNDS,
+            "k3s_launches": wgl_sortwalk.LAUNCHES,
+            "k3s_rounds": wgl_sortwalk.ROUNDS,
+            "k3s_dedups": wgl_sortwalk.DEDUPS}
+
+
+def walk_counts(rec) -> tuple:
+    """(rounds, hash dedups) the walk kernels reported over a run: K3's
+    closure rounds with K3-sort's stage-B rounds, and K3-sort's hash
+    dedups, which are the results' closure-rounds and dedup-launches."""
+    return rec["k3_rounds"] + rec["k3s_rounds"], rec["k3s_dedups"]
+
+
+def walks_only(rec) -> bool:
+    """K1 and K2 launched no time: every walk ran in K3 or K3-sort."""
+    return rec["k1_launches"] == 0 and rec["k2_launches"] == 0
 
 
 class WalkSyncs:
-    """The host reads of the dense walks in this process, by engine shape
-    "s_lo,S,P": K3's walks (`DenseKernel._walk_k3`) and the eager walks
-    (`run_range_eager`, `run_range_batch_eager`: the CPU path's, and the
-    card's in the K3 phase). A K3 walk must read the host once to start
-    and once at the end of each of its launches; `hold` refuses any walk
-    that read otherwise. Launches are counted per thread, so walks in
-    other threads do not blur a walk's count. Install with
-    `walk_syncs()`."""
+    """The host reads of the walks in this process, by engine shape
+    "s_lo,S,P" (dense) or "sort,F,P": the kernels' walks
+    (`DenseKernel._walk_k3`, K3; `SortKernel._walk_k3s`, K3-sort; under
+    "k3") and the eager walks (`run_range_eager`, `run_range_batch_eager`
+    of both families: the CPU path's, and the card's in phase 4b). A
+    kernel walk must read the host once to start and once at the end of
+    each of its launches; `hold` refuses any walk that read otherwise.
+    Launches are counted per thread, so walks in other threads do not
+    blur a walk's count. Install with `walk_syncs()`."""
 
-    def __init__(self, wgl, wgl_walk):
+    def __init__(self, wgl, wgl_walk, wgl_sortwalk):
         self.lock = threading.Lock()
         self.local = threading.local()
         self.k3 = collections.Counter()
         self.eager = collections.Counter()
         self.calls = self.launches = 0
         self.bad = []
-        D = wgl.DenseKernel
-        real_launch, real_k3 = wgl_walk.launch, D._walk_k3
 
-        def launch(*a, **kw):
-            out = real_launch(*a, **kw)
-            self.local.n = getattr(self.local, "n", 0) + 1
-            return out
+        def counted(real_launch):
+            def launch(*a, **kw):
+                out = real_launch(*a, **kw)
+                self.local.n = getattr(self.local, "n", 0) + 1
+                return out
+            return launch
 
-        def walk_k3(k, *a):
-            s0, self.local.n = k.syncs, 0
-            out = real_k3(k, *a)
-            reads, n = k.syncs - s0, self.local.n
-            with self.lock:
-                self.k3[self.shape(k)] += reads
-                self.calls += 1
-                self.launches += n
-                if reads != 1 + n:
-                    self.bad.append((self.shape(k), reads, n))
-            return out
+        def kernel_walk(real):
+            def walk(k, *a):
+                s0, self.local.n = k.syncs, 0
+                out = real(k, *a)
+                reads, n = k.syncs - s0, self.local.n
+                with self.lock:
+                    self.k3[self.shape(k)] += reads
+                    self.calls += 1
+                    self.launches += n
+                    if reads != 1 + n:
+                        self.bad.append((self.shape(k), reads, n))
+                return out
+            return walk
 
         def eager(real):
             def walk(k, *a):
@@ -610,14 +672,19 @@ class WalkSyncs:
                 return out
             return walk
 
-        wgl_walk.launch = launch
-        D._walk_k3 = walk_k3
-        D.run_range_eager = eager(D.run_range_eager)
-        D.run_range_batch_eager = eager(D.run_range_batch_eager)
+        wgl_walk.launch = counted(wgl_walk.launch)
+        wgl_sortwalk.launch = counted(wgl_sortwalk.launch)
+        for cls, name in ((wgl.DenseKernel, "_walk_k3"),
+                          (wgl.SortKernel, "_walk_k3s")):
+            setattr(cls, name, kernel_walk(getattr(cls, name)))
+            cls.run_range_eager = eager(cls.run_range_eager)
+            cls.run_range_batch_eager = eager(cls.run_range_batch_eager)
 
     @staticmethod
     def shape(k) -> str:
-        return f"{k.s_lo},{k.S},{k.P}"
+        if hasattr(k, "S"):
+            return f"{k.s_lo},{k.S},{k.P}"
+        return f"sort,{k.F},{k.P}"
 
     def snap(self) -> tuple:
         with self.lock:
@@ -634,8 +701,8 @@ class WalkSyncs:
 
     def hold(self) -> None:
         if self.bad:
-            raise AssertionError(f"K3 walks whose host reads are not one "
-                                 f"to start and one a launch (shape, "
+            raise AssertionError(f"kernel walks whose host reads are not "
+                                 f"one to start and one a launch (shape, "
                                  f"reads, launches): {self.bad[:5]}")
 
 
@@ -646,19 +713,20 @@ def walk_syncs() -> WalkSyncs:
     """This process's WalkSyncs, installed at the first call."""
     global _WALK_SYNCS
     if _WALK_SYNCS is None:
-        from jepsen_tpu_torch.checker import wgl, wgl_walk
-        _WALK_SYNCS = WalkSyncs(wgl, wgl_walk)
+        from jepsen_tpu_torch.checker import wgl, wgl_sortwalk, wgl_walk
+        _WALK_SYNCS = WalkSyncs(wgl, wgl_walk, wgl_sortwalk)
     return _WALK_SYNCS
 
 
 def same_syncs_but_walks(label, g_syncs, g_k3, c_syncs, c_eager) -> None:
-    """Hold a card result's host reads to the CPU path's: K3's walks read
-    the host once to start and once a window (`WalkSyncs.hold`), the
-    eager walks every round, and every other read is the same on both."""
+    """Hold a card result's host reads to the CPU path's: the kernels'
+    walks (K3, K3-sort) read the host once to start and once a window
+    (`WalkSyncs.hold`), the eager walks every round, and every other
+    read is the same on both."""
     if g_syncs - g_k3 != c_syncs - c_eager or not g_syncs < c_syncs:
         raise AssertionError(f"{label}: {g_syncs} host syncs on the card "
-                             f"({g_k3} in K3 walks), {c_syncs} on the CPU "
-                             f"path ({c_eager} in eager walks)")
+                             f"({g_k3} in kernel walks), {c_syncs} on the "
+                             f"CPU path ({c_eager} in eager walks)")
 
 
 def log(*a):
@@ -1242,7 +1310,9 @@ def run_batch(label, fn, wgl, wgl_dedup, carry_to_numpy):
                op_index={i: r.get("op-index") for i, r in enumerate(rs)
                          if r["valid?"] is False}, **tot)
     log(f"batch {label}: {len(rs)} keys, wall {wall:.3f} s, K3 launches "
-        f"{rec['k3_launches']} ({rec['k3_rounds']} rounds), K2 launches "
+        f"{rec['k3_launches']} ({rec['k3_rounds']} rounds), K3-sort "
+        f"launches {rec['k3s_launches']} ({rec['k3s_rounds']} rounds, "
+        f"{rec['k3s_dedups']} hash dedups), K2 launches "
         f"{rec['k2_launches']} "
         f"({rec['k2_cuda_launches']} CUDA launches), host syncs "
         f"{tot['host_syncs']}, groups [kind, shape..., keys] "
@@ -1253,8 +1323,8 @@ def run_batch(label, fn, wgl, wgl_dedup, carry_to_numpy):
 def check_batch(label, rs, rec, bad, dense) -> None:
     """Hold a batch run to what its histories are: the corrupted keys
     invalid with an op-index, the rest valid, K3 launched on the dense
-    groups (its rounds the walks' count, K1 never alone) and K2 on the
-    sort group's hash route as often as the walks counted."""
+    groups and K3-sort on the sort group's hash route, their rounds and
+    hash dedups the walks' counts, K1 and K2 never alone."""
     if rec["invalid"] != sorted(bad) or any(
             not isinstance(rec["op_index"][i], int) for i in bad):
         raise AssertionError(f"{label}: invalid keys {rec['op_index']}")
@@ -1263,35 +1333,35 @@ def check_batch(label, rs, rec, bad, dense) -> None:
     if any(r["analyzer"] != "gpu-wgl-batch" or r["device"] != "cuda"
            for r in rs):
         raise AssertionError(f"{label}: a key left the batch path")
-    k1, k2, k3 = rec["k1_launches"], rec["k2_launches"], rec["k3_launches"]
-    if dense:
-        if k3 <= 0 or rec["k3_rounds"] != rec["closure_rounds"] or k1 != 0 \
-                or k2 != 0 or any(g[0] != "dense" for g in rec["groups"]):
-            raise AssertionError(f"{label}: K3 {k3} with {rec['k3_rounds']}"
-                                 f" rounds for {rec['closure_rounds']}, K1 "
-                                 f"{k1}, K2 {k2}")
-        return
-    singles = (5 * k2 - rec["k2_cuda_launches"]) // 4
-    if k1 != 0 or k3 != 0 or k2 <= 0 or k2 != rec["dedup_launches"] \
-            or singles <= 0 \
-            or singles >= k2 or any(r["dedup"] != "pallas-hash" for r in rs):
-        raise AssertionError(f"{label}: K1 {k1}, K2 {k2} "
-                             f"({rec['k2_cuda_launches']} CUDA launches) for "
-                             f"{rec['dedup_launches']} hash dedups")
+    k3, k3s = rec["k3_launches"], rec["k3s_launches"]
+    family = "dense" if dense else "sort"
+    if not walks_only(rec) or rec["k2_cuda_launches"] != 0 \
+            or (k3 > 0) != dense or (k3s > 0) == dense \
+            or walk_counts(rec) != (rec["closure_rounds"],
+                                    rec["dedup_launches"]) \
+            or any(g[0] != family for g in rec["groups"]) \
+            or (not dense and (rec["dedup_launches"] <= 0 or any(
+                r["dedup"] != "pallas-hash" for r in rs))):
+        raise AssertionError(f"{label}: K3 {k3} / K3-sort {k3s} launches, "
+                             f"rounds and hash dedups {walk_counts(rec)} "
+                             f"for {rec['closure_rounds']} and "
+                             f"{rec['dedup_launches']}, K1 "
+                             f"{rec['k1_launches']}, K2 {rec['k2_launches']}")
 
 
 BATCH_AGREE_KEYS = ("valid?", "op-index", "max-frontier", "dedup",
                     "analyzer", "op-count", "batch-walk")
 
 
-def without_dense_syncs(fields: dict) -> dict:
-    """A key's compared fields without its batch walk's host syncs where
-    the walk is dense: K3 reads the host once a window, the CPU path's
-    eager walk every round, so those counts differ by design, and every
-    K3 walk on the card is held to its own count (`WalkSyncs.hold`, at
-    each phase's end); every other walk count is the same on both."""
+def without_walk_syncs(fields: dict) -> dict:
+    """A key's compared fields without its batch walk's host syncs: the
+    walk kernels (K3, K3-sort) read the host once a window, the CPU
+    path's eager walks every round, so those counts differ by design, and
+    every kernel walk on the card is held to its own count
+    (`WalkSyncs.hold`, at each phase's end); every other walk count is
+    the same on both."""
     walk = fields.get("batch-walk")
-    if not walk or walk["group"][0] != "dense":
+    if not walk:
         return fields
     return dict(fields, **{"batch-walk": {k: v for k, v in walk.items()
                                           if k != "host-syncs"}})
@@ -1302,8 +1372,8 @@ def cpu_batch(kind: str) -> tuple:
     the counter ("sort") batch through analysis_gpu_batch on the CPU,
     with each group walk's final batched carry. It needs nothing of the
     card's run. Returns each key's compared fields, the carries, the
-    seconds it took and the host reads of its eager dense walks by
-    engine shape."""
+    seconds it took and the host reads of its eager walks by engine
+    shape."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl
@@ -1421,18 +1491,19 @@ def phase_batch(dev, models, synth, wgl, wgl_dedup,
         g_k3 = out[kind]["walk_reads"]["k3"]
         for i, (a, b) in enumerate(zip(g_rs, c_rs)):
             a, b = dict(a), dict(b)
-            if kind == "dense":
-                # K3 reads the host once a window, the CPU path's eager
-                # walk at every round: every other read and walk count
-                # is equal
-                a["batch-walk"], b["batch-walk"] = (
-                    dict(a["batch-walk"]), dict(b["batch-walk"]))
-                ga, gb = (a["batch-walk"].pop("host-syncs"),
-                          b["batch-walk"].pop("host-syncs"))
-                shape = ",".join(map(str, a["batch-walk"]["group"][1:]))
-                same_syncs_but_walks(f"{label} key {i}", ga,
-                                     g_k3.get(shape, 0), gb,
-                                     c_eager.get(shape, 0))
+            # K3 and K3-sort read the host once a window, the CPU path's
+            # eager walks at every round: every other read and walk count
+            # is equal
+            a["batch-walk"], b["batch-walk"] = (
+                dict(a["batch-walk"]), dict(b["batch-walk"]))
+            ga, gb = (a["batch-walk"].pop("host-syncs"),
+                      b["batch-walk"].pop("host-syncs"))
+            group = a["batch-walk"]["group"]
+            shape = ",".join(map(str, group[1:] if group[0] == "dense"
+                                 else group))
+            same_syncs_but_walks(f"{label} key {i}", ga,
+                                 g_k3.get(shape, 0), gb,
+                                 c_eager.get(shape, 0))
             for key in BATCH_AGREE_KEYS:
                 if a.get(key) != b.get(key):
                     raise AssertionError(f"{label} key {i}: {key} gpu "
@@ -1489,8 +1560,8 @@ def batch_prefix_walk(wgl, model, hists, device, eager=False):
 def prefix_walk(wgl, model, hist, device, eager=False, **kw):
     """A function walking the first n merged steps of `hist` on the
     engine `plan` picks (the sort family at frontier F), as
-    analysis_gpu's walk does (or, on the dense engine where `eager`, with
-    the eager walk, K3's plain version)."""
+    analysis_gpu's walk does (or, where `eager`, with the eager walk,
+    the plain version of K3 or K3-sort)."""
     pl = wgl.plan(model, hist, **kw)
     k = pl.kernel(device, kw.get("frontier", 256))
     steps = wgl.build_steps(pl.ops, pl.slots)
@@ -1530,11 +1601,14 @@ def profile_walk(walk, n) -> dict:
     busy_s = sum(ns for _c, ns in by_name.values()) / 1e9
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     k3 = [v for name, v in by_name.items() if "dense_walk" in name]
+    k3s = [v for name, v in by_name.items() if "sort_walk" in name]
     return {"wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / wall,
             "kernel_launches": sum(c for c, _ns in by_name.values()),
             "k3_launches": sum(c for c, _ns in k3),
             "k3_ms": sum(ns for _c, ns in k3) / 1e6,
+            "k3s_launches": sum(c for c, _ns in k3s),
+            "k3s_ms": sum(ns for _c, ns in k3s) / 1e6,
             "top": [(name[:60], c, ns / 1e6) for name, (c, ns) in top]}
 
 
@@ -1569,26 +1643,34 @@ def k3_bound(S, P, keys, launches, steps, completions,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy) -> dict:
-    """One walk with K3 (`walk3(k3)`) and with the eager walk
-    (`walke(ke)`, K3's plain version) on the card, K3 first and last:
-    the carries element for element and the rounds equal, K3's host
-    syncs one per call and one per launch, each side's wall (K3 the
-    later of its two), host syncs and launches, and K3's pair rounds."""
+def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
+              mod=None) -> dict:
+    """One walk with its kernel (`walk3(k3)`: K3, or K3-sort where `mod`
+    is `wgl_sortwalk`) and with the eager walk (`walke(ke)`, the kernel's
+    plain version) on the card, the kernel first and last: the carries
+    element for element, the rounds and hash dedups equal, the kernel's
+    host syncs one per call and one per launch, each side's wall (the
+    kernel the later of its two), host syncs and launches, and the work
+    the kernel reported (K3's pair rounds; K3-sort's dedup rows and rows
+    times radix passes)."""
     from jepsen_tpu_torch.checker import wgl_walk
+    mod = mod or wgl_walk
+    name = "K3" if mod is wgl_walk else "K3-sort"
+    work = ("PAIR_ROUNDS",) if mod is wgl_walk else ("ROWS", "PASS_ROWS")
     ws = walk_syncs()
 
     def timed(fn, k):
-        r0, s0, l0, p0 = (k.rounds, k.syncs, wgl_walk.LAUNCHES,
-                          wgl_walk.PAIR_ROUNDS)
+        r0, d0, s0, l0 = k.rounds, k.dedups, k.syncs, mod.LAUNCHES
+        w0 = [getattr(mod, a) for a in work]
         snap = ws.snap()
         torch.cuda.synchronize()
         t = time.perf_counter()
         c = fn(k)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t, carry_to_numpy(c), k.rounds - r0,
-                k.syncs - s0, wgl_walk.LAUNCHES - l0, ws.since(snap)["calls"],
-                wgl_walk.PAIR_ROUNDS - p0)
+        return (time.perf_counter() - t, carry_to_numpy(c),
+                (k.rounds - r0, k.dedups - d0), k.syncs - s0,
+                mod.LAUNCHES - l0, ws.since(snap)["calls"],
+                [getattr(mod, a) - b for a, b in zip(work, w0)])
 
     timed(walk3, k3)
     e = timed(walke, ke)
@@ -1598,16 +1680,46 @@ def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy) -> dict:
     if err or g[2] != e[2] or any(
             a.dtype != b.dtype or a.shape != b.shape
             for a, b in zip(g[1], e[1])):
-        raise AssertionError(f"K3 {label}: carry differs by {err}, rounds "
-                             f"{g[2]} against the eager walk's {e[2]}")
+        raise AssertionError(f"{name} {label}: carry differs by {err}, "
+                             f"rounds and hash dedups {g[2]} against the "
+                             f"eager walk's {e[2]}")
     if g[3] != g[5] + g[4] or not g[3] < e[3]:
-        raise AssertionError(f"K3 {label}: {g[3]} host syncs for {g[5]} "
-                             f"calls and {g[4]} launches (the eager walk "
-                             f"{e[3]})")
-    return {"k3_wall_s": g[0], "eager_wall_s": e[0], "rounds": g[2],
-            "k3_syncs": g[3], "eager_syncs": e[3], "k3_launches": g[4],
-            "k3_calls": g[5], "pair_rounds": g[6], "max_abs_err": err,
-            "carry": g[1]}
+        raise AssertionError(f"{name} {label}: {g[3]} host syncs for "
+                             f"{g[5]} calls and {g[4]} launches (the eager "
+                             f"walk {e[3]})")
+    out = {"k3_wall_s": g[0], "eager_wall_s": e[0], "rounds": g[2][0],
+           "dedups": g[2][1], "k3_syncs": g[3], "eager_syncs": e[3],
+           "k3_launches": g[4], "k3_calls": g[5], "max_abs_err": err,
+           "carry": g[1]}
+    out.update({a.lower(): v for a, v in zip(work, g[6])})
+    return out
+
+
+def k3s_bound(F, P, route, keys, launches, steps, rows,
+              pass_rows) -> tuple[float, str]:
+    """The least time an H100 could take for a K3-sort walk on these
+    inputs, and what bounds it: the larger of bytes over the HBM rate and
+    its integer operations over the INT32 rate.
+
+    Bytes, each input read once and each output written once: at each
+    launch every key's carry in and out (masks F x W and states F as
+    int32, valid F bytes, three int32 slot words and an occupancy byte a
+    slot, five int32 scalars), and at each step walked its row (W + 4
+    int32). A dedup's rows, hash table and sort buffers stay on chip or
+    in the key's scratch, which holds nothing the walk must move.
+
+    Operations: the rows of every dedup, which K3-sort reports: on the
+    hash route HASH_ROW_OPS a row (the insert's hash), on the sort routes
+    SORT_PASS_ROW_OPS a row for each radix pass run. For a batch `steps`,
+    `rows` and `pass_rows` sum over the keys."""
+    W = (P + 31) // 32
+    carry = 2 * (F * (4 * W + 5) + 13 * P + 20)
+    nbytes = launches * keys * carry + steps * 4 * (W + 4)
+    ops = rows * HASH_ROW_OPS if route == "hash" else \
+        pass_rows * SORT_PASS_ROW_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def dense_groups(wgl, model, hists, device):
@@ -1630,32 +1742,39 @@ def dense_groups(wgl, model, hists, device):
     return out
 
 
-def stream_chunks(wgl, streaming, model, hist, device, n_chunks) -> tuple:
-    """The first n_chunks chunks a dense stream (STREAM_DENSE) hands its
-    engine: (kernel shape, [(step matrix, n, carry before) ...]), as the
-    stream staged them, read by wrapping the engine's check_stream_chunk
-    while the history is fed."""
+def stream_chunks(wgl, streaming, model, hist, device, n_chunks,
+                  sort=False) -> tuple:
+    """The first n_chunks chunks a stream (STREAM_DENSE, or STREAM_ABORT
+    where `sort`) hands its engine: (kernel shape, [(step matrix, n,
+    carry before) ...]), as the stream staged them, read by wrapping the
+    engine's check_stream_chunk while the history is fed. The shape is
+    (s_lo, S, P) of the dense engine, (model, F, P, pack, route) of the
+    sort engine."""
     seen = []
-    real = wgl.DenseKernel.check_stream_chunk
+    cls = wgl.SortKernel if sort else wgl.DenseKernel
+    real = cls.check_stream_chunk
 
     def record(k, xs, n, carry):
-        seen.append(((k.s_lo, k.S, k.P), xs.host.copy(), n,
+        shape = ((k.model_name, k.F, k.P,
+                  (k.s_lo, k.sb_bits) if k.packed else None, k.dedup_route)
+                 if sort else (k.s_lo, k.S, k.P))
+        seen.append((shape, xs.host.copy(), n,
                      tuple(t.clone() for t in carry)))
         return real(k, xs, n, carry)
 
-    wgl.DenseKernel.check_stream_chunk = record
+    cls.check_stream_chunk = record
     try:
-        s = streaming.WglStream(model, device=device, **STREAM_DENSE)
+        s = streaming.WglStream(model, device=device,
+                                **(STREAM_ABORT if sort else STREAM_DENSE))
         for op in hist.ops:
             s.feed(op)
             if len(seen) >= n_chunks:
                 break
     finally:
-        wgl.DenseKernel.check_stream_chunk = real
+        cls.check_stream_chunk = real
     shapes = {c[0] for c in seen}
     if len(seen) < n_chunks or len(shapes) != 1:
-        raise AssertionError(f"dense stream: {len(seen)} chunks, shapes "
-                             f"{shapes}")
+        raise AssertionError(f"stream: {len(seen)} chunks, shapes {shapes}")
     return seen[0][0], [c[1:] for c in seen]
 
 
@@ -1789,6 +1908,167 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
     return out
 
 
+def sort_group(wgl, model, hists, device):
+    """The sort dispatch group of a batch as analysis_gpu_batch forms it
+    (F = 1,024, BATCH_SLOTS): a kernel factory, the staged (B, T, W+4)
+    steps, the stops and the initial states."""
+    pre = [wgl.encode_ops_for_model(model, h) for h in hists]
+    srange = wgl._state_range(model.device_model, model, pre)
+    _dense, idx = wgl._dispatch_groups(
+        srange, [wgl.required_slots(o) for o in pre], "auto",
+        n_events=max(wgl.event_count(o) for o in pre))
+    x, ns = wgl._stack_steps([wgl.build_steps(pre[i], BATCH_SLOTS)
+                              for i in idx], wgl._bucket(len(idx), lo=1))
+    return (lambda: wgl._batch_kernel(model.device_model, None, srange,
+                                      BATCH_SLOTS, 1024, device),
+            wgl.stage_steps(x, device), ns,
+            [model.device_state()] * len(ns))
+
+
+def phase_k3s(dev, models, synth, wgl, streaming, carry_to_numpy,
+              head) -> dict:
+    """Phase 4b, K3-sort: the sort step walk against the eager walk, its
+    plain version, on the card, on every route: the phantom and counter
+    histories whole (hash), the at-cap history at F = 256 and 4,096 until
+    the frontier dies (lexicographic, 32 slots), the adversarial
+    history's last escalated pass at
+    F = 65,536 on a prefix (packed sort), the counter batch's sort group
+    batched (hash, F = 1,024), the sort-abort stream's first chunks
+    (hash, 8 slots) and the chaos workload's shape (8 slots, F = 128,
+    lexicographic), each walked both ways with its carry equal element
+    for element and its rounds and hash dedups equal, each wall timed
+    both ways with host syncs and launches; torch.profiler traces of the
+    phantom walk, both ways on the profile prefix and K3-sort over the
+    whole walk, for the card's busy share."""
+    from jepsen_tpu_torch.checker import wgl_sortwalk
+    reg = models.cas_register()
+    out = {"walks": {}, "profiles": {}}
+
+    def record(label, row, k, steps):
+        bound_ms, bound_by = k3s_bound(
+            k.F, k.P, k.route, row.get("keys", 1), row["k3_launches"],
+            steps, row["rows"], row["pass_rows"])
+        row.update(F=k.F, P=k.P, route=k.route, steps=steps,
+                   launches_per_step=row["k3_launches"] / max(steps, 1),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        row.pop("carry")
+        out["walks"][label] = row
+        log(f"K3-sort {label} (F={k.F}, P={k.P}, {row['route']}, {steps} "
+            f"steps): K3-sort {row['k3_wall_s']:.4f} s, "
+            f"{row['k3_syncs']} host syncs, {row['k3_launches']} launches; "
+            f"eager {row['eager_wall_s']:.4f} s, {row['eager_syncs']} host "
+            f"syncs; {row['rounds']} rounds and {row['dedups']} hash "
+            f"dedups both ways; carry equal; {row['rows']} dedup rows, "
+            f"{row['pass_rows']} rows x radix passes; bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
+
+    def pair(label, make, walk3, walke):
+        return walk_pair(make(), make(), label, walk3, walke,
+                         carry_to_numpy, wgl_sortwalk)
+
+    def single(label, model, hist, prefix=None, frontier=256, **kw):
+        pl = wgl.plan(model, hist, **kw)
+        if pl.decision.dense is not None:
+            raise AssertionError(f"K3-sort {label}: planned dense")
+        steps = wgl.build_steps(pl.ops, pl.slots)
+        stop = min(prefix or steps.n, steps.n)
+        xs = wgl.stage_steps(steps.x, dev)
+        init = model.device_state()
+        row = pair(label, lambda: pl.kernel(dev, frontier),
+                   lambda k: k.check_chunk(xs, stop, k.init_carry(init)),
+                   lambda k: k.run_range_eager(xs, stop, k.init_carry(init)))
+        k = pl.kernel(dev, frontier)
+        record(label, row, k, int(row["carry"][0]))
+        return k
+
+    phantom = synth.corrupt(head)
+    if single("phantom", reg, phantom).route != "hash":
+        raise AssertionError("phantom: not the hash route")
+    single("counter", models.counter(), synth.counter_history(**COUNTER))
+    at_cap = synth.adversarial_register_history(**AT_CAP)
+    for F in K3S_AT_CAP_F:
+        if single(f"at-cap F={F}", reg, at_cap, frontier=F,
+                  engine="sort").route != "lex":
+            raise AssertionError("at-cap: not the lexicographic route")
+    adv = synth.adversarial_register_history(**ADVERSARIAL)
+    if single(f"adversarial F={K3S_ADV_F} prefix", reg, adv,
+              prefix=K3S_ADV_STEPS, frontier=K3S_ADV_F,
+              engine="sort").route != "packed":
+        raise AssertionError("adversarial: not the packed sort route")
+
+    # the counter batch's sort group, batched
+    (_reg, _hz), (counter, cnt) = batch_histories(models, synth)
+    make, xs, ns, init = sort_group(wgl, counter, cnt, dev)
+    row = pair("counter batch", make,
+               lambda k: k.check_chunk_batch(xs, ns, k.init_carry_batch(init)),
+               lambda k: k.run_range_batch_eager(xs, ns,
+                                                 k.init_carry_batch(init)))
+    row["keys"] = len(ns)
+    record(f"counter batch ({len(ns)} rows)", row, make(),
+           int(np.asarray(row["carry"][0]).sum()))
+
+    # the sort-abort stream's first chunks, e rebased per chunk
+    bad = synth.corrupt(synth.register_history(**STREAM_ABORT_HIST), seed=11)
+    (mname, F, P, pack, route), chunks = stream_chunks(
+        wgl, streaming, reg, bad, dev, K3S_STREAM_CHUNKS, sort=True)
+
+    def stream_walk(k, eager):
+        carry = chunks[0][2]
+        for x, n, _before in chunks:
+            xs = wgl.stage_steps(x, dev)
+            if eager:
+                o = k.run_range_eager(xs, n, (k._i32(0),) + tuple(carry[1:]))
+                carry = (o[0] + carry[0],) + tuple(o[1:])
+            else:
+                carry = k.check_stream_chunk(xs, n, carry)
+        return carry
+
+    def make_stream():
+        return wgl.SortKernel(mname, F, P, pack, route, dev)
+
+    row = pair("sort-abort stream", make_stream,
+               lambda k: stream_walk(k, False),
+               lambda k: stream_walk(k, True))
+    record(f"sort-abort stream, first {len(chunks)} chunks", row,
+           make_stream(), sum(n for _x, n, _c in chunks))
+
+    # the chaos workload's shape: 8 slots, F = 128, no declared range
+    ops = wgl.encode_ops_for_model(reg, synth.register_history(
+        K3S_CHAOS_OPS, concurrency=5, values=5, crash_rate=0.0005,
+        seed=SEED))
+    steps = wgl.build_steps(ops, 8)
+    xs1 = wgl.stage_steps(steps.x, dev)
+
+    def make_chaos():
+        return wgl.SortKernel(reg.device_model, 128, 8, None,
+                              wgl.DEDUP_SORT, dev)
+
+    row = pair("chaos shape", make_chaos,
+               lambda k: k.check_chunk(xs1, steps.n,
+                                       k.init_carry(reg.device_state())),
+               lambda k: k.run_range_eager(xs1, steps.n,
+                                           k.init_carry(reg.device_state())))
+    record("chaos shape (8 slots, F=128)", row, make_chaos(),
+           int(row["carry"][0]))
+
+    # where the time goes, both ways
+    walk3 = prefix_walk(wgl, reg, phantom, dev)
+    walke = prefix_walk(wgl, reg, phantom, dev, eager=True)
+    prof = {"eager_prefix": profile_walk(walke, PROFILE_WALK_STEPS),
+            "k3s_prefix": profile_walk(walk3, PROFILE_WALK_STEPS),
+            "k3s_full": profile_walk(walk3, 10 ** 9)}
+    out["profiles"]["phantom"] = prof
+    for how, pr in prof.items():
+        steps = PROFILE_WALK_STEPS if how != "k3s_full" else None
+        log(f"K3-sort profile phantom, {how} ({steps or 'all'} steps): "
+            f"wall {pr['wall_s']:.4f} s, device busy "
+            f"{pr['device_busy_s']:.4f} s ({100 * pr['busy_share']:.2f}%), "
+            f"{pr['kernel_launches']} kernel launches, K3-sort "
+            f"{pr['k3s_launches']} launches in {pr['k3s_ms']:.3f} ms; "
+            f"top {pr['top'][:3]}")
+    return out
+
+
 def final_carry(wgl, carry_to_numpy, model, hist, device, **kw):
     """The picked engine's carry after the whole merged stream."""
     pl = wgl.plan(model, hist, **kw)
@@ -1828,7 +2108,7 @@ def agreement_runs(models, synth, head=None):
 def cpu_agreement() -> dict:
     """The agreement runs on the CPU path, in a worker process: label ->
     (result, final carry, seconds of the check, host reads of the check's
-    eager dense walks)."""
+    eager walks)."""
     from jepsen_tpu_torch import models
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import synth, wgl
@@ -1869,20 +2149,20 @@ def main_path_runs(models, synth):
         ("counter", counter, synth.counter_history(**COUNTER), {},
          ((True,), sort, ("pallas-hash",), None)),
         ("at-cap", reg, at_cap, dict(budget, budget_s=AT_CAP_BUDGET_S),
-         ((True, "unknown"), sort, ("xla-sort",), None)),
+         (("unknown",), sort, ("xla-sort",), None)),
         ("adversarial", reg, adv,
          dict(budget, budget_s=ADVERSARIAL_BUDGET_S),
-         ((True, "unknown"), sort, ("pallas-hash", "xla-sort"), None)),
+         ((True,), sort, ("pallas-hash", "xla-sort"), None)),
     ]
 
 
 def check_run(label, r, launches, expect) -> None:
     """Hold one main-path result to its expectation and to the kernels'
     launch counts (`launch_counts` over its run): a dense walk launches
-    K3, whose rounds are the result's, and never K1 alone."""
+    K3, a sort walk K3-sort, whose rounds and hash dedups are the
+    result's, and never K1 or K2 alone."""
     verdicts, analyzer, dedups, p_want = expect
-    k1, k2, k3 = (launches[k] for k in ("k1_launches", "k2_launches",
-                                        "k3_launches"))
+    k3, k3s = launches["k3_launches"], launches["k3s_launches"]
     dense = analyzer == "gpu-wgl-dense"
     if r["valid?"] not in verdicts or r["analyzer"] != analyzer \
             or r["dedup"] not in dedups:
@@ -1894,18 +2174,20 @@ def check_run(label, r, launches, expect) -> None:
                              f"overflow: {r.get('error')}")
     if r["valid?"] is False and not isinstance(r.get("op-index"), int):
         raise AssertionError(f"{label}: no op-index")
-    if k2 != r["dedup-launches"] or k1 != 0 or (k3 > 0) != dense \
-            or launches["k3_rounds"] != (r["closure-rounds"] if dense
-                                         else 0):
-        raise AssertionError(f"{label}: K1 {k1} / K2 {k2} / K3 {k3} "
-                             f"launches, K3 rounds {launches['k3_rounds']}, "
-                             f"for {r['closure-rounds']} rounds and "
+    if not walks_only(launches) or (k3 > 0) != dense or (k3s > 0) == dense \
+            or walk_counts(launches) != (r["closure-rounds"],
+                                         r["dedup-launches"]):
+        raise AssertionError(f"{label}: K1 {launches['k1_launches']} / K2 "
+                             f"{launches['k2_launches']} / K3 {k3} / "
+                             f"K3-sort {k3s} launches, rounds and hash "
+                             f"dedups {walk_counts(launches)}, for "
+                             f"{r['closure-rounds']} rounds and "
                              f"{r['dedup-launches']} hash dedups")
     if p_want is not None:
         if r["dense-shape"][1:] != [8, p_want]:
             raise AssertionError(f"{label}: shape {r['dense-shape']}")
-    elif r["dedup"] == "pallas-hash" and k2 <= 0:
-        raise AssertionError(f"{label}: no K2 launch on the hash route")
+    elif r["dedup"] == "pallas-hash" and r["dedup-launches"] <= 0:
+        raise AssertionError(f"{label}: no hash dedup on the hash route")
 
 
 def elle_bucket(e, b, rng, density=0.4):
@@ -2319,7 +2601,7 @@ def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
         s, r, fed, feed_s, tail_s, shot = stream_run(
             streaming, reg, hist, dev, abort=abort, snap=snap, **kw)
         n = launch_counts()
-        k1, k2, k3 = n["k1_launches"], n["k2_launches"], n["k3_launches"]
+        k3, k3s = n["k3_launches"], n["k3s_launches"]
         if walk is None:
             walk = stream_offline_walk(wgl, carry_to_numpy, reg, hist, s,
                                        dev)
@@ -2339,8 +2621,10 @@ def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
             f"{feed_s:.3f} s, tail {tail_s:.3f} s, offline walk "
             f"{walk[1]:.3f} s, {r['chunks']} chunks, {s.checkpoint_seq} "
             f"checkpoints, engine {s.engine} P={s.p} dedup {r['dedup']}, "
-            f"K3 launches {k3} ({n['k3_rounds']} rounds), K2 launches "
-            f"{k2}, host syncs {r['host-syncs']}, recovered "
+            f"K3 launches {k3} ({n['k3_rounds']} rounds), K3-sort launches "
+            f"{k3s} ({n['k3s_rounds']} rounds, {n['k3s_dedups']} hash "
+            f"dedups), K2 launches {n['k2_launches']}, host syncs "
+            f"{r['host-syncs']}, recovered "
             f"{r.get('recovered')}; final "
             f"carry equals the offline walk's")
         if r["valid?"] is not expect \
@@ -2348,10 +2632,13 @@ def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
                 or r["device"] != str(s.device):
             raise AssertionError(f"{label}: {r['valid?']} on {r['device']}")
         dense = s.engine == "dense"
-        if k1 != 0 or (k3 > 0) != dense or k2 != r["dedup-launches"] \
-                or n["k3_rounds"] != (r["closure-rounds"] if dense else 0):
-            raise AssertionError(f"{label}: K1 {k1} / K2 {k2} / K3 {k3} "
-                                 f"launches, K3 rounds {n['k3_rounds']}, for "
+        if not walks_only(n) or (k3 > 0) != dense or (k3s > 0) == dense \
+                or walk_counts(n) != (r["closure-rounds"],
+                                      r["dedup-launches"]):
+            raise AssertionError(f"{label}: K1 {n['k1_launches']} / K2 "
+                                 f"{n['k2_launches']} / K3 {k3} / K3-sort "
+                                 f"{k3s} launches, rounds and hash dedups "
+                                 f"{walk_counts(n)}, for "
                                  f"{r['closure-rounds']} rounds and "
                                  f"{r['dedup-launches']} hash dedups")
         out[label] = rec
@@ -2407,7 +2694,7 @@ def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
         f"({100 * pr['busy_share']:.2f}%), {pr['kernel_launches']} kernel "
         f"launches; top {pr['top']}")
 
-    # 2. the sort stream, fed until the violation shows: K2
+    # 2. the sort stream, fed until the violation shows: K3-sort
     plain = synth.register_history(**STREAM_ABORT_HIST)
     bad = synth.corrupt(plain, seed=11)
     bad_at = next(i for i, (a, b) in enumerate(zip(plain.ops, bad.ops))
@@ -2416,7 +2703,8 @@ def phase_stream(dev, models, synth, wgl, streaming, screen, linear, wr,
                               **STREAM_ABORT)
     rec = out["sort-abort"]
     rec["violation_injected_at_op"] = bad_at
-    if rec["dedup"] != "pallas-hash" or rec["k2_launches"] <= 0 \
+    if rec["dedup"] != "pallas-hash" or rec["k3s_launches"] <= 0 \
+            or rec["k3s_dedups"] <= 0 or rec["k2_launches"] != 0 \
             or not rec["fed"] < len(bad.ops) \
             or not isinstance(rec["op_index"], int):
         raise AssertionError(f"sort-abort: {rec}")
@@ -2673,11 +2961,14 @@ def service_run(service, model, dev, hists, idx, profile=False) -> dict:
 
 
 def phase_service(dev, models, synth, streaming,
-                  service, store, telemetry, platform, pool) -> dict:
+                  service, store, telemetry, platform, pool,
+                  cpu_jobs=None) -> dict:
     """Phase 9: the verification service on the card. Sixteen streams
-    (8 dense, K1; 8 packed sort, K2) in one service, each result held
-    against the stream alone on the card and on the CPU path (the CPU
-    path in worker processes of `pool`); every kernel's launch count set
+    (8 dense, K3; 8 packed sort, K3-sort) in one service, each result
+    held against the stream alone on the card and on the CPU path (the
+    CPU path in worker processes of `pool`: `cpu_jobs`, futures of
+    `cpu_service_stream` by stream, submitted here unless the caller
+    started them earlier); every kernel's launch count set
     to 0 just before the 16-stream run and read just after, each
     stream's own counts adding up to them; throughput at 1, 4 and 16
     streams; the device's busy share of a 16-stream run; the isolation
@@ -2692,7 +2983,8 @@ def phase_service(dev, models, synth, streaming,
     dense = range(n // 2)
     hists = [service_history(synth, store, i) for i in range(n)]
     total_ops = sum(len(h) for h in hists)
-    cpu_jobs = {i: pool.submit(cpu_service_stream, i) for i in range(n)}
+    if cpu_jobs is None:
+        cpu_jobs = {i: pool.submit(cpu_service_stream, i) for i in range(n)}
     out = {"streams": n, "ops": total_ops, "chunk": SERVICE_CHUNK,
            "section_s": {}}
     mark = [time.perf_counter()]
@@ -2751,6 +3043,8 @@ def phase_service(dev, models, synth, streaming,
     section("1, 4 and 16 streams")
     res = {i: clean["results"][i]["linear"] for i in range(n)}
     k1 = sum(res[i]["closure-rounds"] for i in dense)
+    sort_rounds = sum(res[i]["closure-rounds"] for i in range(n)
+                      if i not in dense)
     k2 = sum(r["dedup-launches"] for r in res.values())
     for i in range(n):
         r = res[i]
@@ -2760,11 +3054,15 @@ def phase_service(dev, models, synth, streaming,
             raise AssertionError(f"s{i}: not a dense stream on K3: {r}")
         if i not in dense and (r["dedup"] != "pallas-hash"
                                or r["dedup-launches"] <= 0):
-            raise AssertionError(f"s{i}: not a hash stream on K2: {r}")
-    if (k1, k2) != (launches["k3_rounds"], launches["k2_launches"]) \
-            or launches["k1_launches"] != 0 or launches["k3_launches"] <= 0:
-        raise AssertionError(f"service: streams count {k1} rounds / K2 "
-                             f"{k2}, the kernels {launches}")
+            raise AssertionError(f"s{i}: not a hash stream on K3-sort: {r}")
+    if (k1, sort_rounds, k2) != (launches["k3_rounds"],
+                                 launches["k3s_rounds"],
+                                 launches["k3s_dedups"]) \
+            or not walks_only(launches) or launches["k3_launches"] <= 0 \
+            or launches["k3s_launches"] <= 0:
+        raise AssertionError(f"service: streams count {k1} dense rounds, "
+                             f"{sort_rounds} sort rounds, {k2} hash "
+                             f"dedups; the kernels {launches}")
     st = clean["status"]
     if any(v["state"] != "verdict" for v in st["streams"].values()) \
             or st["budget"]["capacity"] != st["budget"]["initial"]:
@@ -2774,8 +3072,8 @@ def phase_service(dev, models, synth, streaming,
     out["per_stream"] = {f"s{i}": {
         "valid": res[i]["valid?"], "op_index": res[i].get("op-index"),
         "engine": "dense" if i in dense else res[i]["dedup"],
-        "chunks": res[i]["chunks"], "k1": res[i]["closure-rounds"]
-        if i in dense else 0, "k2": res[i]["dedup-launches"],
+        "chunks": res[i]["chunks"], "rounds": res[i]["closure-rounds"],
+        "hash_dedups": res[i]["dedup-launches"],
         "host_syncs": res[i]["host-syncs"], "alone_s": solo_s[i],
         "served_s": clean["lat"][i]} for i in range(n)}
     out["calibration"] = st["calibration"]
@@ -2783,8 +3081,10 @@ def phase_service(dev, models, synth, streaming,
     out["isolation_overhead"] = {
         f"s{i}": clean["lat"][i] / solo_s[i] for i in (0, 8)}
     log(f"service: 16 streams: K3 {launches['k3_launches']} launches "
-        f"with {launches['k3_rounds']} rounds (streams 0-7), K2 "
-        f"{launches['k2_launches']} (streams 8-15), each "
+        f"with {launches['k3_rounds']} rounds (streams 0-7), K3-sort "
+        f"{launches['k3s_launches']} launches with "
+        f"{launches['k3s_rounds']} rounds and {launches['k3s_dedups']} "
+        f"hash dedups (streams 8-15), K1 and K2 none, each "
         f"stream's own counts adding up to them; every stream in verdict, "
         f"budget at its initial capacity; s0 served {clean['lat'][0]:.3f} "
         f"s against {solo_s[0]:.3f} s alone "
@@ -2972,7 +3272,7 @@ def sharded_rank(build_dir, mesh) -> dict:
     """One of the four gloo ranks sharing the card: build the kernels
     afresh into build_dir (the four ranks at once, so the builders race
     on the same files), then walk this rank's block of the hazelcast
-    batch (dense: K3) and of the counter batch (hash route: K2) through
+    batch (dense: K3) and of the counter batch (hash route: K3-sort) through
     check_batch_sharded. Returns each batch's result, launch counts (set
     to 0 just before its check) and wall, the rank's collectives and
     what it built."""
@@ -3057,9 +3357,9 @@ def phase_sharded(dev, models, synth, wgl, kernels,
                                          f"or info differ from the one-rank "
                                          f"run")
             hz_r, cnt_r = rk["hazelcast"], rk["counter"]
-            if hz_r["k3_launches"] <= 0 or hz_r["k1_launches"] != 0 \
-                    or hz_r["k2_launches"] != 0 \
-                    or cnt_r["k2_launches"] <= 0 or rk["backend"] != "gloo" \
+            if hz_r["k3_launches"] <= 0 or not walks_only(hz_r) \
+                    or not walks_only(cnt_r) \
+                    or cnt_r["k3s_launches"] <= 0 or rk["backend"] != "gloo" \
                     or torch.device(rk["device"]).type != dev.type:
                 raise AssertionError(f"gloo rank {r}: {rk}")
         out["gloo4"] = dict(
@@ -3073,8 +3373,8 @@ def phase_sharded(dev, models, synth, wgl, kernels,
                 f"built {rk['built']} in {rk['build_s']:.3f} s, hazelcast "
                 f"{rk['hazelcast']['wall_s']:.3f} s (K3 launches "
                 f"{rk['hazelcast']['k3_launches']}), counter "
-                f"{rk['counter']['wall_s']:.3f} s (K2 launches "
-                f"{rk['counter']['k2_launches']}), collectives "
+                f"{rk['counter']['wall_s']:.3f} s (K3-sort launches "
+                f"{rk['counter']['k3s_launches']}), collectives "
                 f"{rk['calls']}; per_key and info equal to the one-rank "
                 f"runs")
         log(f"sharded gloo x{SHARDED_RANKS}: spawn to join {wall:.3f} s "
@@ -3119,7 +3419,8 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
                    collectives={f"{op}/{d}": n for (op, d), n in
                                 (mesh.calls - calls).items()})
         log(f"sharded {label}: wall {rec['wall_s']:.3f} s, K3 launches "
-            f"{rec['k3_launches']}, K2 launches {rec['k2_launches']}, "
+            f"{rec['k3_launches']}, K3-sort launches {rec['k3s_launches']}, "
+            f"K2 launches {rec['k2_launches']}, "
             f"classifier calls {rec['classifier_calls']}, collectives "
             f"{rec['collectives']}")
         return r, rec
@@ -3145,7 +3446,8 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
                               lambda: sharded(counter, cnt))
     if ok is not False or pk.tolist() != want_cnt or info["groups"] != [
             {"family": "sort", "dedup": "pallas-hash", "keys": COUNTER_KEYS,
-             "slots": BATCH_SLOTS}] or rec["k2_launches"] <= 0:
+             "slots": BATCH_SLOTS}] or rec["k3s_launches"] <= 0 \
+            or not walks_only(rec):
         raise AssertionError(f"sharded counter: {ok} {info} {rec}")
     out["counter"] = dict(rec, per_key=pk.tolist(), info=info)
 
@@ -3188,8 +3490,8 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
 
 def counting_plain():
     """Count the plain versions' calls of K1 and K2 in this (CPU) process:
-    the K2 launches the card's run of the same work must make, and the
-    closure rounds its K3 walks must report."""
+    the closure rounds and hash dedups the card's K3 and K3-sort walks
+    of the same work must report."""
     from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup
     counts = {"k1": 0, "k2": 0}
     k1, k2 = wgl_closure.closure_round_plain, wgl_dedup.dedup_plain
@@ -3267,12 +3569,14 @@ def phase_search_chaos(dev, cpu_jobs) -> dict:
         rec = dict(wall_s=wall, **launch_counts())
         want, counts, cpu_s = cpu_jobs[label].result()
         same_but_wall(label, r, want)
-        if (rec["k3_rounds"], rec["k2_launches"]) != (counts["k1"],
-                                                      counts["k2"]) \
-                or rec["k1_launches"] != 0:
-            raise AssertionError(f"{label}: K3 rounds / K2 launches "
-                                 f"{rec['k3_rounds']}/{rec['k2_launches']}"
-                                 f" (K1 {rec['k1_launches']}), CPU path "
+        if (rec["k3_rounds"], rec["k3s_dedups"]) != (counts["k1"],
+                                                     counts["k2"]) \
+                or not walks_only(rec):
+            raise AssertionError(f"{label}: K3 rounds / K3-sort hash "
+                                 f"dedups {rec['k3_rounds']}/"
+                                 f"{rec['k3s_dedups']} (K1 "
+                                 f"{rec['k1_launches']}, K2 "
+                                 f"{rec['k2_launches']}), CPU path "
                                  f"{counts}")
         rec.update(cpu_s=cpu_s, result={k: v for k, v in r.items()
                                         if k not in ("violations",
@@ -3287,7 +3591,8 @@ def phase_search_chaos(dev, cpu_jobs) -> dict:
             f"simulations, {r['escalations']} escalations, wall "
             f"{rec['wall_s']:.3f} s (CPU path {rec['cpu_s']:.3f} s), K3 "
             f"launches {rec['k3_launches']} ({rec['k3_rounds']} rounds), "
-            f"K2 launches {rec['k2_launches']}, equal to the CPU path")
+            f"K3-sort launches {rec['k3s_launches']}, K2 launches "
+            f"{rec['k2_launches']}, equal to the CPU path")
         if kind == "batch" and (not r["found"] or rec["k3_launches"] <= 0):
             raise AssertionError(f"search batch: found {r['found']}, K3 "
                                  f"launches {rec['k3_launches']}")
@@ -3298,8 +3603,8 @@ def phase_search_chaos(dev, cpu_jobs) -> dict:
             f"coverage bits, conjunction hits {r['conjunction-hits']}, "
             f"failures {len(r['failures'])}, wall {rec['wall_s']:.3f} s "
             f"(CPU path {rec['cpu_s']:.3f} s), K3 launches "
-            f"{rec['k3_launches']}, K2 launches {rec['k2_launches']}, equal "
-            f"to the CPU path")
+            f"{rec['k3_launches']}, K3-sort launches {rec['k3s_launches']}, "
+            f"K2 launches {rec['k2_launches']}, equal to the CPU path")
         if r["failures"] or r["found"]:
             raise AssertionError(f"chaos {w}: oracle failures "
                                  f"{r['failures']}")
@@ -3605,12 +3910,11 @@ def run_path_runs(dev, pool, root) -> dict:
                              f"{len(cut)} iptables commands")
     if missing:
         raise AssertionError(f"register run: the store lacks {missing}")
-    if rec["k3_launches"] <= 0 or rec["k1_launches"] != 0 or (
-            rec["k3_rounds"], rec["k2_launches"]) != (
-                tot["closure_rounds"], tot["dedup_launches"]):
-        raise AssertionError(f"register run: K3 rounds / K2 launches "
-                             f"{rec['k3_rounds']}/{rec['k2_launches']} "
-                             f"(K1 {rec['k1_launches']}) for {tot}")
+    if rec["k3_launches"] <= 0 or not walks_only(rec) or walk_counts(
+            rec) != (tot["closure_rounds"], tot["dedup_launches"]):
+        raise AssertionError(f"register run: rounds / hash dedups "
+                             f"{walk_counts(rec)} (K1 {rec['k1_launches']}, "
+                             f"K2 {rec['k2_launches']}) for {tot}")
 
     # -- the online run ----------------------------------------------------
     with gen.fixed_rng(SEED):
@@ -3679,8 +3983,9 @@ def run_path_runs(dev, pool, root) -> dict:
     log(f"run abort: valid?={res['valid?']} at op {res.get('op-index')}, "
         f"aborted {done.get('aborted-on-violation')}, {n_ops} of "
         f"{2 * RUN_ABORT_INVOCATIONS} history ops, wall "
-        f"{rec['wall_s']:.3f} s, K3 launches {rec['k3_launches']}, K2 "
-        f"launches {rec['k2_launches']}")
+        f"{rec['wall_s']:.3f} s, K3 launches {rec['k3_launches']}, "
+        f"K3-sort launches {rec['k3s_launches']}, K2 launches "
+        f"{rec['k2_launches']}")
     if done.get("aborted-on-violation") is not True or res["valid?"] \
             is not False or n_ops >= 2 * RUN_ABORT_INVOCATIONS:
         raise AssertionError(f"abort run: aborted "
@@ -3729,7 +4034,7 @@ def run_path_runs(dev, pool, root) -> dict:
 
     def plain(per_key):
         return {str(k): json.loads(json.dumps(
-            without_dense_syncs({f: r.get(f) for f in BATCH_AGREE_KEYS}),
+            without_walk_syncs({f: r.get(f) for f in BATCH_AGREE_KEYS}),
             default=str)) for k, r in per_key.items()}
 
     got, want = plain(keyed), plain(want)
@@ -3911,7 +4216,8 @@ def phase_workloads(dev, elle_kernels, pool) -> dict:
                 raise AssertionError(f"{kind} run: {n_ops} ops, nemesis "
                                      f"{sorted({o['f'] for o in nem})}")
             if row["classifier_calls"] < 1 or row["k1_launches"] or \
-                    row["k2_launches"] or row["k3_launches"] or any(
+                    row["k2_launches"] or row["k3_launches"] or \
+                    row["k3s_launches"] or any(
                         int(e) > 4096 for bk in buckets for e in bk):
                 raise AssertionError(f"{kind} run: classifier calls "
                                      f"{row['classifier_calls']} {buckets}, "
@@ -4263,20 +4569,20 @@ def drive_suite(kind, dev, root, pool,
                   f"{tot['groups']}, {tot['keys_alone']} keys walked "
                   f"alone {tot['analyzers']}")
         want = (tot["closure_rounds"], tot["dedup_launches"])
-    # a run walks with K3 whichever family its keys go to, but the one
-    # register of hazelcast's may go to the sort family; K3's rounds are
-    # the walks' count, and K1 never launches alone
+    # a run walks with K3, but the one register of hazelcast's may go to
+    # the sort family, K3-sort; their rounds and hash dedups are the
+    # walks' count, and K1 and K2 never launch alone
     walked = row["k3_launches"] > 0 or (kind == "hazelcast"
-                                        and row["k2_launches"] > 0)
-    launched = walked and row["k1_launches"] == 0 and (
-        row["k3_rounds"], row["k2_launches"]) == want
+                                        and row["k3s_launches"] > 0)
+    launched = walked and walks_only(row) and walk_counts(row) == want
     log(f"suite {kind}: valid?={res['valid?']} ({detail}), {n_ops} "
         f"history ops ({rate:.0f} client ops/s), {len(nem)} nemesis ops, "
         f"{len(cut)} iptables commands, wall {wall:.3f} s (interpreter "
         f"{interp_s:.3f} s, check {row['check_s']:.3f} s, of which the "
         f"workload's on the card {row['workload_check_s']:.3f} s), K3 "
-        f"launches {row['k3_launches']} ({row['k3_rounds']} rounds), K2 "
-        f"launches {row['k2_launches']}; "
+        f"launches {row['k3_launches']} ({row['k3_rounds']} rounds), "
+        f"K3-sort launches {row['k3s_launches']}, K2 launches "
+        f"{row['k2_launches']}; "
         f"data plane stopped in {stop_s:.3f} s")
     if res["valid?"] is not True or w["valid?"] is not True:
         raise AssertionError(f"{kind} suite run: {res['valid?']}, "
@@ -4485,8 +4791,9 @@ def main() -> int:
     # the CPU checks of phases 4, 6, 8, 9 and 11-16 run in worker
     # processes (spawned: this process holds a CUDA context) beside the
     # card's runs; those that need nothing of the card's runs start now:
-    # phase 8's dense stream, the main path's agreement runs and phase
-    # 6's two batches
+    # phase 8's dense stream, the main path's agreement runs, phase 6's
+    # two batches and phase 9's streams (the card's service
+    # runs take seconds, and the phase waited on these)
     import concurrent.futures
     import multiprocessing
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -4497,14 +4804,16 @@ def main() -> int:
         cpu_agree = pool.submit(cpu_agreement)
         cpu_batches = {kind: pool.submit(cpu_batch, kind)
                        for kind in ("dense", "sort")}
+        cpu_service = {i: pool.submit(cpu_service_stream, i)
+                       for i in range(SERVICE_STREAMS)}
         return run_phases(args, dev, name, smi, phase_s, phase_done, pool,
-                          cpu_dense, cpu_batches, cpu_agree)
+                          cpu_dense, cpu_batches, cpu_agree, cpu_service)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
 def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
-               cpu_batches, cpu_agree) -> int:
+               cpu_batches, cpu_agree, cpu_service) -> int:
     """Phases 2-17 of `main`, given the worker pool and its first jobs."""
     from jepsen_tpu_torch import (_platform, graft_entry, independent,
                                   models, parallel, service, store,
@@ -4512,7 +4821,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     from jepsen_tpu_torch.carry import carry_to_numpy
     from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
                                           wgl, wgl_closure, wgl_dedup,
-                                          wgl_walk)
+                                          wgl_sortwalk, wgl_walk)
     from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
     from jepsen_tpu_torch.checker.elle import list_append, wr
     from jepsen_tpu_torch.checker.linear import linearizable
@@ -4551,6 +4860,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             f"launches={launches['k1_launches']} K2 launches="
             f"{launches['k2_launches']} K3 launches="
             f"{launches['k3_launches']} (rounds {launches['k3_rounds']}) "
+            f"K3-sort launches={launches['k3s_launches']} (rounds "
+            f"{launches['k3s_rounds']}, hash dedups "
+            f"{launches['k3s_dedups']}) "
             f"closure rounds={r['closure-rounds']} host syncs="
             f"{r['host-syncs']} error={r.get('error')}")
         check_run(label, r, launches, expect)
@@ -4573,17 +4885,15 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
                      walk_reads=ws.since(snap))
         c, cc, cpu_s, c_eager = cpu_side[label]
         cpu_results[label] = c
-        dense = c["analyzer"] == "gpu-wgl-dense"
         for key in ("valid?", "op-index", "max-frontier", "frontier-size",
                     "dedup", "analyzer", "dense-shape", "closure-rounds",
-                    "dedup-launches") + (() if dense else ("host-syncs",)):
+                    "dedup-launches"):
             if g.get(key) != c.get(key):
                 raise AssertionError(f"{label}: {key} gpu {g.get(key)} "
                                      f"!= cpu {c.get(key)}")
-        if dense:
-            same_syncs_but_walks(label, g["host-syncs"],
-                                 sum(g["walk_reads"]["k3"].values()),
-                                 c["host-syncs"], c_eager)
+        same_syncs_but_walks(label, g["host-syncs"],
+                             sum(g["walk_reads"]["k3"].values()),
+                             c["host-syncs"], c_eager)
         ckw = {k: v for k, v in kw.items() if k != "max_frontier"}
         cg = final_carry(wgl, carry_to_numpy, model, hist, dev, **ckw)
         for i, (a, b) in enumerate(zip(cg, cc)):
@@ -4617,6 +4927,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     k3 = phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
                   hists["headline"][1])
     phase_done("K3 against the eager walk")
+    k3s = phase_k3s(dev, models, synth, wgl, streaming, carry_to_numpy,
+                    hists["headline"][1])
+    phase_done("K3-sort against the eager walk")
 
     # -- phase 5: K1 and K2 with a batch axis ---------------------------------
     k1b = phase_k1_batched(dev, wgl_closure)
@@ -4641,7 +4954,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
 
     # -- phase 9: the verification service ------------------------------------
     svc = phase_service(dev, models, synth, streaming, service, store,
-                        telemetry, _platform, pool)
+                        telemetry, _platform, pool, cpu_service)
     phase_done("verification service")
 
     # -- phase 10: key-sharded checking, the Elle mesh, the entries ---------
@@ -4792,6 +5105,36 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "suite3_launches": sum(suites3[k]["k3_launches"]
                                for k in ("raftis", "rabbitmq")),
         "walks": k3["walks"]})
+    # K3-sort, the sort step walk: ms is its device time a launch on the
+    # phantom walk (a window of up to 1,024 steps), plain_ms the eager
+    # walk's wall over the same windows, bound_ms k3s_bound's over them;
+    # its launches over the main path, then the other phases'
+    ph = k3s["walks"]["phantom"]
+    pp = k3s["profiles"]["phantom"]["k3s_full"]
+    kernels.append({
+        "name": "sort_walk", "route": "cuda", "source": wgl_sortwalk.SOURCE,
+        "replaces": wgl_sortwalk.REPLACES,
+        "launches": main_launches["k3s_launches"],
+        "rounds": main_launches["k3s_rounds"],
+        "hash_dedups": main_launches["k3s_dedups"],
+        "max_abs_err": max(w["max_abs_err"] for w in k3s["walks"].values()),
+        "ms": pp["k3s_ms"] / pp["k3s_launches"],
+        "plain_ms": ph["eager_wall_s"] * 1e3 / ph["k3_launches"],
+        "bound_ms": ph["bound_ms"] / ph["k3_launches"],
+        "bound_by": ph["bound_by"], "library_ms": None,
+        "shape": [ph["F"], ph["P"], ph["route"]],
+        "walk_ms": ph["k3_wall_s"] * 1e3,
+        "plain_walk_ms": ph["eager_wall_s"] * 1e3,
+        "batch_launches": batch["sort"]["k3s_launches"],
+        "stream_launches": streams["sort-abort"]["k3s_launches"],
+        "service_launches": svc["launches"]["k3s_launches"],
+        "sharded_launches": sharded["world1"]["counter"]["k3s_launches"],
+        "search_launches": sum(v["k3s_launches"] for k, v in
+                               search_chaos.items() if k != "chaos-cli"),
+        "run_launches": sum(run_path[r]["k3s_launches"] for r in (
+            "online", "abort", "cli-test", "cli-analyze")),
+        "suite_launches": suites["hazelcast"]["k3s_launches"],
+        "walks": k3s["walks"]})
     # batched: the hazelcast batch's largest group (64 rows of 8 x 2^6)
     hb = max((w for w in k3["walks"].values() if "keys" in w),
              key=lambda w: w["keys"])
@@ -4859,7 +5202,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         write_report(args.out, {
             "device": name, "nvidia_smi": smi, "phase_s": phase_s,
             "peak_gb": peak_gb, "kernels": kernels,
-            "profiles": profiles, "k3": k3, "batch": batch,
+            "profiles": profiles, "k3": k3, "k3s": k3s, "batch": batch,
             "elle": {k: v for k, v in elle.items()
                      if not k.startswith("g1c_")},
             "streams": streams, "service": svc, "sharded": sharded,

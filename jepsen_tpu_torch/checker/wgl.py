@@ -21,10 +21,11 @@ Two engine families, picked per history by `select_engine`:
     An invoke linearizes the new op (stage A), then closes the frontier
     by expanding only the configurations each round added (stage B);
     after each expansion the frontier is deduplicated and compacted.
-    The dedup runs one of three routes: the hash dedup
-    (`wgl_dedup.dedup`, the Hopper kernel K2 on CUDA) when the config
-    packs into one 31-bit key, else one stable sort of a packed key,
-    else a stable lexicographic sort of the mask words and the state.
+    The dedup runs one of three routes: the hash dedup (K2's contract,
+    `wgl_dedup.dedup`) when the config packs into one 31-bit key, else
+    one stable sort of a packed key, else a stable lexicographic sort of
+    the mask words and the state. On CUDA the whole walk is K3-sort
+    (`wgl_sortwalk`, `csrc/sort_walk.cu`), every route inline.
     A frontier that drops configurations (overflow) makes an invalid
     verdict 'unknown', and `analysis_gpu` escalates F x 4.
 
@@ -34,17 +35,20 @@ the last step.
 Engine and dedup names in results ("dense-table", "pallas-hash",
 "xla-sort") are the JAX package's result vocabulary, kept so that
 results and calibration keys compare field for field: they name the
-route, not the implementation ("pallas-hash" runs K2 here).
+route, not the implementation ("pallas-hash" runs K2's hash dedup here,
+inside K3-sort on CUDA).
 
-The dense walk on CUDA is one kernel, K3, per window of up to 1,024
-steps, with one host read at the window's end. The sort walk, and the
-dense walk's plain version (`DenseKernel.run_range_eager`, what the CPU
-runs), are eager Python loops: each step's control values (the
-completion mask and the invoked slot) come from the host copy of the
-step matrix, the slot arguments from its device copy. An eager dense
-closure round costs one host read of the table's popcount, a sort
-stage-B round one read of "any legal candidate?"; those syncs and the
-launches around them set the eager walks' pace.
+On CUDA each family's walk is one kernel per window of steps, with one
+host read at the window's end: K3 (`wgl_walk`) for the dense walk, of up
+to 1,024 steps, and K3-sort (`wgl_sortwalk`, `csrc/sort_walk.cu`) for the
+sort walk, stage B and the dedup inline. Their plain versions
+(`DenseKernel.run_range_eager`, `SortKernel.run_range_eager` and the
+batched forms, what the CPU runs) are eager Python loops: each step's
+control values (the completion mask and the invoked slot) come from the
+host copy of the step matrix, the slot arguments from its device copy.
+An eager dense closure round costs one host read of the table's
+popcount, a sort stage-B round one read of "any legal candidate?"; those
+syncs and the launches around them set the eager walks' pace.
 
 Batched keys (`analysis_gpu_batch`, the independent checker's entry):
 both engines also walk B independent histories in lockstep
@@ -81,7 +85,7 @@ from ..history import (DeviceEncodingError, F_CAS, F_READ, F_WRITE,
                        KIND_OK, NIL, OpArray, UQ_COUNT_MAX, UQ_VALUES,
                        default_register_codec, encode_ops,
                        history as as_history)
-from . import abft, wgl_dedup, wgl_walk
+from . import abft, wgl_dedup, wgl_sortwalk, wgl_walk
 from .wgl_closure import closure_round
 
 log = logging.getLogger(__name__)
@@ -516,10 +520,50 @@ class _Engine:
     cancel = None
     interrupted = False
 
+    @staticmethod
+    def _on_cpu(carry) -> bool:
+        """Whether the walk is the eager one: the carry's table or masks
+        (element 1) lie on the CPU. On CUDA the walk is the family's
+        kernel (K3, K3-sort), and nothing falls back."""
+        dev = carry[1].device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"the walk runs on CUDA (or its plain version "
+                             f"on the CPU), got {dev}")
+        return dev.type == "cpu"
+
     def _cancelled(self) -> bool:
         if self.cancel is not None and self.cancel():
             self.interrupted = True
         return self.interrupted
+
+    def _walk_windows(self, e, count, stops, B: int, T: int, window: int,
+                      launch, tally) -> bool:
+        """Drive a family's walk kernel (K3, K3-sort) window after window
+        over B keys: one host read of (e, count) to start; then, while a
+        key has a step to walk and `cancel` has not fired, `launch(wend,
+        n)` launches one window (wend int64 (B,): each key's window end,
+        at most `window` steps on; n: the longest window) and returns the
+        new e and count tensors and an int64 tensor of its counts, all
+        read in one guarded fetch, whose counts go to `tally`. False when
+        no key had a step to walk (the caller keeps its carry, as the
+        eager walk does)."""
+        e_h, count_h = (np.asarray(v, np.int64).reshape(B) for v in
+                        self.fetch(torch.stack([e, count])))
+        stops = np.minimum(np.asarray(stops, np.int64).reshape(B), T)
+        active = (e_h < stops) & (count_h > 0)
+        if not active.any():
+            return False
+        while not self._cancelled():
+            wend = np.where(active, np.minimum(stops, e_h + window), e_h)
+            e, count, counts = launch(wend, int((wend - e_h).max()))
+            got = np.asarray(self.fetch(torch.cat([
+                e.to(torch.int64), count.to(torch.int64), counts])), np.int64)
+            e_h, count_h = got[:B], got[B:2 * B]
+            tally(got[2 * B:])
+            active = (e_h < stops) & (count_h > 0)
+            if not active.any():
+                break
+        return True
 
     def fetch(self, t: torch.Tensor, site: str = "device-sync"):
         """Read a tensor's value on the host (one device sync, bounded by
@@ -872,31 +916,13 @@ class DenseKernel(_Engine):
                 slots[2], occ, att, count, maxc)
 
     # -- K3: the walk on CUDA ------------------------------------------------
-    @staticmethod
-    def _on_cpu(carry) -> bool:
-        """Whether the walk is the eager one: the carry's table lies on
-        the CPU. On CUDA the walk is K3's, and nothing falls back."""
-        dev = carry[1].device
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"the dense walk runs on CUDA (or its plain "
-                             f"version on the CPU), got {dev}")
-        return dev.type == "cpu"
-
     def _walk_k3(self, x: torch.Tensor, stops, carry):
-        """K3 window after window over a batched carry and its (B, T, 5)
-        step matrix, up to `wgl_walk.WINDOW` steps of every key per
-        launch; None when no key has a step to walk (the caller keeps its
-        carry, as the eager walk does). One host read to start and one
-        at the end of each window."""
+        """K3 window after window (`_walk_windows`) over a batched carry
+        and its (B, T, 5) step matrix, up to `wgl_walk.WINDOW` steps of
+        every key per launch; None when no key has a step to walk."""
         B, T = x.shape[0], x.shape[1]
         e, table, sf, sa, sb, occ, att, count, maxc = carry
-        e_h, count_h = (np.asarray(v, np.int64).reshape(B) for v in
-                        self.fetch(torch.stack([e, count])))
-        stops = np.minimum(np.asarray(stops, np.int64).reshape(B), T)
-        active = (e_h < stops) & (count_h > 0)
-        if not active.any():
-            return None
-        dev, window = table.device, wgl_walk.WINDOW
+        dev = table.device
         x = x.contiguous()
         sc = torch.stack([e, att, count, maxc]).to(torch.int32).contiguous()
         table = table.contiguous()
@@ -905,12 +931,12 @@ class DenseKernel(_Engine):
         slots = torch.stack([sf, sa, sb]).contiguous()
         occ = occ.contiguous()
         keys = torch.arange(B, device=dev)[:, None]
-        steps = torch.arange(window, device=dev)[None, :]
-        while not self._cancelled():
-            wend = np.where(active, np.minimum(stops, e_h + window), e_h)
-            W = int((wend - e_h).max())
+        steps = torch.arange(wgl_walk.WINDOW, device=dev)[None, :]
+
+        def launch(wend, n):
+            nonlocal sc, table, slots, occ
             rows = x[keys, (sc[0].to(torch.int64)[:, None]
-                            + steps[:, :W]).clamp_(max=T - 1)]  # (B, W, 5)
+                            + steps[:, :n]).clamp_(max=T - 1)]  # (B, n, 5)
             itr = wgl_walk.transition_rows(self.step, self.s_lo, self.S,
                                            rows[..., 2], rows[..., 3],
                                            rows[..., 4])
@@ -919,15 +945,16 @@ class DenseKernel(_Engine):
             sc, table, slots, occ, rounds, pairs = wgl_walk.launch(
                 x, _h2d(wend.astype(np.int32), dev), itr, str0, sc, table,
                 slots, occ, self.use_attest)
-            got = np.asarray(self.fetch(torch.cat([
-                sc[0].to(torch.int64), sc[2].to(torch.int64),
-                rounds.sum(dtype=torch.int64)[None], pairs])), np.int64)
-            e_h, count_h = got[:B], got[B:2 * B]
-            self.rounds += int(got[-2])
-            wgl_walk.count_rounds(int(got[-2]), int(got[-1]))
-            active = (e_h < stops) & (count_h > 0)
-            if not active.any():
-                break
+            return sc[0], sc[2], torch.cat([
+                rounds.sum(dtype=torch.int64)[None], pairs])
+
+        def tally(got):
+            self.rounds += int(got[0])
+            wgl_walk.count_rounds(int(got[0]), int(got[1]))
+
+        if not self._walk_windows(e, count, stops, B, T, wgl_walk.WINDOW,
+                                  launch, tally):
+            return None
         return (sc[0], table, slots[0], slots[1], slots[2], occ, sc[1],
                 sc[2], sc[3])
 
@@ -959,18 +986,26 @@ class SortKernel(_Engine):
     uint32), and `carry.py` views them as uint32 on the host.
 
     pack: (s_lo, sb_bits) from `_pack_params`, or None. dedup: the
-    resolved route, DEDUP_PALLAS (the hash dedup, K2 on CUDA; needs a
-    packed one-word config) or DEDUP_SORT (one stable sort of the packed
-    key when pack is given and W == 1, else the lexicographic sort).
+    resolved route, DEDUP_PALLAS (the hash dedup; needs a packed
+    one-word config) or DEDUP_SORT (one stable sort of the packed key
+    when pack is given and W == 1, else the lexicographic sort).
+
+    The walk (`run_range`, `run_range_batch`) is K3-sort on CUDA
+    (`_walk_k3s` around `wgl_sortwalk.launch`: a window of steps per
+    launch, stage B and the dedup inline) and the eager walk
+    (`run_range_eager`, `run_range_batch_eager`, K3-sort's plain
+    version, whose hash dedups launch K2 on CUDA) on the CPU.
 
     `rounds` counts stage-B expansion rounds, `dedups` the hash-dedup
-    calls (K2 launches on CUDA), `syncs` blocking host reads."""
+    calls (the eager walk's K2 launches on CUDA, the dedups K3-sort
+    reports), `syncs` blocking host reads."""
 
     def __init__(self, model_name: str, F: int, P: int,
                  pack: tuple[int, int] | None, dedup: str, device):
         if not 1 <= P <= 256 or F < 1:
             raise ValueError(f"sort engine needs 1 <= P <= 256 and F >= 1, "
                              f"got P={P}, F={F}")
+        self.model_name = model_name
         self.step = DEVICE_MODELS[model_name].step
         self.F, self.P, self.W = F, P, max(1, (P + 31) // 32)
         self.s_lo, self.sb_bits = pack if pack is not None else (0, 64)
@@ -980,6 +1015,10 @@ class SortKernel(_Engine):
         if dedup not in (DEDUP_PALLAS, DEDUP_SORT):
             raise ValueError(f"unknown dedup route {dedup!r}")
         self.dedup_route = dedup
+        # K3-sort's name for the route: the hash dedup, one sort of the
+        # packed key, or the lexicographic sort
+        self.route = ("hash" if dedup == DEDUP_PALLAS else
+                      "packed" if self.packed else "lex")
         self.device = dev = torch.device(device)
         self.use_attest = attest_enabled()
         bits = np.zeros((P, self.W), np.uint32)
@@ -1144,8 +1183,21 @@ class SortKernel(_Engine):
             self.rounds += 1
 
     def run_range(self, xs: Staged, stop: int, carry) -> tuple:
-        """Walk steps [carry.e, stop) while the frontier is nonempty; a
-        dead carry's e is death + 1, as the JAX while_loop leaves it."""
+        """Walk steps [carry.e, stop) while the frontier is nonempty:
+        K3-sort on CUDA tensors, the eager walk on CPU tensors."""
+        if self._on_cpu(carry):
+            return self.run_range_eager(xs, stop, carry)
+        out = self._walk_k3s(xs.dev[None], [stop],
+                             tuple(t[None] for t in carry))
+        return carry if out is None else tuple(t[0] for t in out)
+
+    check_chunk = run_range
+
+    def run_range_eager(self, xs: Staged, stop: int, carry) -> tuple:
+        """K3-sort's plain version: walk steps [carry.e, stop) while the
+        frontier is nonempty, one host-driven step at a time (each dedup
+        K2 on CUDA on the hash route); a dead carry's e is death + 1, as
+        the JAX while_loop leaves it."""
         e, count = self.fetch(torch.stack([carry[0], carry[10]]))
         if e >= stop or count <= 0:
             return carry
@@ -1197,8 +1249,6 @@ class SortKernel(_Engine):
         return (self._i32(e), masks, states, valid, slots[0], slots[1],
                 slots[2], occ, overflow, att, count_t, maxc)
 
-    check_chunk = run_range
-
     # -- the batched walk (jax.vmap of run_range) --------------------------
     def _summary_row(self, carry):
         return [carry[0], carry[10], carry[11], carry[9],
@@ -1248,10 +1298,23 @@ class SortKernel(_Engine):
 
     def run_range_batch(self, xs: Staged, stops, carry) -> tuple:
         """Walk each key b's steps [e_b, stops[b]) while its frontier is
-        nonempty, all keys in lockstep: per step one gather of each
-        key's row, the completion for the keys that complete, and stage
-        A and B for the keys that invoke, each dedup one batched call.
-        xs holds a (B, T, W+4) step matrix."""
+        nonempty: K3-sort on CUDA tensors (one launch walks every key's
+        window), the eager lockstep walk on CPU tensors. xs holds a
+        (B, T, W+4) step matrix; stops is a length-B sequence."""
+        if self._on_cpu(carry):
+            return self.run_range_batch_eager(xs, stops, carry)
+        out = self._walk_k3s(xs.dev, stops, carry)
+        return carry if out is None else out
+
+    check_chunk_batch = run_range_batch
+
+    def run_range_batch_eager(self, xs: Staged, stops, carry) -> tuple:
+        """K3-sort's plain version, batched: walk each key b's steps [e_b,
+        stops[b]) while its frontier is nonempty, all keys in lockstep:
+        per step one gather of each key's row, the completion for the
+        keys that complete, and stage A and B for the keys that invoke,
+        each dedup one batched call. xs holds a (B, T, W+4) step
+        matrix."""
         start = self._walk_start(carry, stops, 10)
         if start is None:
             return carry
@@ -1317,7 +1380,52 @@ class SortKernel(_Engine):
                 slots[0], slots[1], slots[2], occ, overflow, att, count,
                 maxc)
 
-    check_chunk_batch = run_range_batch
+    # -- K3-sort: the walk on CUDA -------------------------------------------
+    def _walk_k3s(self, x: torch.Tensor, stops, carry):
+        """K3-sort window after window (`_walk_windows`) over a batched
+        carry and its (B, T, W+4) step matrix, up to
+        `wgl_sortwalk.window(F, P)` steps of every key per launch; None
+        when no key has a step to walk."""
+        B, T = x.shape[0], x.shape[1]
+        (e, masks, states, valid, sf, sa, sb, occ, ovf, att, count,
+         maxc) = carry
+        dev = masks.device
+        x = x.contiguous()
+        sc = torch.stack([e, att, count, maxc, ovf.to(torch.int32)]) \
+            .to(torch.int32).contiguous()
+        masks, states = masks.contiguous(), states.contiguous()
+        valid, occ = valid.contiguous(), occ.contiguous()
+        slots = torch.stack([sf, sa, sb]).contiguous()
+
+        def launch(wend, n):
+            nonlocal sc, masks, states, valid, slots, occ
+            sc, masks, states, valid, slots, occ, rounds, inv, work = \
+                wgl_sortwalk.launch(
+                    x, _h2d(wend.astype(np.int32), dev), sc, masks, states,
+                    valid, slots, occ, model=self.model_name,
+                    route=self.route, s_lo=self.s_lo, sb_bits=self.sb_bits,
+                    attest=self.use_attest, steps=n)
+            return sc[0], sc[2], torch.cat([
+                rounds.to(torch.int64), inv.to(torch.int64), work])
+
+        def tally(got):
+            n = (len(got) - 2) // 2
+            r, i = got[:n], got[n:2 * n]
+            # the eager walk's counts: one round while any invoking key has
+            # a legal candidate, and on the hash route one dedup per step
+            # with an invoking key and one a round
+            dedups = int((i * (1 + r)).sum()) if self.route == "hash" else 0
+            self.rounds += int(r.sum())
+            self.dedups += dedups
+            wgl_sortwalk.count(int(r.sum()), dedups, int(got[-2]),
+                               int(got[-1]))
+
+        if not self._walk_windows(e, count, stops, B, T,
+                                  wgl_sortwalk.window(self.F, self.P),
+                                  launch, tally):
+            return None
+        return (sc[0], masks, states, valid, slots[0], slots[1], slots[2],
+                occ, sc[4] != 0, sc[1], sc[2], sc[3])
 
 
 def _dense_shape(srange: tuple[int, int],

@@ -57,7 +57,10 @@ under `jax.vmap` in the JAX package's batch entry; row b of each output
 is the call on row b (`wgl.SortKernel.check_chunk_batch`).
 
 On a CUDA tensor `dedup` launches K2 or raises; the plain PyTorch
-version (`dedup_plain`) runs only for tensors on the CPU.
+version (`dedup_plain`) runs only for tensors on the CPU. On CUDA the
+sort walks run K2's single-block insert and rank inside K3-sort
+(`wgl_sortwalk`, `csrc/dedup.cuh`), so `dedup` serves the eager walk,
+which runs on the card only when called by name.
 """
 
 from __future__ import annotations

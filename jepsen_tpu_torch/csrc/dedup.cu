@@ -71,6 +71,12 @@
 // shared-memory atomics and the issue rate of one SM add to it as N
 // grows.
 //
+// The murmur finaliser, the block reductions and scan, and the
+// single-block path's insert (`insert_run`) live in dedup.cuh, which
+// K3-sort (sort_walk.cu) includes too: on CUDA every sort walk runs this
+// insert and rank inside its step walk, and K2's own launches serve the
+// eager walk and the measurements.
+//
 // The C entry points take raw device pointers and the CUDA stream and
 // return the first nonzero cudaGetLastError(), so a refused launch is
 // reported to the caller (jepsen_tpu_torch/checker/wgl_dedup.py), which
@@ -83,9 +89,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dedup.cuh"
+
 namespace {
 
-constexpr int kEmpty = -1;
+using jt_hash::Add;
+using jt_hash::block_exclusive_scan;
+using jt_hash::block_reduce;
+using jt_hash::kCountMix;
+using jt_hash::kEmpty;
+using jt_hash::murmur_mix;
+using jt_hash::Xor;
+
 constexpr int kThreads = 256;              // fill, insert, count, scatter
 constexpr int kPerThread = 4;
 constexpr int kTile = kThreads * kPerThread;
@@ -101,72 +116,9 @@ constexpr int kSingleMaxSmem =
     (int)sizeof(int);
 constexpr int kMaxDevices = 64;
 constexpr int kMaxBatch = 65535;           // grid.y of the five launches
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kCountMix = 0x9E3779B9u;
 
 std::atomic<long long> g_launches{0};
 std::atomic<unsigned long long> g_smem_ready{0};   // a bit per device
-
-__device__ __forceinline__ unsigned murmur_mix(unsigned k) {
-  unsigned h = k ^ (k >> 16);
-  h *= 0x85ebca6bu;
-  h ^= h >> 13;
-  h *= 0xc2b2ae35u;
-  h ^= h >> 16;
-  return h;
-}
-
-struct Add {
-  __device__ unsigned operator()(unsigned a, unsigned b) const { return a + b; }
-};
-struct Xor {
-  __device__ unsigned operator()(unsigned a, unsigned b) const { return a ^ b; }
-};
-
-// Reduce v over the block; the result is valid in every lane of warp 0.
-// Every thread of the block must call it.
-template <int THREADS, class Op>
-__device__ unsigned block_reduce(unsigned v, Op op) {
-  __shared__ unsigned part[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 16; d > 0; d >>= 1) v = op(v, __shfl_xor_sync(kFull, v, d));
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < THREADS / 32 ? part[lane] : 0u;
-    for (int d = 16; d > 0; d >>= 1) v = op(v, __shfl_xor_sync(kFull, v, d));
-  }
-  __syncthreads();
-  return v;
-}
-
-// Exclusive prefix sum of v over the block in thread order; *total gets
-// the block's sum. Every thread of the block must call it.
-template <int THREADS>
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int sums[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  if (lane == 31) sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < THREADS / 32 ? sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < THREADS / 32) sums[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp > 0 ? sums[warp - 1] : 0;
-  *total = sums[THREADS / 32 - 1];
-  __syncthreads();
-  return before + incl - v;
-}
 
 __device__ __forceinline__ bool is_first(const int* pos, const int* first,
                                          int i) {
@@ -351,32 +303,13 @@ single_block_kernel(const int* __restrict__ keys, int n, int F, int H,
   }
   __syncthreads();
 
-  // 2. insert. A lane takes its keys as a queue, one probe per turn of
-  // the loop, so a long probe chain holds its warp up once: the warp's
-  // turns are the most probes one lane makes over all its keys, not the
-  // sum over its keys of the longest chain in the warp.
+  // 2. insert, each lane's keys as a queue (dedup.cuh)
   const int base = t * per;
   const int mine = max(0, min(per, n - base));
   const int* my_key = skey + t * stride;
   int* my_pos = pos + t * stride;
-  const unsigned mask = (unsigned)(H - 1);
-  int j = 0, k = mine > 0 ? my_key[0] : kEmpty;
-  unsigned h = murmur_mix((unsigned)k) & mask;
-  while (j < mine) {
-    bool done = k == kEmpty;
-    if (!done) {
-      const int old = atomicCAS(&table[h], kEmpty, k);
-      done = old == kEmpty || old == k;
-      if (done) atomicMin(&first[h], base + j);
-    }
-    if (done) {
-      my_pos[j] = k == kEmpty ? -1 : (int)h;
-      k = ++j < mine ? my_key[j] : kEmpty;
-      h = murmur_mix((unsigned)k) & mask;
-    } else {
-      h = (h + 1) & mask;
-    }
-  }
+  jt_hash::insert_run(my_key, my_pos, mine, base, table, first,
+                       (unsigned)(H - 1));
   __syncthreads();
 
   // 3. first-occurrence flags, ranked in input order

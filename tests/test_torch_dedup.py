@@ -150,7 +150,11 @@ def test_build_command_and_c_interface():
     cmd = _build.command("dedup", _build.lib_path("dedup"))
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert cmd[-1].endswith("csrc/dedup.cu")
-    src = (_build.CSRC / "dedup.cu").read_text()
+    # the translation unit: the source and the header it shares with
+    # K3-sort, which holds the insert's atomics and the hash constants
+    src = (_build.CSRC / "dedup.cu").read_text() + \
+        (_build.CSRC / "dedup.cuh").read_text()
+    assert '#include "dedup.cuh"' in src
     for name in ('extern "C" int jt_dedup(',
                  'extern "C" long long jt_dedup_scratch_ints(',
                  "cudaGetLastError", "atomicCAS", "atomicMin",

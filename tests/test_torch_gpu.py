@@ -1,6 +1,6 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1, K2), scalar
-and batched, against their plain versions, the dense step walk (K3)
-against the eager walk, both engine families and the
+and batched, against their plain versions, the dense and sort step walks
+(K3, K3-sort) against the eager walk, both engine families and the
 batch entry on CUDA against the same engines on the CPU, the Elle
 classifier on CUDA against its CPU path, and the online streams, the
 tiered check and the competition race on CUDA against the CPU path.
@@ -21,7 +21,8 @@ import torch
 from jepsen_tpu_torch import _platform, models
 from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
 from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
-                                      wgl, wgl_closure, wgl_dedup, wgl_walk)
+                                      wgl, wgl_closure, wgl_dedup,
+                                      wgl_sortwalk, wgl_walk)
 from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
 from jepsen_tpu_torch.checker.elle import list_append as elle_append
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
@@ -35,24 +36,28 @@ def _need_cuda():
 
 
 class _WalkSyncs:
-    """The host syncs the dense walks make, by engine shape (s_lo, S, P):
-    on the card K3's walks (`DenseKernel._walk_k3`, with their calls and
-    K3 launches), on the CPU the eager walks."""
+    """The host syncs the walks of one family make, by engine shape (s_lo,
+    S, P) for the dense family, ("sort", F, P) for the sort family: on
+    the card the kernel's walks (`DenseKernel._walk_k3`,
+    `SortKernel._walk_k3s`, with their calls and launches), on the CPU
+    the eager walks."""
 
-    def __init__(self, monkeypatch, card: bool):
+    def __init__(self, monkeypatch, card: bool, sort: bool = False):
         self.syncs, self.calls, self.launches = {}, {}, {}
-        for name in (("_walk_k3",) if card else
+        cls = wgl.SortKernel if sort else wgl.DenseKernel
+        self.mod = wgl_sortwalk if sort else wgl_walk
+        for name in ((("_walk_k3s" if sort else "_walk_k3"),) if card else
                      ("run_range_eager", "run_range_batch_eager")):
-            monkeypatch.setattr(wgl.DenseKernel, name,
-                                self._spy(getattr(wgl.DenseKernel, name)))
+            monkeypatch.setattr(cls, name, self._spy(getattr(cls, name)))
 
     def _spy(self, real):
         def counted(k, *a):
-            s0, l0 = k.syncs, wgl_walk.LAUNCHES
+            s0, l0 = k.syncs, self.mod.LAUNCHES
             out = real(k, *a)
-            key = (k.s_lo, k.S, k.P)
+            key = (("sort", k.F, k.P) if isinstance(k, wgl.SortKernel)
+                   else (k.s_lo, k.S, k.P))
             for d, v in ((self.syncs, k.syncs - s0), (self.calls, 1),
-                         (self.launches, wgl_walk.LAUNCHES - l0)):
+                         (self.launches, self.mod.LAUNCHES - l0)):
                 d[key] = d.get(key, 0) + v
             return out
         return counted
@@ -61,7 +66,8 @@ class _WalkSyncs:
         return sum((self.syncs if d is None else d).values())
 
     def hold_k3(self):
-        """Each K3 walk reads the host once to start and once a window."""
+        """Each kernel walk reads the host once to start and once a
+        window."""
         assert self.syncs and all(
             self.syncs[g] == self.calls[g] + self.launches[g]
             for g in self.syncs), (self.syncs, self.calls, self.launches)
@@ -230,7 +236,10 @@ def test_dedup_wrapper_raises_on_what_the_kernel_does_not_take():
 
 
 @pytest.mark.gpu
-def test_cuda_sort_family_matches_cpu():
+def test_cuda_sort_family_matches_cpu(monkeypatch):
+    """The sort family on the card walks K3-sort on every route, with K2
+    at 0, and gives the CPU path's result: its counts the eager walk's,
+    its host reads one a launch where the eager walk read a round."""
     _need_cuda()
     reg = synth.register_history(600, concurrency=4, crash_rate=0.0,
                                  seed=17)
@@ -242,17 +251,23 @@ def test_cuda_sort_family_matches_cpu():
          "pallas-hash"),
         (models.cas_register(), synth.corrupt(wide), "auto", "xla-sort")]
     for model, hist, eng, route in cases:
-        before = wgl_dedup.LAUNCHES
+        k2, k3s, d3s = (wgl_dedup.LAUNCHES, wgl_sortwalk.LAUNCHES,
+                        wgl_sortwalk.DEDUPS)
+        gw = _WalkSyncs(monkeypatch, card=True, sort=True)
         g = wgl.analysis_gpu(model, hist, chunk_entries=200, engine=eng)
         assert g["analyzer"] == "gpu-wgl" and g["dedup"] == route
-        assert wgl_dedup.LAUNCHES - before == g["dedup-launches"]
+        assert wgl_dedup.LAUNCHES == k2 and wgl_sortwalk.LAUNCHES > k3s
+        assert wgl_sortwalk.DEDUPS - d3s == g["dedup-launches"]
         assert (g["dedup-launches"] > 0) == (route == "pallas-hash")
+        gw.hold_k3()
+        cw = _WalkSyncs(monkeypatch, card=False, sort=True)
         cpu = wgl.analysis_gpu(model, hist, device="cpu", chunk_entries=200,
                                engine=eng)
         for key in ("valid?", "op-index", "max-frontier", "frontier-size",
-                    "closure-rounds", "dedup-launches", "host-syncs",
-                    "final-paths"):
+                    "closure-rounds", "dedup-launches", "final-paths"):
             assert g.get(key) == cpu.get(key), key
+        assert g["host-syncs"] - gw.total() == cpu["host-syncs"] - cw.total()
+        assert g["host-syncs"] < cpu["host-syncs"]
 
 
 @pytest.mark.gpu
@@ -329,17 +344,17 @@ def test_cuda_batch_matches_cpu_on_both_families(monkeypatch):
     dense[2] = synth.corrupt(dense[2], value=5)
     cnt = [synth.counter_history(200, seed=40 + i) for i in range(5)]
     cnt[3] = synth.corrupt(cnt[3], value=999)   # S past the dense cap
-    for model, hs, kw, k1, k2 in [(reg, dense, {}, True, False),
-                                  (models.counter(), cnt, {"slots": 16},
-                                   False, True)]:
-        b1, b2 = wgl_walk.LAUNCHES, wgl_dedup.LAUNCHES
-        gw = _WalkSyncs(monkeypatch, card=True)
+    for model, hs, kw, sort in [(reg, dense, {}, False),
+                                (models.counter(), cnt, {"slots": 16}, True)]:
+        b1, b2, b3 = (wgl_walk.LAUNCHES, wgl_dedup.LAUNCHES,
+                      wgl_sortwalk.LAUNCHES)
+        gw = _WalkSyncs(monkeypatch, card=True, sort=sort)
         g = wgl.analysis_gpu_batch(model, hs, **kw)
-        assert (wgl_walk.LAUNCHES > b1) == k1
-        assert (wgl_dedup.LAUNCHES > b2) == k2
-        if k1:
-            gw.hold_k3()
-        cw = _WalkSyncs(monkeypatch, card=False)
+        assert (wgl_walk.LAUNCHES > b1) == (not sort)
+        assert (wgl_sortwalk.LAUNCHES > b3) == sort
+        assert wgl_dedup.LAUNCHES == b2
+        gw.hold_k3()
+        cw = _WalkSyncs(monkeypatch, card=False, sort=sort)
         c = wgl.analysis_gpu_batch(model, hs, device="cpu", **kw)
         assert any(r["valid?"] is False for r in g)
         for a, b in zip(g, c):
@@ -347,15 +362,14 @@ def test_cuda_batch_matches_cpu_on_both_families(monkeypatch):
             for key in ("valid?", "op-index", "max-frontier", "dedup",
                         "analyzer"):
                 assert a.get(key) == b.get(key), key
-            # K3 reads the host once a window: the dense walks' host
+            # the kernel reads the host once a window: the walks' host
             # syncs are its own, every other read and count the CPU
             # path's
             wa, wb = dict(a["batch-walk"]), dict(b["batch-walk"])
-            if k1:
-                shape = tuple(wa["group"][1:])
-                ga, gb = wa.pop("host-syncs"), wb.pop("host-syncs")
-                assert ga - gw.syncs[shape] == gb - cw.syncs[shape]
-                assert ga < gb
+            shape = tuple(wa["group"]) if sort else tuple(wa["group"][1:])
+            ga, gb = wa.pop("host-syncs"), wb.pop("host-syncs")
+            assert ga - gw.syncs[shape] == gb - cw.syncs[shape]
+            assert ga < gb
             assert wa == wb
 
 
@@ -439,15 +453,16 @@ _STREAM_VOLATILE = ("duration-ms", "tail-latency-ms", "device",
 
 def _stream_both(hist, **kw):
     """The same stream on CUDA and on the CPU: (cuda result, cpu result,
-    the CUDA stream, K3's closure rounds, K2 launches) — the counts of
-    the CUDA run only."""
-    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
+    the CUDA stream, (K3's closure rounds, K3-sort's hash dedups, K2
+    launches)) — the counts of the CUDA run only."""
+    k1, k2, k3s = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES, wgl_sortwalk.DEDUPS
     s = streaming.WglStream(models.cas_register(), **kw)
     for op in hist.ops:
         s.feed(op)
     g = s.finish()
     torch.cuda.synchronize()
-    launches = (wgl_walk.ROUNDS - k1, wgl_dedup.LAUNCHES - k2)
+    launches = (wgl_walk.ROUNDS - k1, wgl_sortwalk.DEDUPS - k3s,
+                wgl_dedup.LAUNCHES - k2)
     c = streaming.stream_check(models.cas_register(), hist, device="cpu",
                                **kw)
     return g, c, s, launches
@@ -460,18 +475,19 @@ def test_cuda_stream_matches_cpu_and_launches_its_kernel(engine):
     h = synth.register_history(800, concurrency=5, crash_rate=0.005,
                                seed=21)
     for hist in (h, synth.corrupt(h, seed=21, value=4)):
-        g, c, s, (k1, k2) = _stream_both(
+        g, c, s, (k1, d3s, k2) = _stream_both(
             hist, engine=engine, state_range=(-1, 4), chunk_entries=128,
             checkpoint_every=2)
         assert g["device"].startswith("cuda")
         for key in set(g) | set(c):
             if key not in _STREAM_VOLATILE:
                 assert g.get(key) == c.get(key), key
+        assert k2 == 0
         if engine == "dense":
-            assert k1 == g["closure-rounds"] > 0 and k2 == 0
+            assert k1 == g["closure-rounds"] > 0 and d3s == 0
         else:
             assert g["dedup"] == "pallas-hash"
-            assert k2 == g["dedup-launches"] > 0 and k1 == 0
+            assert d3s == g["dedup-launches"] > 0 and k1 == 0
 
 
 @pytest.mark.gpu
@@ -532,8 +548,10 @@ def test_cuda_tier_and_race_match_cpu():
             alone = linear.analysis_host(models.cas_register(), hist)
         else:
             assert g["competition-winner"] == "gpu"
+            # the race pins its card (`pin_device`): the winner alone on
+            # that card
             alone = wgl.analysis_gpu(models.cas_register(), hist,
-                                     explain=False,
+                                     device=g["device"], explain=False,
                                      slot_overflow_fallback=False)
             if alone["valid?"] is False and "op-index" in alone:
                 ex = linear.explain_failure(models.cas_register(), hist,
@@ -596,13 +614,14 @@ def _svc_strip(r):
 def test_cuda_concurrent_streams_count_their_own_launches():
     """Two streams fed from two threads at once, a dense one and a hash
     one: each result's K3 rounds / K2 counts are its own (equal to the
-    stream alone) and together they are the global counters' change."""
+    stream alone) and together they are the global counters' change; K2
+    never launches."""
     _need_cuda()
     import threading
     picks = {"d0": _SVC_STREAMS["d0"], "s0": _SVC_STREAMS["s0"]}
     hists = {n: _svc_hist(sd, bad) for n, (sd, bad, _kw) in picks.items()}
     alone = {n: _svc_solo(hists[n], picks[n][2]) for n in picks}
-    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
+    k1, k2, d3s = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES, wgl_sortwalk.DEDUPS
     out = {}
     ths = [threading.Thread(target=lambda n=n: out.__setitem__(
         n, _svc_solo(hists[n], picks[n][2]))) for n in picks]
@@ -617,15 +636,17 @@ def test_cuda_concurrent_streams_count_their_own_launches():
     assert out["d0"]["closure-rounds"] > 0
     assert out["s0"]["dedup-launches"] > 0
     assert wgl_walk.ROUNDS - k1 == out["d0"]["closure-rounds"]
-    assert wgl_dedup.LAUNCHES - k2 == sum(r["dedup-launches"]
-                                          for r in out.values())
+    assert wgl_sortwalk.DEDUPS - d3s == sum(r["dedup-launches"]
+                                            for r in out.values())
+    assert wgl_dedup.LAUNCHES == k2
 
 
 @pytest.mark.gpu
 def test_cuda_service_four_streams_match_their_solos():
     """A VerificationService on the card with 4 streams (2 dense, K3; 2
-    packed sort on the hash route, K2), fed from 4 threads: each result
-    equals the stream alone on the card, and the counts add up."""
+    packed sort on the hash route, K3-sort), fed from 4 threads: each
+    result equals the stream alone on the card, and the counts add up;
+    K2 never launches."""
     _need_cuda()
     import threading
     from jepsen_tpu_torch import service
@@ -644,7 +665,7 @@ def test_cuda_service_four_streams_match_their_solos():
         if "concurrency_hint" in kw:
             spec["concurrency-hint"] = kw["concurrency_hint"]
         svc.admit(n, {"linear": spec})
-    k1, k2 = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES
+    k1, k2, d3s = wgl_walk.ROUNDS, wgl_dedup.LAUNCHES, wgl_sortwalk.DEDUPS
 
     def feed(n):
         for op in hists[n].ops:
@@ -668,8 +689,9 @@ def test_cuda_service_four_streams_match_their_solos():
     assert res["s0"]["dedup"] == "pallas-hash"
     assert wgl_walk.ROUNDS - k1 == sum(
         res[n]["closure-rounds"] for n in ("d0", "d1"))
-    assert wgl_dedup.LAUNCHES - k2 == sum(
+    assert wgl_sortwalk.DEDUPS - d3s == sum(
         r["dedup-launches"] for r in res.values())
+    assert wgl_dedup.LAUNCHES == k2
     assert all(s["state"] == "verdict" for s in st["streams"].values())
     assert st["calibration"]["platform"] == "cuda"
 
@@ -865,3 +887,201 @@ def test_k3_refused_launch_raises_and_does_not_fall_back(monkeypatch):
             carry[1][None].cpu(),
             torch.zeros((3, 1, k.P), dtype=torch.int32, device="cuda"),
             carry[5][None], True)
+
+
+# -- K3-sort: the sort step walk against the eager walk on the card -----------
+
+def _k3s_case(name):
+    """(model, history, F, slots, route) of a K3-sort walk: each route on
+    the shared-memory path, each on the grid path (one key too large for
+    shared memory: F >= 1,024), the two-word lexicographic key (40 slots)
+    and three more models."""
+    import chip_smoke
+    reg = models.cas_register()
+    adv = synth.adversarial_register_history
+    return {
+        "hash-phantom": (reg, synth.corrupt(synth.register_history(
+            2000, concurrency=5, crash_rate=0.0005, seed=101)), 256, 8,
+            "hash"),
+        "hash-counter": (models.counter(), synth.counter_history(
+            1500, seed=102), 256, 8, "hash"),
+        "hash-mutex": (models.mutex(), chip_smoke.mutex_history(
+            1500, seed=103), 64, 3, "hash"),
+        "hash-scratch": (reg, synth.register_history(
+            600, concurrency=5, crash_rate=0.01, seed=104), 1024, 16, "hash"),
+        "packed": (reg, synth.register_history(
+            1500, concurrency=5, crash_rate=0.002, seed=105), 128, 8,
+            "packed"),
+        "packed-scratch": (reg, adv(150, concurrency=6, crashed_writes=8,
+                                    front_load=True, seed=106), 4096, 16,
+                           "packed"),
+        "packed-65536": (reg, adv(40, concurrency=6, crashed_writes=8,
+                                  front_load=True, seed=107), 65536, 16,
+                         "packed"),
+        "lex-32": (reg, adv(600, concurrency=11, crashed_writes=8,
+                            front_load=True, seed=108), 256, 32, "lex"),
+        "lex-40": (reg, synth.register_history(
+            600, concurrency=6, crash_rate=0.01, seed=109), 64, 40, "lex"),
+        "lex-scratch": (reg, adv(200, concurrency=11, crashed_writes=8,
+                                 front_load=True, seed=110), 1024, 32,
+                        "lex"),
+        "lex-queue": (models.unordered_queue(), synth.uqueue_history(
+            400, seed=111), 256, 8, "lex"),
+    }[name]
+
+
+def _k3s_kernels(model, hists, F, slots, route):
+    """Two SortKernels on the card at the case's F and route (built
+    directly, as the escalation builds them), the staged steps (B, T,
+    W+4) and stops of the histories, and the initial state."""
+    pre = [wgl.encode_ops_for_model(model, h) for h in hists]
+    srange = wgl._state_range(model.device_model, model, pre)
+    pack = wgl._pack_params(srange, slots) if route != "lex" else None
+
+    def make():
+        return wgl.SortKernel(model.device_model, F, slots, pack,
+                              wgl.DEDUP_PALLAS if route == "hash"
+                              else wgl.DEDUP_SORT, "cuda")
+
+    assert make().route == route
+
+    x, ns = wgl._stack_steps([wgl.build_steps(o, slots) for o in pre],
+                             len(pre))
+    return make(), make(), wgl.stage_steps(x, "cuda"), np.asarray(ns), \
+        model.device_state()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hash-phantom", "hash-counter",
+                                  "hash-mutex", "hash-scratch", "packed",
+                                  "packed-scratch", "packed-65536", "lex-32",
+                                  "lex-40", "lex-scratch", "lex-queue"])
+def test_k3s_walk_matches_the_eager_walk(name):
+    """check_chunk on CUDA is K3-sort: the carry equals the eager walk's
+    element for element after every chunk (a carry resuming across calls
+    and across windows inside one call), rounds and hash dedups exact, K2
+    never launched, one host read to start and one a launch."""
+    _need_cuda()
+    model, hist, F, slots, route = _k3s_case(name)
+    k3, ke, xs, ns, init = _k3s_kernels(model, [hist], F, slots, route)
+    n = int(ns[0])
+    x1 = wgl.Staged(xs.host[0], xs.dev[0])
+    c3, ce = k3.init_carry(init), ke.init_carry(init)
+    launches = wgl_sortwalk.LAUNCHES
+    calls = 0
+    for stop in (n // 3, n):
+        k2 = wgl_dedup.LAUNCHES
+        c3 = k3.check_chunk(x1, stop, c3)
+        calls += 1
+        assert wgl_dedup.LAUNCHES == k2, "K2 launched inside a K3-sort walk"
+        ce = ke.run_range_eager(x1, stop, ce)
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"{name} to {stop}")
+    assert k3.rounds == ke.rounds
+    assert k3.dedups == ke.dedups
+    assert (k3.dedups > 0) == (route == "hash")
+    assert wgl_sortwalk.LAUNCHES > launches
+    assert k3.syncs == calls + wgl_sortwalk.LAUNCHES - launches
+    assert k3.syncs < ke.syncs
+    assert int(k3.digest(c3)) == int(ke.digest(ce))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,F,B", [("hash", 1024, 32), ("hash", 256, 6),
+                                       ("lex", 256, 5), ("lex", 1024, 4),
+                                       ("packed", 1024, 4)])
+def test_k3s_batched_walk_matches_the_eager_lockstep_walk(route, F, B):
+    """check_chunk_batch on CUDA is one K3-sort launch per window for every
+    key: counter keys of different stops (the counter batch's shape at
+    F = 1,024, 16 slots, one block a key in device scratch, on each
+    route), some dying mid-walk, each with the eager lockstep walk's
+    carry, the same rounds (the max over the invoking keys a step) and
+    hash dedups."""
+    _need_cuda()
+    model = models.counter()
+    hists = [synth.counter_history(200 + 37 * (i % 5), seed=2000 + i)
+             for i in range(B)]
+    for i in (1, B - 2):
+        hists[i] = synth.corrupt(hists[i], seed=i, value=999 if i % 2 else
+                                 -999)
+    slots = 16 if F == 1024 else 8 if route == "hash" else 32
+    k3, ke, xs, ns, init = _k3s_kernels(model, hists, F, slots, route)
+    c3, ce = k3.init_carry_batch([init] * B), ke.init_carry_batch([init] * B)
+    launches = wgl_sortwalk.LAUNCHES
+    for stop in (int(ns.max()) // 2, int(ns.max())):
+        st = np.minimum(ns, stop)
+        c3 = k3.check_chunk_batch(xs, st, c3)
+        ce = ke.run_range_batch_eager(xs, st, ce)
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"batch to {stop}")
+    assert k3.rounds == ke.rounds > 0
+    assert k3.dedups == ke.dedups
+    assert k3.syncs == 2 + wgl_sortwalk.LAUNCHES - launches
+    assert (carry_to_numpy(c3)[10] == 0).sum() == 2
+    # a block of keys with no step to walk comes back as it was, with no
+    # launch and one read
+    launches, syncs = wgl_sortwalk.LAUNCHES, k3.syncs
+    assert k3.check_chunk_batch(xs, np.zeros(B, np.int64), c3) is c3
+    assert wgl_sortwalk.LAUNCHES == launches and k3.syncs == syncs + 1
+
+
+@pytest.mark.gpu
+def test_k3s_stream_chunks_resume_like_the_eager_walk():
+    """check_stream_chunk on CUDA (K3-sort, e rebased per chunk) against
+    the eager walk over the same chunks, on the sort-abort stream's shape
+    (packed, hash route, 8 slots, F = 256)."""
+    _need_cuda()
+    h = synth.corrupt(synth.register_history(1200, concurrency=5,
+                                             crash_rate=0.0, seed=112))
+    k3, ke, xs, ns, init = _k3s_kernels(models.cas_register(), [h], 256, 8,
+                                        "hash")
+    x = xs.host[0]
+    n_all = int(ns[0])
+    c3, ce = k3.init_carry(init), ke.init_carry(init)
+    chunk = 256
+    for lo in range(0, n_all, chunk):
+        part = np.zeros((chunk, x.shape[1]), np.int32)
+        part[:, k3.W] = -1
+        n = min(chunk, n_all - lo)
+        part[:n] = x[lo:lo + n]
+        st = wgl.stage_steps(part, "cuda")
+        c3 = k3.check_stream_chunk(st, n, c3)
+        out = ke.run_range_eager(st, n, (ke._i32(0),) + tuple(ce[1:]))
+        ce = (out[0] + ce[0],) + tuple(out[1:])
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"stream chunk at {lo}")
+    assert k3.rounds == ke.rounds > 0 and k3.dedups == ke.dedups
+
+
+@pytest.mark.gpu
+def test_k3s_refused_launch_raises_and_does_not_fall_back(monkeypatch):
+    """A launch the kernel refuses raises KernelLaunchError; the walk
+    never falls back to the eager walk or to K2."""
+    _need_cuda()
+    h = synth.corrupt(synth.register_history(300, concurrency=4, seed=113))
+    k, _ke, xs, ns, init = _k3s_kernels(models.cas_register(), [h], 256, 8,
+                                        "hash")
+    x1 = wgl.Staged(xs.host[0], xs.dev[0])
+    carry = k.init_carry(init)
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("fell back to the eager walk")
+
+    monkeypatch.setattr(wgl.SortKernel, "run_range_eager", no_fallback)
+    real = wgl_sortwalk._check
+    # a slot count past the kernel's 256: the C entry refuses the shape
+    monkeypatch.setattr(wgl_sortwalk, "_check",
+                        lambda *a: real(*a)[:3] + (300,) + real(*a)[4:])
+    before, k2 = wgl_sortwalk.LAUNCHES, wgl_dedup.LAUNCHES
+    with pytest.raises(_platform.KernelLaunchError):
+        k.check_chunk(x1, int(ns[0]), carry)
+    assert wgl_sortwalk.LAUNCHES == before and wgl_dedup.LAUNCHES == k2
+    monkeypatch.setattr(wgl_sortwalk, "_check", real)
+    c = k.init_carry_batch([init])
+    with pytest.raises(ValueError):      # masks on another device
+        wgl_sortwalk.launch(
+            xs.dev, torch.zeros(1, dtype=torch.int32, device="cuda"),
+            torch.zeros((5, 1), dtype=torch.int32, device="cuda"),
+            c[1].cpu(), c[2], c[3], torch.stack([c[4], c[5], c[6]]), c[7],
+            model="cas-register", route="hash", s_lo=k.s_lo,
+            sb_bits=k.sb_bits, attest=True, steps=4)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from jepsen_tpu import models as jmodels
 from jepsen_tpu.checker import abft as jabft
 from jepsen_tpu.checker import synth as jsynth
@@ -74,6 +75,10 @@ SHAPES = {
     "lex-64": ("cas_register", lambda: _reg(seed=4), 64, 64, False),
     "lex-queue": ("unordered_queue", lambda: jsynth.uqueue_history(
         120, seed=1), 256, 8, False),
+    "hash-mutex": ("mutex", lambda: jsynth.History(
+        chip_smoke.mutex_history(300, seed=5).ops), 64, 3, True),
+    "packed-mutex": ("mutex", lambda: jsynth.History(
+        chip_smoke.mutex_history(300, seed=6).ops), 64, 3, False),
 }
 
 

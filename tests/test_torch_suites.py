@@ -61,7 +61,8 @@ from jepsen_tpu_torch.suites import mysql_proto as tmysql
 from jepsen_tpu_torch.suites import reql_proto as treql
 from jepsen_tpu_torch.suites import resp_proto as tresp
 from jepsen_tpu_torch.checker import wgl as twgl
-from jepsen_tpu_torch.checker import wgl_closure, wgl_dedup, wgl_walk
+from jepsen_tpu_torch.checker import (wgl_closure, wgl_dedup, wgl_sortwalk,
+                                      wgl_walk)
 
 JAX = dict(core=jcore, gen=jgen, ind=jind, suites=jsuites, store=jstore,
            db=jdb, os_=jos, shim=jshim, mysql=jmysql, cql=jcql,
@@ -279,8 +280,8 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
     the suite's own map with its client, partition nemesis and checker
     compose, valid, its nemesis ops and iptables cuts there, its eager
     walks, plain K1 rounds and plain K2 calls (counted as the card's K3
-    launches, K3 rounds and K2 launches) equal to what its results
-    report, and its workload result equal, whole but for device and
+    and K3-sort launches, K3 rounds and K3-sort hash dedups) equal to
+    what its results report, and its workload result equal, whole but for device and
     duration, to the CPU path's check of the stored history
     (`cpu_suite_check`)."""
     monkeypatch.setattr(chip_smoke, "SUITE_RUN", dict(
@@ -296,12 +297,16 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     lock = threading.Lock()
     # on the card a dense walk is K3 (its rounds those of K1's plain
-    # version here) and the hash dedup K2
+    # version here) and a sort walk K3-sort (its hash dedups those of
+    # K2's plain version here)
     for mod, name, owner, count in (
             (wgl_closure, "closure_round_plain", wgl_walk, "ROUNDS"),
-            (wgl_dedup, "dedup_plain", wgl_dedup, "LAUNCHES"),
+            (wgl_dedup, "dedup_plain", wgl_sortwalk, "DEDUPS"),
             (twgl.DenseKernel, "run_range_eager", wgl_walk, "LAUNCHES"),
             (twgl.DenseKernel, "run_range_batch_eager", wgl_walk,
+             "LAUNCHES"),
+            (twgl.SortKernel, "run_range_eager", wgl_sortwalk, "LAUNCHES"),
+            (twgl.SortKernel, "run_range_batch_eager", wgl_sortwalk,
              "LAUNCHES")):
         def counted(*a, _owner=owner, _count=count,
                     _plain=getattr(mod, name), **k):
@@ -314,7 +319,7 @@ def test_chip_smoke_suite_maps_run_on_the_cpu(tmp_path, monkeypatch,
         *chip_smoke.data_planes([kind])[kind])
     assert row["ops"] == 2 * 400 + row["nemesis_ops"] and row["iptables"]
     assert row["k3_launches"] > 0 and row["k1_launches"] == 0
-    assert row["k2_launches"] == 0
+    assert row["k2_launches"] == 0 and row["k3s_launches"] == 0
     assert 0 < row["workload_check_s"] <= row["check_s"]
     if kind in ("yugabyte", "faunadb"):
         # a compose per key: each key is walked alone

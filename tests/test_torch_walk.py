@@ -522,3 +522,39 @@ def test_launch_refuses_tensors_off_cuda():
     with pytest.raises(ValueError):
         wgl_walk.launch(torch.from_numpy(x), torch.zeros(1, dtype=torch.int32),
                         itr, str0, sc, c[1], slots, c[5], True)
+
+
+def test_walk_windows_around_emulated_launches(monkeypatch):
+    """`DenseKernel._walk_k3` and the engines' shared window loop
+    (`_Engine._walk_windows`) around launches emulated on the CPU, with a
+    window of 7 steps: the eager batched walk's carry and rounds, one host
+    read to start and one a launch, and K3's counts moved by the rounds
+    the launches reported."""
+    k, x, ns, init = _hazelcast_batch([70, 110, 40, 90], bad=(2,))
+    xs = twgl.stage_steps(x, "cpu")
+    start = k.init_carry_batch([init] * len(ns))
+    want = carry_to_numpy(k.run_range_batch_eager(xs, ns, start))
+    eager_rounds = k.rounds
+    launches = []
+
+    def fake_launch(x, wend, itr, str0, sc, table, slots, occ, attest):
+        out = _emulate_launch(x.numpy(), wend.numpy(), itr.numpy(),
+                              str0.numpy(), sc.numpy(), table.numpy(),
+                              slots.numpy(), occ.numpy(), attest)
+        launches.append(1)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a))
+                     for a in out[:5]) + (
+            torch.tensor([out[5]], dtype=torch.int64),)
+
+    monkeypatch.setattr(wgl_walk, "launch", fake_launch)
+    monkeypatch.setattr(wgl_walk, "WINDOW", 7)
+    k.rounds, k.syncs = 0, 0
+    rounds0 = wgl_walk.ROUNDS
+    got = k._walk_k3(xs.dev, ns, start)
+    _assert_same(carry_to_numpy(got), want, "walk windows")
+    assert k.rounds == eager_rounds > 0
+    assert wgl_walk.ROUNDS - rounds0 == k.rounds
+    assert len(launches) > 1 and k.syncs == 1 + len(launches)
+    # no key with a step to walk: one read, no launch, None
+    assert k._walk_k3(xs.dev, np.zeros(len(ns), np.int64), start) is None
+    assert k.syncs == 2 + len(launches)
