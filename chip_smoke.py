@@ -36,7 +36,10 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      kernel's, fewer than the CPU path's) and final carries against the
      port's own CPU path (run in a worker process from the end of phase
      1 on), and trace the first 250 steps of four walks with
-     torch.profiler for the device's busy share;
+     torch.profiler for the device's busy share; the adversarial and
+     concurrency-11 escalations are printed pass by pass (F, route,
+     path, steps, launches, wall and K3-sort's phase split:
+     `SortPasses`);
  4b. hold K3 against the eager walk, its plain version, on the card: the
      headline, the adversarial and concurrency-11 histories forced
      dense, the hazelcast batch's four dense groups (batched), the dense
@@ -52,8 +55,12 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      F = 65,536 pass on a prefix (packed sort), the counter batch's sort
      group (batched), the sort-abort stream's first three chunks and the
      chaos workload's shape (8 slots, F = 128), carries, rounds and hash
-     dedups equal, walls, syncs and launches both ways, and profiles of
-     the phantom walk;
+     dedups equal, walls, syncs and launches both ways, each walk's phase
+     split (`wgl_sortwalk.PHASE_NS`: where each key's device time went,
+     step by step) and `PASS_ROWS / ROWS`, the library yardstick
+     (`torch.sort(stable=True)` of one dedup's keys at the adversarial
+     and at-cap N, beside K3-sort's ms a dedup), and profiles of the
+     phantom walk;
   5. hold K1 and K2 with a batch axis bit-exact against their plain
      versions (K1 at each dense group's (B, 8, 2^P) of the hazelcast batch
      and at P = 0-3 and 19 with B = 4; K2 on all four outputs at
@@ -269,11 +276,18 @@ K3S_ADV_F = 65536
 K3S_ADV_STEPS = 240
 K3S_STREAM_CHUNKS = 3
 K3S_CHAOS_OPS = 2_000
-# the operations K3-sort's bound counts a dedup row: a hash insert is the
-# murmur finaliser's 8 (two multiplies, three shifts, three XORs); a radix
-# pass a digit's shift and mask, its count and its scatter (3)
+# the operations K3-sort's bound counts a dedup row, whatever implements
+# the dedup: a hash insert is the murmur finaliser's 8 (two multiplies,
+# three shifts, three XORs); a stable selection of the first F positions
+# must at least look at every row's key once: its top digit extracted (a
+# shift and a mask) and counted (an add), and the key held against the
+# threshold (a compare), 4
 HASH_ROW_OPS = 8
-SORT_PASS_ROW_OPS = 3
+SORT_ROW_OPS = 4
+# the library yardstick of one K3-sort dedup: torch.sort(stable=True) of
+# its N keys, at the adversarial pass's F = 65,536 x (1 + 16) and at-cap's
+# F = 4,096 x (1 + 32) rows
+K3S_LIBRARY_N = (1_114_112, 135_168)
 # every P from 0 to 19: P <= 3 is the byte-per-thread path, P = 0-3
 # inside a chunk are the byte butterflies; S = 3, 5, 24 and 30 are not
 # multiples of 8
@@ -592,6 +606,8 @@ def zero_launches() -> None:
     wgl_walk.LAUNCHES = wgl_walk.ROUNDS = 0
     wgl_sortwalk.LAUNCHES = wgl_sortwalk.ROUNDS = wgl_sortwalk.DEDUPS = 0
     wgl_sortwalk.ROWS = wgl_sortwalk.PASS_ROWS = 0
+    wgl_sortwalk.SORTS = wgl_sortwalk.STEPS = 0
+    wgl_sortwalk.PHASE_NS = dict.fromkeys(wgl_sortwalk.PHASES, 0)
 
 
 def launch_counts() -> dict:
@@ -716,6 +732,67 @@ def walk_syncs() -> WalkSyncs:
         from jepsen_tpu_torch.checker import wgl, wgl_sortwalk, wgl_walk
         _WALK_SYNCS = WalkSyncs(wgl, wgl_walk, wgl_sortwalk)
     return _WALK_SYNCS
+
+
+class SortPasses:
+    """The K3-sort walks of each SortKernel in this process, in the order
+    their kernels first walked: an escalation's passes, one kernel each.
+    Each pass: F, P, route, path, steps walked, launches, the host-clock
+    wall of its walks (each ends in a host read) and its `k3s_work`.
+    Install with `sort_passes()`; `take()` returns and forgets them."""
+
+    def __init__(self, wgl, wgl_sortwalk):
+        self.passes = {}
+        real = wgl.SortKernel._walk_k3s
+
+        def walk(k, x, stops, carry):
+            w0, l0 = k3s_work(), wgl_sortwalk.LAUNCHES
+            t = time.perf_counter()
+            out = real(k, x, stops, carry)
+            wall = time.perf_counter() - t
+            w1 = k3s_work()
+            if id(k) not in self.passes:
+                self.passes[id(k)] = {
+                    "kernel": k, "F": k.F, "P": k.P, "route": k.route,
+                    "path": wgl_sortwalk.path(x.shape[0], k.F, k.P, k.route),
+                    "wall_s": 0.0, "launches": 0,
+                    "work": dict.fromkeys(w1, 0)}
+            p = self.passes[id(k)]
+            p["wall_s"] += wall
+            p["launches"] += wgl_sortwalk.LAUNCHES - l0
+            for a, v in w1.items():
+                p["work"][a] += v - w0[a]
+            return out
+
+        wgl.SortKernel._walk_k3s = walk
+
+    def take(self) -> list:
+        out = [dict(p) for p in self.passes.values()]
+        self.passes = {}
+        for p in out:
+            p.pop("kernel")
+        return out
+
+
+_SORT_PASSES = None
+
+
+def sort_passes() -> SortPasses:
+    """This process's SortPasses, installed at the first call."""
+    global _SORT_PASSES
+    if _SORT_PASSES is None:
+        from jepsen_tpu_torch.checker import wgl, wgl_sortwalk
+        _SORT_PASSES = SortPasses(wgl, wgl_sortwalk)
+    return _SORT_PASSES
+
+
+def log_passes(label, passes) -> None:
+    for i, p in enumerate(passes):
+        w = p["work"]
+        log(f"{label} pass {i}: F={p['F']}, P={p['P']}, {p['route']}, "
+            f"{p['path']} path, {w['steps_walked']} steps, "
+            f"{p['launches']} launches, wall {p['wall_s']:.4f} s")
+        log(f"{label} pass {i} {k3s_split(w)}")
 
 
 def same_syncs_but_walks(label, g_syncs, g_k3, c_syncs, c_eager) -> None:
@@ -1643,6 +1720,30 @@ def k3_bound(S, P, keys, launches, steps, completions,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3s_work() -> dict:
+    """K3-sort's work counts so far: rows, rows x passes, dedups, steps
+    and each phase's nanoseconds (`wgl_sortwalk.PHASE_NS`)."""
+    from jepsen_tpu_torch.checker import wgl_sortwalk as m
+    with m._LAUNCH_LOCK:
+        return dict({"rows": m.ROWS, "pass_rows": m.PASS_ROWS,
+                     "sorts": m.SORTS, "steps_walked": m.STEPS},
+                    **{f"ns_{k}": v for k, v in m.PHASE_NS.items()})
+
+
+def k3s_split(work: dict) -> str:
+    """One line of where K3-sort's device time went (`k3s_work`'s
+    differences): each phase's ms and share, ms a step and a dedup, and
+    PASS_ROWS / ROWS."""
+    ns = {k[3:]: v for k, v in work.items() if k.startswith("ns_")}
+    total = sum(ns.values()) or 1
+    parts = ", ".join(f"{k} {v / 1e6:.3f} ({100 * v / total:.1f}%)"
+                      for k, v in ns.items() if v)
+    return (f"split over {work['steps_walked']} steps and {work['sorts']} "
+            f"dedups: {total / 1e6:.3f} ms ({total / 1e6 / max(work['steps_walked'], 1):.5f} "
+            f"a step, {total / 1e6 / max(work['sorts'], 1):.5f} a dedup): {parts}; "
+            f"PASS_ROWS / ROWS {work['pass_rows'] / max(work['rows'], 1):.3f}")
+
+
 def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
               mod=None) -> dict:
     """One walk with its kernel (`walk3(k3)`: K3, or K3-sort where `mod`
@@ -1651,17 +1752,20 @@ def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
     element for element, the rounds and hash dedups equal, the kernel's
     host syncs one per call and one per launch, each side's wall (the
     kernel the later of its two), host syncs and launches, and the work
-    the kernel reported (K3's pair rounds; K3-sort's dedup rows and rows
-    times radix passes)."""
+    the kernel reported (K3's pair rounds; K3-sort's `k3s_work`: dedup
+    rows, rows times passes, dedups, steps and the phase split)."""
     from jepsen_tpu_torch.checker import wgl_walk
     mod = mod or wgl_walk
     name = "K3" if mod is wgl_walk else "K3-sort"
-    work = ("PAIR_ROUNDS",) if mod is wgl_walk else ("ROWS", "PASS_ROWS")
     ws = walk_syncs()
+
+    def work():
+        return {"pair_rounds": wgl_walk.PAIR_ROUNDS} if mod is wgl_walk \
+            else k3s_work()
 
     def timed(fn, k):
         r0, d0, s0, l0 = k.rounds, k.dedups, k.syncs, mod.LAUNCHES
-        w0 = [getattr(mod, a) for a in work]
+        w0 = work()
         snap = ws.snap()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1670,7 +1774,7 @@ def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
         return (time.perf_counter() - t, carry_to_numpy(c),
                 (k.rounds - r0, k.dedups - d0), k.syncs - s0,
                 mod.LAUNCHES - l0, ws.since(snap)["calls"],
-                [getattr(mod, a) - b for a, b in zip(work, w0)])
+                {a: v - w0[a] for a, v in work().items()})
 
     timed(walk3, k3)
     e = timed(walke, ke)
@@ -1691,12 +1795,12 @@ def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
            "dedups": g[2][1], "k3_syncs": g[3], "eager_syncs": e[3],
            "k3_launches": g[4], "k3_calls": g[5], "max_abs_err": err,
            "carry": g[1]}
-    out.update({a.lower(): v for a, v in zip(work, g[6])})
+    out.update(g[6])
     return out
 
 
-def k3s_bound(F, P, route, keys, launches, steps, rows,
-              pass_rows) -> tuple[float, str]:
+def k3s_bound(F, P, route, keys, launches, steps,
+              rows) -> tuple[float, str]:
     """The least time an H100 could take for a K3-sort walk on these
     inputs, and what bounds it: the larger of bytes over the HBM rate and
     its integer operations over the INT32 rate.
@@ -1710,13 +1814,14 @@ def k3s_bound(F, P, route, keys, launches, steps, rows,
 
     Operations: the rows of every dedup, which K3-sort reports: on the
     hash route HASH_ROW_OPS a row (the insert's hash), on the sort routes
-    SORT_PASS_ROW_OPS a row for each radix pass run. For a batch `steps`,
-    `rows` and `pass_rows` sum over the keys."""
+    SORT_ROW_OPS a row (one look at its key by a selection of the first F
+    positions). The count is fixed a row, so the bound does not move with
+    the radix passes an implementation runs. For a batch `steps` and
+    `rows` sum over the keys."""
     W = (P + 31) // 32
     carry = 2 * (F * (4 * W + 5) + 13 * P + 20)
     nbytes = launches * keys * carry + steps * 4 * (W + 4)
-    ops = rows * HASH_ROW_OPS if route == "hash" else \
-        pass_rows * SORT_PASS_ROW_OPS
+    ops = rows * (HASH_ROW_OPS if route == "hash" else SORT_ROW_OPS)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1937,30 +2042,38 @@ def phase_k3s(dev, models, synth, wgl, streaming, carry_to_numpy,
     (hash, 8 slots) and the chaos workload's shape (8 slots, F = 128,
     lexicographic), each walked both ways with its carry equal element
     for element and its rounds and hash dedups equal, each wall timed
-    both ways with host syncs and launches; torch.profiler traces of the
-    phantom walk, both ways on the profile prefix and K3-sort over the
-    whole walk, for the card's busy share."""
+    both ways with host syncs and launches, and K3-sort's phase split
+    printed; the library yardstick (`k3s_library`); torch.profiler traces
+    of the phantom walk, both ways on the profile prefix and K3-sort over
+    the whole walk, for the card's busy share."""
     from jepsen_tpu_torch.checker import wgl_sortwalk
     reg = models.cas_register()
     out = {"walks": {}, "profiles": {}}
 
     def record(label, row, k, steps):
+        keys = row.get("keys", 1)
         bound_ms, bound_by = k3s_bound(
-            k.F, k.P, k.route, row.get("keys", 1), row["k3_launches"],
-            steps, row["rows"], row["pass_rows"])
+            k.F, k.P, k.route, keys, row["k3_launches"], steps, row["rows"])
+        ns = sum(v for a, v in row.items() if a.startswith("ns_"))
         row.update(F=k.F, P=k.P, route=k.route, steps=steps,
+                   path=wgl_sortwalk.path(keys, k.F, k.P, k.route),
                    launches_per_step=row["k3_launches"] / max(steps, 1),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   device_ms=ns / 1e6,
+                   dedup_ms=ns / 1e6 / max(row["sorts"], 1))
         row.pop("carry")
         out["walks"][label] = row
-        log(f"K3-sort {label} (F={k.F}, P={k.P}, {row['route']}, {steps} "
-            f"steps): K3-sort {row['k3_wall_s']:.4f} s, "
+        log(f"K3-sort {label} (F={k.F}, P={k.P}, {row['route']}, "
+            f"{row['path']} path, {steps} steps): K3-sort "
+            f"{row['k3_wall_s']:.4f} s, "
             f"{row['k3_syncs']} host syncs, {row['k3_launches']} launches; "
             f"eager {row['eager_wall_s']:.4f} s, {row['eager_syncs']} host "
             f"syncs; {row['rounds']} rounds and {row['dedups']} hash "
             f"dedups both ways; carry equal; {row['rows']} dedup rows, "
-            f"{row['pass_rows']} rows x radix passes; bound "
+            f"{row['pass_rows']} rows x passes "
+            f"({row['pass_rows'] / max(row['rows'], 1):.3f} a row); bound "
             f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
+        log(f"K3-sort {label} {k3s_split(row)}")
 
     def pair(label, make, walk3, walke):
         return walk_pair(make(), make(), label, walk3, walke,
@@ -2051,6 +2164,8 @@ def phase_k3s(dev, models, synth, wgl, streaming, carry_to_numpy,
     record("chaos shape (8 slots, F=128)", row, make_chaos(),
            int(row["carry"][0]))
 
+    out["library"] = k3s_library(dev, out["walks"])
+
     # where the time goes, both ways
     walk3 = prefix_walk(wgl, reg, phantom, dev)
     walke = prefix_walk(wgl, reg, phantom, dev, eager=True)
@@ -2066,6 +2181,30 @@ def phase_k3s(dev, models, synth, wgl, streaming, carry_to_numpy,
             f"{pr['kernel_launches']} kernel launches, K3-sort "
             f"{pr['k3s_launches']} launches in {pr['k3s_ms']:.3f} ms; "
             f"top {pr['top'][:3]}")
+    return out
+
+
+def k3s_library(dev, walks) -> dict:
+    """The library yardstick of one K3-sort dedup: torch.sort(stable=True)
+    over N 32-bit keys (uint32 keys with their sign bit flipped, as int32,
+    so the order is the uint32 one; random from SEED), timed by CUDA
+    events, at the adversarial pass's and at-cap's N (`K3S_LIBRARY_N`),
+    printed beside K3-sort's device ms a dedup on those walks (the phase
+    split's sum over its dedups). The port never calls it."""
+    rng = np.random.default_rng(SEED)
+    mine = {K3S_LIBRARY_N[0]: f"adversarial F={K3S_ADV_F} prefix",
+            K3S_LIBRARY_N[1]: f"at-cap F={K3S_AT_CAP_F[-1]}"}
+    out = {}
+    for n in K3S_LIBRARY_N:
+        keys = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)).to(dev)
+        ms = time_ms(lambda: torch.sort(keys, stable=True), 20)
+        walk = walks.get(mine[n], {})
+        out[n] = {"library_ms": ms, "walk": mine[n],
+                  "dedup_ms": walk.get("dedup_ms")}
+        log(f"K3-sort library yardstick at N={n}: torch.sort(stable=True) "
+            f"library_ms {ms:.6f}; K3-sort {walk.get('dedup_ms', 0):.6f} ms "
+            f"a dedup on {mine[n]} (its whole dedups, from the split)")
     return out
 
 
@@ -4842,6 +4981,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
 
     # -- phase 4: the main path -------------------------------------------------
     results = {}
+    passes = sort_passes()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     for label, model, hist, kw, expect in runs:
@@ -4852,7 +4992,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         wall = time.perf_counter() - t
         launches = {k: v - before[k] for k, v in launch_counts().items()}
         results[label] = dict(r, wall_s=wall, walk_reads=ws.since(snap),
-                              **launches)
+                              sort_passes=passes.take(), **launches)
         log(f"{label}: valid?={r['valid?']} op-index={r.get('op-index')} "
             f"analyzer={r['analyzer']} dedup={r['dedup']} frontier-size="
             f"{r['frontier-size']} shape={r.get('dense-shape')} "
@@ -4865,6 +5005,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             f"{launches['k3s_dedups']}) "
             f"closure rounds={r['closure-rounds']} host syncs="
             f"{r['host-syncs']} error={r.get('error')}")
+        if label in ("adversarial", "at-cap"):
+            log_passes(label, results[label]["sort_passes"])
         check_run(label, r, launches, expect)
     no_stamps("main path", list(results.values()))
     main_launches = launch_counts()
@@ -5122,6 +5264,9 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
         "plain_ms": ph["eager_wall_s"] * 1e3 / ph["k3_launches"],
         "bound_ms": ph["bound_ms"] / ph["k3_launches"],
         "bound_by": ph["bound_by"], "library_ms": None,
+        # no PyTorch call computes the walk; torch.sort(stable=True) of one
+        # dedup's keys beside K3-sort's device ms a dedup (`k3s_library`)
+        "sort_library_ms": {str(n): v for n, v in k3s["library"].items()},
         "shape": [ph["F"], ph["P"], ph["route"]],
         "walk_ms": ph["k3_wall_s"] * 1e3,
         "plain_walk_ms": ph["eager_wall_s"] * 1e3,

@@ -1409,7 +1409,7 @@ class SortKernel(_Engine):
                 rounds.to(torch.int64), inv.to(torch.int64), work])
 
         def tally(got):
-            n = (len(got) - 2) // 2
+            n = (len(got) - wgl_sortwalk.WORK) // 2
             r, i = got[:n], got[n:2 * n]
             # the eager walk's counts: one round while any invoking key has
             # a legal candidate, and on the hash route one dedup per step
@@ -1417,8 +1417,7 @@ class SortKernel(_Engine):
             dedups = int((i * (1 + r)).sum()) if self.route == "hash" else 0
             self.rounds += int(r.sum())
             self.dedups += dedups
-            wgl_sortwalk.count(int(r.sum()), dedups, int(got[-2]),
-                               int(got[-1]))
+            wgl_sortwalk.count(int(r.sum()), dedups, got[2 * n:])
 
         if not self._walk_windows(e, count, stops, B, T,
                                   wgl_sortwalk.window(self.F, self.P),

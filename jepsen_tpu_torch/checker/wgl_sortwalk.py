@@ -28,12 +28,15 @@ are the eager walk's, counted the same way (`csrc/sort_walk.cu`,
 and `DEDUPS` here (`count`).
 
 What bounds it on an H100: latency. A step is a chain of dependent
-team-wide phases (completion, each dedup's row build, insert or radix
-passes, rank and scatter, the count) on one SM per key, or, for one key
-too large for shared memory (the escalations' F = 1,024-65,536), on one
-cooperative grid of a block per SM joined by grid barriers. Design:
-`csrc/sort_walk.cu`, with the six models in `csrc/sort_models.cuh` and K2's
-insert and rank in `csrc/dedup.cuh`.
+team-wide phases (completion, each dedup's row build, then the hash
+route's insert and rank or the sort routes' selection of the first F
+rows, their compaction, radix passes over those F rows and extraction,
+then the count) on one SM per key, or, for one key too large for shared
+memory (the escalations' F = 1,024-65,536), on one cooperative grid of a
+block per SM joined by grid barriers. Each launch reports where its time
+went, phase by phase, on each key's lead thread (`PHASES`, `PHASE_NS`).
+Design: `csrc/sort_walk.cu`, with the six models in
+`csrc/sort_models.cuh` and K2's insert and rank in `csrc/dedup.cuh`.
 
 On a CUDA tensor the walk launches the kernel or raises: nothing falls
 back to the eager walk.
@@ -55,7 +58,18 @@ LAUNCHES = 0    # K3-sort launches by `launch`, and nothing else
 ROUNDS = 0      # the stage-B rounds those launches ran, as the walk counts
 DEDUPS = 0      # the hash-route dedups they ran, as the walk counts them
 ROWS = 0        # the rows of every dedup of every key
-PASS_ROWS = 0   # rows times radix passes, summed over the sort routes' dedups
+PASS_ROWS = 0   # rows the sort routes' selection histograms, ranking and
+#                 radix passes read (csrc/sort_walk.cu, "Counts")
+SORTS = 0       # the dedups those launches ran, on every route
+STEPS = 0       # the steps they walked, summed over the keys
+# where the launches' time went: each phase's nanoseconds on the lead
+# thread of each key (csrc/sort_walk.cu, `Phase`), summed over the keys;
+# a launch's phases sum to its lead's time in the kernel
+PHASES = ("carry", "completion", "rows", "gather", "select", "count",
+          "wait", "scatter", "extract", "insert", "rank", "step")
+PHASE_NS = dict.fromkeys(PHASES, 0)
+WORK = 4 + len(PHASES)   # a launch's work counts: rows, pass rows, dedups,
+#                          steps, then the phases
 # stream workers walk from several threads: `+=` on a global is not
 # atomic, so the counts move under this lock
 _LAUNCH_LOCK = threading.Lock()
@@ -93,6 +107,9 @@ def _kernel():
     plan = lib.jt_sort_walk_plan
     plan.argtypes = [i, i, i, i, i, ctypes.POINTER(ll), ctypes.POINTER(i)]
     plan.restype = ctypes.c_int
+    if lib.jt_sort_walk_phases() != len(PHASES):
+        raise KernelLaunchError(f"sort_walk times {lib.jt_sort_walk_phases()}"
+                                f" phases, the wrapper names {len(PHASES)}")
     err = lib.jt_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
@@ -145,27 +162,22 @@ def launch(x: torch.Tensor, wend: torch.Tensor, sc: torch.Tensor,
     (f, a, b); occ bool (B, P); `steps` >= the longest window. Returns new
     (sc, masks, states, valid, slots, occ), the int32 (steps,) rounds of
     each window step (the max over the keys invoking at it), its int32
-    (steps,) invoke flags (1 where a key invoked) and an int64 (2,) of the
-    rows deduped and the rows times radix passes. Launches on the current
-    stream and does not synchronise."""
+    (steps,) invoke flags (1 where a key invoked) and an int64 (WORK,) of
+    the rows deduped, the rows the sort routes' histograms, ranking and
+    radix passes read, the dedups, the steps walked and each phase's
+    nanoseconds (`PHASES`). Launches on the
+    current stream and does not synchronise."""
     global LAUNCHES
     B, T, F, P, _W = _check(x, wend, sc, masks, states, valid, slots, occ)
     if model not in MODELS or route not in ROUTES:
         raise ValueError(f"no K3-sort model {model!r} or route {route!r}")
-    fn, plan, err = _kernel()
+    fn, _plan, err = _kernel()
     m_id, r_id = MODELS.index(model), ROUTES.index(route)
     H = table_size(F * (1 + P))
     dev = masks.device
     with torch.cuda.device(dev):
-        nbytes, path = ctypes.c_longlong(), ctypes.c_int()
-        code = plan(B, F, P, r_id, H, ctypes.byref(nbytes),
-                    ctypes.byref(path))
-        if code != 0:
-            raise KernelLaunchError(f"sort_walk refused F={F}, P={P}, "
-                                    f"route {route}: CUDA error {code} "
-                                    f"({err(code).decode()})")
-        stride = 0 if path.value == PATHS.index("shared") else \
-            (nbytes.value + 255) // 256 * 256
+        nbytes, where = _planned(B, F, P, route)
+        stride = 0 if where == "shared" else (nbytes + 255) // 256 * 256
         # a failed allocation raises torch.OutOfMemoryError, which the
         # batch ladder's split handles
         scratch = (torch.empty(B * stride, dtype=torch.uint8, device=dev)
@@ -173,7 +185,8 @@ def launch(x: torch.Tensor, wend: torch.Tensor, sc: torch.Tensor,
         outs = (torch.empty_like(sc), torch.empty_like(masks),
                 torch.empty_like(states), torch.empty_like(valid),
                 torch.empty_like(slots), torch.empty_like(occ))
-        counts = torch.zeros(2 * steps + 4, dtype=torch.int32, device=dev)
+        counts = torch.zeros(2 * steps + 2 * WORK, dtype=torch.int32,
+                             device=dev)
         rounds, inv = counts[:steps], counts[steps:2 * steps]
         work = counts[2 * steps:].view(torch.int64)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -193,11 +206,37 @@ def launch(x: torch.Tensor, wend: torch.Tensor, sc: torch.Tensor,
     return (*outs, rounds, inv, work)
 
 
-def count(rounds: int, dedups: int, rows: int, pass_rows: int) -> None:
-    """Add what launches reported, as the walk reads it, to the counts."""
-    global ROUNDS, DEDUPS, ROWS, PASS_ROWS
+def count(rounds: int, dedups: int, work) -> None:
+    """Add what launches reported, as the walk reads it, to the counts:
+    the stage-B rounds and hash dedups as the walk counts them, and the
+    launches' WORK counts."""
+    global ROUNDS, DEDUPS, ROWS, PASS_ROWS, SORTS, STEPS
+    rows, pass_rows, sorts, steps, *ns = (int(v) for v in work)
     with _LAUNCH_LOCK:
         ROUNDS += rounds
         DEDUPS += dedups
         ROWS += rows
         PASS_ROWS += pass_rows
+        SORTS += sorts
+        STEPS += steps
+        for name, v in zip(PHASES, ns):
+            PHASE_NS[name] += v
+
+
+def _planned(B: int, F: int, P: int, route: str) -> tuple[int, str]:
+    """(scratch bytes a key, path) of B keys at (F, P, route) on the
+    current device; raises on a shape the kernel refuses."""
+    _fn, plan, err = _kernel()
+    nbytes, where = ctypes.c_longlong(), ctypes.c_int()
+    code = plan(B, F, P, ROUTES.index(route), table_size(F * (1 + P)),
+                ctypes.byref(nbytes), ctypes.byref(where))
+    if code != 0:
+        raise KernelLaunchError(f"sort_walk refused F={F}, P={P}, route "
+                                f"{route}: CUDA error {code} "
+                                f"({err(code).decode()})")
+    return nbytes.value, PATHS[where.value]
+
+
+def path(B: int, F: int, P: int, route: str) -> str:
+    """Where B keys at (F, P, route) walk on the current device (`PATHS`)."""
+    return _planned(B, F, P, route)[1]

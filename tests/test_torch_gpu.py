@@ -986,6 +986,76 @@ def test_k3s_walk_matches_the_eager_walk(name):
     assert int(k3.digest(c3)) == int(ke.digest(ce))
 
 
+def _k3s_ties(route, F):
+    """(model, history, F, slots, route) of a walk whose sort dedups hold
+    long runs of equal keys across position F - 1 (the adversarial
+    history's crashed writes: on the packed route up to 1,023 rows tied
+    with the row at F - 1) and overflow: F = 1,024 walks one key on the
+    grid path, F = 256 on shared memory."""
+    adv = synth.adversarial_register_history
+    hist = (adv(60, concurrency=6, crashed_writes=8, front_load=True,
+                seed=117) if F >= 1024 else
+            adv(200, concurrency=6, crashed_writes=6, front_load=True,
+                seed=119))
+    return models.cas_register(), hist, F, 16 if route == "packed" else 32, \
+        route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,F", [("packed", 1024), ("lex", 1024),
+                                     ("packed", 256), ("lex", 256)])
+def test_k3s_walk_with_many_ties_matches_the_eager_walk(route, F):
+    """K3-sort's select-then-sort where runs of equal keys straddle
+    position F - 1 (the selection's threshold ends on equal keys, taken
+    lowest row first): the carry equals the eager walk's element for
+    element after every chunk, rounds and hash dedups equal, the frontier
+    overflowed, on the grid path (F = 1,024, one key) and on shared
+    memory (F = 256)."""
+    _need_cuda()
+    model, hist, F, slots, route = _k3s_ties(route, F)
+    k3, ke, xs, ns, init = _k3s_kernels(model, [hist], F, slots, route)
+    assert wgl_sortwalk.path(1, F, slots, route) == (
+        "grid" if F >= 1024 else "shared")
+    n = int(ns[0])
+    x1 = wgl.Staged(xs.host[0], xs.dev[0])
+    c3, ce = k3.init_carry(init), ke.init_carry(init)
+    for stop in (n // 4, n // 2, n):
+        c3 = k3.check_chunk(x1, stop, c3)
+        ce = ke.run_range_eager(x1, stop, ce)
+        torch.cuda.synchronize()
+        _same_carry(c3, ce, f"{route} F={F} to {stop}")
+    assert k3.rounds == ke.rounds > 0 and k3.dedups == ke.dedups == 0
+    assert bool(carry_to_numpy(ce)[8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,F", [("packed", 1024), ("lex", 256)])
+def test_k3s_phase_split_fits_in_the_launches_time(route, F):
+    """The phase split K3-sort reports (`wgl_sortwalk.PHASE_NS`, each
+    key's lead thread between its boundaries) sums to no more than the
+    CUDA-event time around the walk's launches, and is not empty: the
+    row build and the sort's phases took time."""
+    _need_cuda()
+    model, hist, F, slots, route = _k3s_ties(route, F)
+    k3, _ke, xs, ns, init = _k3s_kernels(model, [hist], F, slots, route)
+    x1 = wgl.Staged(xs.host[0], xs.dev[0])
+    k3.check_chunk(x1, int(ns[0]), k3.init_carry(init))   # build, warm
+    before = dict(wgl_sortwalk.PHASE_NS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    k3.check_chunk(x1, int(ns[0]), k3.init_carry(init))
+    end.record()
+    torch.cuda.synchronize()
+    ns_split = {k: v - before[k] for k, v in wgl_sortwalk.PHASE_NS.items()}
+    event_ns = start.elapsed_time(end) * 1e6
+    assert 0 < sum(ns_split.values()) <= event_ns, (ns_split, event_ns)
+    for name in ("rows", "select", "count", "scatter", "extract"):
+        assert ns_split[name] > 0, (name, ns_split)
+    assert (ns_split["wait"] > 0) == (F >= 1024)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("route,F,B", [("hash", 1024, 32), ("hash", 256, 6),
                                        ("lex", 256, 5), ("lex", 1024, 4),

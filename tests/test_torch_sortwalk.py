@@ -8,12 +8,21 @@ its plain version, and the JAX package's sort kernel.
   * a numpy emulation of the kernel's formulation (the window loop, the
     per-step round maxima and invoke flags, the completion, stage A and B
     rows in the kernel's order, the hash dedup as a parallel insert with
-    minimum-index ranks, the stable LSD radix sort with 8-bit digits,
-    skipped constant digits, warp segments ranked by lane and the first-F
-    rule)
+    minimum-index ranks, and the sort routes' select-then-sort: the side
+    and shared bits from the row build, the bucket's 8-bit histograms and
+    threshold refinement over every row, compacted lists and block-local
+    lists, ties by row, the compaction in row order with every digit
+    counted in one read, the LSD passes over the selected rows only, their
+    tiles placed by look-back and ranked by digit, skipped constant
+    digits, and the first-of-run rule)
     against `run_range_eager` / `run_range_batch_eager` and the JAX
     package's carries on every route: carries element for element, rounds
     and hash dedups equal;
+  * the emulated select-then-sort dedup alone against the port's plain
+    dedups (`SortKernel._dedup_packed`, `_dedup_lex`) on hypothesis-drawn
+    rows: ties straddling position F - 1, V below, at and above F, no
+    valid row, N <= F, a bucket that needs every digit, constant digits,
+    two-word lexicographic keys with states of both signs;
   * the CPU dispatch taking the eager walk, and `wgl_sortwalk.launch`
     refusing tensors off CUDA.
 """
@@ -24,6 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from jepsen_tpu import models as jmodels
 from jepsen_tpu.checker import synth as jsynth
@@ -157,43 +168,297 @@ def hash_dedup(keys, F, threads, rng):
     return keys[keep], keep, int(flags.sum()), xt
 
 
-def radix_order(words, threads):
-    """The kernel's stable LSD radix sort of the row indices by the key
-    words (N, kw) uint32, word 0 the most significant: 8-bit digits from
-    the least significant word up, a digit skipped where every key has the
-    same value; each pass counts the (digit, warp) pairs over the warps'
-    contiguous segments of the order (a multiple of 32 rows each), takes
-    one exclusive scan of them in digit-major order, and scatters each
-    warp's rows 32 at a time to its pair's next place plus the row's rank
-    among the lanes of its digit. Returns the order and the passes run."""
+K_LOCAL = 4096    # csrc/sort_walk.cu's kLocal: a bucket list each block refines
+# csrc/sort_walk.cu's kRankGrid, kRankBlock, kRankWords: the selected rows
+# a team ranks by counting instead of sorting by radix passes
+K_RANK_GRID, K_RANK_BLOCK, K_RANK_WORDS = 4096, 1024, 16384
+INT_MAX_ROW = 2 ** 31 - 1
+
+
+def sort_key_words(route, valid, state, masks, s_lo=0, P=0):
+    """The kernel's key words of N rows, (N, kw) uint32, word 0 the most
+    significant (the invalid bit, then packed: the key's other 31 bits;
+    lex: the mask words and the state with its sign flipped), and its sort
+    words (packed: the whole key; lex: the key words)."""
+    valid = np.asarray(valid, bool)
+    if route == "packed":
+        key = ((np.where(valid, 0, 1 << 31)
+                | ((((np.asarray(state, np.int64) - s_lo) & M32) << P)
+                   & M32)
+                | (np.asarray(masks)[:, 0].view(np.uint32)
+                   .astype(np.int64))) & M32)
+        return (np.stack([key >> 31, key & 0x7FFFFFFF], 1).astype(np.int64),
+                key[:, None].astype(np.int64))
+    words = np.concatenate(
+        [(~valid).astype(np.int64)[:, None],
+         np.asarray(masks).view(np.uint32).astype(np.int64),
+         (np.asarray(state).view(np.uint32) ^ np.uint32(1 << 31))
+         .astype(np.int64)[:, None]], 1)
+    return words, words
+
+
+def prefix_cmp(words, thr, kd, lo):
+    """Each row's key against the threshold's known bits (words [0, kd)
+    and the bits >= lo of word kd): -1 below, 0 in the bucket, 1 above."""
+    n, kw = words.shape
+    res = np.zeros(n, np.int64)
+    open_ = np.ones(n, bool)
+    cols = [(words[:, k], thr[k]) for k in range(min(kd, kw))]
+    if kd < kw and lo < 32:
+        cols.append((words[:, kd] >> lo, thr[kd] >> lo))
+    for a, t in cols:
+        res[open_ & (a < t)] = -1
+        res[open_ & (a > t)] = 1
+        open_ &= a == t
+    return res
+
+
+def _below(lo):
+    return M32 if lo >= 32 else (1 << lo) - 1
+
+
+def _take_shared(thr, kd, lo, o, a):
+    """The threshold takes the bits a bucket's rows share below bit lo of
+    word kd (their OR o and AND a); returns the new lo."""
+    diff = (o ^ a) & _below(lo)
+    if diff == 0:
+        thr[kd] |= o & _below(lo)
+        return 0
+    top = diff.bit_length() - 1
+    thr[kd] |= o & _below(lo) & ~((2 << top) - 1) & M32
+    return top + 1
+
+
+def _or_and(v):
+    v = np.asarray(v, np.int64)
+    return (int(np.bitwise_or.reduce(v)) if len(v) else 0,
+            int(np.bitwise_and.reduce(v)) if len(v) else M32)
+
+
+def float_digit(v, lo):
+    """The kernel's floating digit of words v below bit lo: w = v's bits
+    below lo, w itself under 8, else (h - 2) * 8 plus the 3 bits under
+    w's top set bit h."""
+    w = np.asarray(v, np.int64) & _below(lo)
+    h = np.array([int(x).bit_length() - 1 for x in w], np.int64)
+    return np.where(w < 8, w, (h - 2) * 8 + ((w >> np.maximum(h - 3, 0)) & 7))
+
+
+def _digit_prefix(kind, d, lo2):
+    """(bits of the word a digit fixes, its new lo)."""
+    if kind == 0:
+        return d << lo2, lo2
+    if d < 8:
+        return d, 0
+    h = d // 8 + 2
+    return (1 << h) | ((d & 7) << (h - 3)), h - 3
+
+
+def select_first(words, V, F, local=K_LOCAL):
+    """The kernel's selection of the rows at the first F positions of the
+    stable order by the key words (N > F): the side of position F - 1 from
+    V and the bits its rows share from the ORs of word 1; then, level by
+    level below the known bits, the bucket's histograms of two digits (a
+    fixed 8-bit window, and a floating digit: the top set bit of the
+    remaining bits and 3 bits under it), the digit whose bin holding the
+    position still needed is smaller taken, until the bucket is all in or
+    the key runs out (equal keys then go lowest row first). The first
+    histogram reads every row (the row build's, of the floating digit
+    alone, where the side shares only zeros above its differing bits),
+    later ones a list compacted in row order; a
+    bucket of at most `local` rows is finished by each block alone,
+    compacted in place, taking the bits the kept rows share after each
+    level and a new word's shared bits as it is loaded. Returns (selected
+    flags, overflow, rows the histograms read)."""
     N, kw = words.shape
-    order = np.arange(N)
+    side = 0 if V >= F else 1
+    need = F if side == 0 else F - V
+    nb = nl = N - V if side else V
+    thr = [0] * kw
+    thr[0] = side
+    kd, lst, cut = 1, None, INT_MAX_ROW
+    full = nb == need
+    lo = _take_shared(thr, 1, 32, *_or_and(words[words[:, 0] == side, 1]))
+    rows = 0
+
+    def level(v, local_level):
+        """One level over the bucket's words v: returns the kept rows'
+        flags; a block-local level also takes the bits the kept rows
+        share."""
+        nonlocal need, nb, full, lo
+        lo2 = max(0, lo - 8)
+        best = None
+        for kind, dg in ((0, (v >> lo2) & ((1 << (lo - lo2)) - 1)),
+                         (1, float_digit(v, lo))):
+            h = np.bincount(dg, minlength=256)
+            ex = np.cumsum(h) - h
+            d = int(np.nonzero((ex < need) & (need <= ex + h))[0][0])
+            if best is None or h[d] < best[2]:
+                best = (kind, d, int(h[d]), int(ex[d]), dg)
+        kind, d, cnt, under, dg = best
+        need -= under
+        bits, nlo = _digit_prefix(kind, d, lo2)
+        thr[kd] |= bits
+        nb = cnt
+        full = nb == need
+        keep = dg == d
+        lo = nlo
+        if local_level and not full:
+            lo = _take_shared(thr, kd, nlo, *_or_and(v[keep]))
+        return keep
+
+    if not full and kd == 1 and lo > 0 and thr[1] == 0:
+        # the side shares only zeros above its differing bits: the row
+        # build's histogram of word 1's floating digit is the first level
+        mem = np.nonzero(words[:, 0] == side)[0]
+        v = words[mem, 1]
+        dg = float_digit(v, 32)
+        h = np.bincount(dg, minlength=256)
+        ex = np.cumsum(h) - h
+        d = int(np.nonzero((ex < need) & (need <= ex + h))[0][0])
+        need -= int(ex[d])
+        bits, lo = _digit_prefix(1, d, 0)
+        thr[1] |= bits
+        nb = int(h[d])
+        full = nb == need
+        rows += N
+        if not full and nb < nl:
+            lst, nl = mem[dg == d], nb
+
+    while not full:
+        if lo == 0:
+            kd, lo = kd + 1, 32
+        if kd >= kw:
+            break
+        if lst is not None and nl <= local:
+            # each block alone: the bucket (the list) with its word kd
+            li, loaded = lst, -1
+            while True:
+                if lo == 0:
+                    kd, lo = kd + 1, 32
+                if kd >= kw:
+                    break
+                if loaded != kd:
+                    lv = words[li, kd]
+                    lo = _take_shared(thr, kd, lo, *_or_and(lv))
+                    loaded = kd
+                    continue
+                rows += len(li)
+                keep = level(lv, True)
+                if full:
+                    break
+                li, lv = li[keep], lv[keep]
+            if not full:
+                cut = int(li[need - 1])
+            break
+        cand = np.arange(N) if lst is None else lst
+        mem = cand[prefix_cmp(words[cand], thr, kd, lo) == 0]
+        rows += len(cand)
+        keep = level(words[mem, kd], False)
+        if full:
+            break
+        if nb < nl:
+            lst, nl = mem[keep], nb
+    if not full and cut == INT_MAX_ROW:
+        # every row of the bucket has the same key
+        if lst is None:
+            lst = np.nonzero(prefix_cmp(words, thr, kd, lo) == 0)[0]
+        cut = int(lst[need - 1])
+    cmp = prefix_cmp(words, thr, kd, lo)
+    sel = (cmp < 0) | ((cmp == 0) & (full | (np.arange(N) <= cut)))
+    ovf = V >= F and bool(((cmp > 0) & (words[:, 0] == 0)).any())
+    return sel, ovf, rows
+
+
+def lsd_sort(swords, idx, packed, threads, blocks):
+    """The kernel's stable LSD radix sort of the selected rows `idx` (in row
+    order) by their sort words: each word's 8-bit digits, the least
+    significant word first (lex word 0, the invalid bit, one digit), a
+    digit skipped where one value holds every row (read off the counts of
+    all digits, taken once); a pass takes the order in `blocks` tiles of
+    `threads` rows a turn, each tile placed after the rows of each digit
+    in the tiles before it (the look-back), each turn ranked by digit.
+    Returns the order and the passes run."""
+    n = len(idx)
+    order = np.asarray(idx, np.int64)
     passes = 0
-    nw = threads // 32
-    seg = -(-(-(-N // nw)) // 32) * 32
-    warp = np.arange(N) // seg
-    for k in reversed(range(kw)):
-        col = words[:, k].astype(np.int64)
-        diff = int(np.bitwise_and.reduce(col)) ^ int(np.bitwise_or.reduce(col))
-        for d in range(0, 32, 8):
-            if (diff >> d) & 255 == 0:
+    for k in reversed(range(swords.shape[1])):
+        for q in range(4 if packed or k > 0 else 1):
+            tot = np.bincount((swords[idx, k] >> (8 * q)) & 255,
+                              minlength=256)
+            if tot.max() == n:
                 continue
-            dg = (col[order] >> d) & 255
-            cnt = np.zeros((256, nw), np.int64)
-            np.add.at(cnt, (dg, warp), 1)
-            offs = (np.cumsum(cnt.reshape(-1)) - cnt.reshape(-1)) \
-                .reshape(256, nw)
-            dst = np.empty(N, np.int64)
-            for b in range(0, N, 32):  # each warp's turns of 32 rows
-                g = dg[b:b + 32]
-                o = np.argsort(g, kind="stable")
-                rank = np.empty(len(g), np.int64)   # among the lanes of g
-                rank[o] = np.arange(len(g)) - np.searchsorted(g[o], g[o])
-                dst[offs[g, warp[b]] + rank] = order[b:b + 32]
-                np.add.at(offs[:, warp[b]], g, 1)
+            dstart = np.cumsum(tot) - tot
+            dg = (swords[order, k] >> (8 * q)) & 255
+            tile = -(-n // blocks)
+            dst = np.full(n, -1, np.int64)
+            before = np.zeros(256, np.int64)
+            for b in range(blocks):
+                lo, hi = min(n, b * tile), min(n, b * tile + tile)
+                run = dstart + before
+                for t0 in range(lo, hi, threads):
+                    g = dg[t0:min(hi, t0 + threads)]
+                    o = np.argsort(g, kind="stable")
+                    rank = np.empty(len(g), np.int64)
+                    rank[o] = np.arange(len(g)) - np.searchsorted(g[o], g[o])
+                    dst[run[g] + rank] = order[t0:t0 + len(g)]
+                    run = run + np.bincount(g, minlength=256)
+                before = before + np.bincount(dg[lo:hi], minlength=256)
+            assert (np.sort(dst) == np.sort(order)).all()
             order = dst
             passes += 1
     return order, passes
+
+
+def rank_sort(swords, idx):
+    """The kernel's ranking of the selected rows `idx` (in row order): each
+    row's place is the count of rows before it, a smaller key or an equal
+    one earlier in row order. Returns the order."""
+    n = len(idx)
+    keys = swords[idx]
+    before = np.zeros((n, n), bool)    # [i, j]: row i goes before row j
+    undecided = np.ones((n, n), bool)
+    for k in range(keys.shape[1]):
+        a, b = keys[:, k][:, None], keys[:, k][None, :]
+        before |= undecided & (a < b)
+        undecided &= a == b
+    before |= undecided & (np.arange(n)[:, None] < np.arange(n)[None, :])
+    rank = before.sum(0)
+    order = np.empty(n, np.int64)
+    order[rank] = idx
+    return order
+
+
+def select_sort(route, valid, state, masks, F, s_lo=0, P=0, threads=64,
+                blocks=1, local=K_LOCAL, rank_max=None):
+    """A sort route's dedup as the kernel runs it on N rows: select the
+    rows at the first F positions, compact them in row order, sort only
+    those: by rank where they are few (at most rank_max, by default the
+    kernel's limit for a grid of `blocks` > 1 or one block), else by radix
+    passes. Returns (the first min(N, F) positions' row indices, their
+    first-of-run-and-valid flags, overflow, rows read by the histograms
+    and passes or the ranking, (N, kw) key words)."""
+    words, swords = sort_key_words(route, valid, state, masks, s_lo, P)
+    N = len(words)
+    V = int(np.asarray(valid).sum())
+    if N <= F:
+        sel, ovf, rows = np.ones(N, bool), False, 0
+    else:
+        sel, ovf, rows = select_first(words, V, F, local)
+    idx = np.nonzero(sel)[0]
+    assert len(idx) == min(N, F)
+    if rank_max is None:
+        rank_max = K_RANK_GRID if blocks > 1 else K_RANK_BLOCK
+    if len(idx) <= rank_max and len(idx) * swords.shape[1] <= K_RANK_WORDS:
+        order, passes = rank_sort(swords, idx), 1
+    else:
+        order, passes = lsd_sort(swords, idx, route == "packed", threads,
+                                 blocks)
+    ws = words[order]
+    fst = np.ones(len(order), bool)
+    fst[1:] = (ws[1:] != ws[:-1]).any(1)
+    vs = fst & (ws[:, 0] == 0)
+    return order, vs, ovf, rows + passes * len(idx), words
 
 
 class Emu:
@@ -201,14 +466,18 @@ class Emu:
     after window as `SortKernel._walk_k3s` launches it."""
 
     def __init__(self, k: twgl.SortKernel, threads=1024, window=None,
-                 seed=0):
+                 seed=0, blocks=1, local=K_LOCAL, rank_max=None):
         self.k = k
         self.F, self.P, self.W = k.F, k.P, k.W
         self.route = k.route
         self.threads = threads
         self.window = window or wgl_sortwalk.window(k.F, k.P)
         self.rng = np.random.default_rng(seed)
+        self.blocks = blocks  # the sort passes' tiles (the grid's blocks)
+        self.local = local    # bucket lists refined without compacting
+        self.rank_max = rank_max  # selected rows ranked, not radix-sorted
         self.rounds = self.dedups = self.launches = 0
+        self.dedup_rows = self.pass_rows = 0
         self.overflowed_with_dup_head = False
 
     # -- one dedup --------------------------------------------------------
@@ -263,38 +532,21 @@ class Emu:
             mism = int(k.use_attest and xo != xt and distinct <= F)
             self.dedups += 1
             return (m, s, v, nw), distinct > F, mism
+        order, vs, ovf, rows, words = select_sort(
+            self.route, valid, state, masks, F, k.s_lo, P, self.threads,
+            self.blocks, self.local, self.rank_max)
+        self.pass_rows += rows
+        self.dedup_rows += N
         if self.route == "packed":
-            key = ((np.where(valid, 0, 1 << 31)
-                    | ((((state.astype(np.int64) - k.s_lo) & M32) << P) & M32)
-                    | (masks[:, 0].view(np.uint32).astype(np.int64)))
-                   & M32)
-            words = key[:, None].astype(np.uint32)
-        else:
-            words = np.concatenate(
-                [(~valid).astype(np.uint32)[:, None], masks.view(np.uint32),
-                 (state.view(np.uint32) ^ np.uint32(1 << 31))[:, None]], 1)
-        order, _passes = radix_order(words, self.threads)
-        ws = words[order]
-        fst = np.ones(N, bool)
-        fst[1:] = (ws[1:] != ws[:-1]).any(1)
-        # valid rows sort first: the first-of-run and overflow tests look
-        # at the first max(F, V) positions only
-        V = int(valid.sum())
-        assert not (ws[V:, 0] >> np.uint32(31 if self.route == "packed"
-                                            else 0) == 0).any()
-        vs = fst & (np.arange(N) < V)
-        vs[max(F, V):] = False
-        if self.route == "packed":
-            head = ws[:F, 0].astype(np.int64)
+            head = (words[order, 0] << 31 | words[order, 1])
             m = (head & ((1 << P) - 1)).astype(np.int32)[:, None]
             s = _i32(((head >> P) & ((1 << k.sb_bits) - 1)) + k.s_lo)
         else:
-            m, s = masks[order[:F]], state[order[:F]]
-        v = vs[:F]
-        ovf = bool(vs[F:].any())
-        if ovf and not fst[:F].all():
+            m, s = masks[order], state[order]
+        v = vs
+        if ovf and not vs.all():
             self.overflowed_with_dup_head = True
-        return (m, s, v, v & (order[:F] >= F)), ovf, 0
+        return (m, s, v, v & (order >= F)), ovf, 0
 
     # -- one key's steps ----------------------------------------------------
     def key_steps(self, x, c, wend):
@@ -472,7 +724,14 @@ def test_emulated_kernel_matches_the_eager_walk_and_jax(label):
     after every chunk, element for element, the eager walk's rounds and
     hash dedups, and the JAX package's carry."""
     jk, tk, steps, E, init = _kernels(label)
-    emu = Emu(tk, threads=64, window=7, seed=len(label))
+    # odd cases as the grid path runs a large frontier: bucket lists
+    # compacted down to 16 rows before blocks refine them, the selected
+    # rows sorted by radix passes in 3 tiles; even ones as one block ranks
+    # a small frontier
+    grid = len(label) % 2
+    emu = Emu(tk, threads=64, window=7, seed=len(label),
+              blocks=3 if grid else 1, local=16 if grid else K_LOCAL,
+              rank_max=0 if grid else None)
     ec = tuple(np.asarray(t)[None] for t in carry_to_numpy(
         tk.init_carry(init)))
     tc = tk.init_carry(init)
@@ -497,6 +756,111 @@ def test_emulated_kernel_matches_the_eager_walk_and_jax(label):
         # the sorted head kept duplicates (invalid rows) while a valid
         # first-of-run sat past F
         assert emu.overflowed_with_dup_head
+    assert (emu.pass_rows > 0) == (tk.route != "hash")
+
+
+# -- the sort routes' dedup alone: select-then-sort against the plain dedups
+
+def _dedup_rows(case, F, rng):
+    """(route, P, pack, valid, state, masks) of one dedup's N rows for a
+    case: old configurations first (rows [0, F)), candidates after; keys
+    drawn from a pool so runs of equal keys are common."""
+    lex = case.startswith("lex") or case == "lex-w2"
+    P = int(rng.integers(33, 65)) if case == "lex-w2" else \
+        int(rng.integers(5, 33)) if lex else int(rng.integers(3, 14))
+    W = (P + 31) // 32
+    sb = int(rng.integers(2, 31 - P)) if not lex else 64
+    s_lo = int(rng.integers(-1000, 1000))
+    N = int(rng.integers(1, F + 1)) if case == "n-le-f" else \
+        F * (1 + int(rng.integers(1, min(P, 6) + 1)))
+    pool = max(1, {"ties": F // 3, "every-digit": 2, "constant": F,
+                   "lex-w2": F // 2}.get(case, 4 * F))
+    if lex:
+        lo, hi = (-2 ** 31, 2 ** 31) if case in ("lex-w2", "lex-ties") \
+            else (-3, 4)
+        pstate = rng.integers(lo, hi, pool)
+    else:
+        pstate = s_lo + rng.integers(0, 2 ** sb, pool)
+    pmask = rng.integers(0, 2 ** 32, (pool, W), dtype=np.int64)
+    top = P - 32 * (W - 1)          # the last word's live bits
+    pmask[:, -1] &= (1 << top) - 1
+    if case == "every-digit":
+        # two keys that differ in the lowest bit only: the threshold's
+        # bucket narrows through every digit, then runs out in a tie
+        pstate[:] = pstate[0]
+        pmask[:] = pmask[0] & ~1
+        pmask[1, 0] |= 1
+    if case == "constant":
+        # every key the same but for its low mask byte: the digits above
+        # it are constant
+        pstate[:] = pstate[0]
+        pmask[:, 1:] = pmask[0, 1:]
+        pmask[:, 0] = (pmask[0, 0] & ~0xFF) | (pmask[:, 0] & 0xFF)
+    pick = rng.integers(0, pool, N)
+    state = pstate[pick].astype(np.int64)
+    masks = pmask[pick]
+    V = (int(rng.integers(0, F)) if case == "v-lt-f" else
+         F if case == "v-eq-f" else
+         int(rng.integers(F + 1, N + 1)) if case == "v-gt-f" else
+         0 if case == "all-invalid" else int(rng.integers(0, N + 1)))
+    V = min(V, N)
+    valid = np.zeros(N, bool)
+    valid[rng.choice(N, V, replace=False)] = True
+    if not lex:
+        # invalid rows carry any state (an illegal candidate's garbage)
+        junk = rng.integers(-2 ** 31, 2 ** 31, N)
+        state = np.where(valid, state, junk)
+    state = _i32(state)
+    masks = (masks & M32).astype(np.uint32).view(np.int32)
+    return ("lex" if lex else "packed"), P, None if lex else (s_lo, sb), \
+        valid, state, masks
+
+
+DEDUP_CASES = ["ties", "lex-ties", "v-lt-f", "v-eq-f", "v-gt-f",
+               "all-invalid", "n-le-f", "every-digit", "constant", "lex-w2"]
+
+
+@pytest.mark.parametrize("mode", ["block", "grid", "grid-passes"])
+@pytest.mark.parametrize("case", DEDUP_CASES)
+@settings(max_examples=12, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), F=st.integers(8, 64))
+def test_emulated_select_then_sort_equals_the_plain_dedup(case, mode, seed,
+                                                          F):
+    """The kernel's select-then-sort dedup (emulated: as one block runs it,
+    or as a grid of three blocks with bucket lists compacted down to 8
+    rows before the blocks refine them, the selected rows ranked or, for
+    a frontier too large to rank, sorted by radix passes in three tiles)
+    gives `SortKernel._dedup_packed` / `_dedup_lex`'s outputs for the
+    first min(N, F) positions: masks, states, valid, new and overflow."""
+    rng = np.random.default_rng(seed)
+    route, P, pack, valid, state, masks = _dedup_rows(case, F, rng)
+    N = len(valid)
+    tk = twgl.SortKernel("cas-register", F, P, pack, twgl.DEDUP_SORT, "cpu")
+    assert tk.route == route
+    origin = torch.arange(N) >= F
+    plain = tk._dedup_packed if route == "packed" else tk._dedup_lex
+    pm, ps, pv, pn, povf, _ = (t[0].numpy() for t in plain(
+        torch.from_numpy(masks)[None], torch.from_numpy(state)[None],
+        torch.from_numpy(valid)[None], origin))
+    s_lo = pack[0] if pack else 0
+    order, vs, ovf, rows, words = select_sort(
+        route, valid, state, masks, F, s_lo, P, threads=32,
+        blocks=1 if mode == "block" else 3,
+        local=K_LOCAL if mode == "block" else 8,
+        rank_max=0 if mode == "grid-passes" else None)
+    if route == "packed":
+        key = words[order, 0] << 31 | words[order, 1]
+        m = (key & ((1 << P) - 1)).astype(np.int32)[:, None]
+        s = _i32(((key >> P) & ((1 << pack[1]) - 1)) + s_lo)
+    else:
+        m, s = masks[order], state[order]
+    np.testing.assert_array_equal(m, pm)
+    np.testing.assert_array_equal(s, ps)
+    np.testing.assert_array_equal(vs, pv)
+    np.testing.assert_array_equal(vs & (order >= F), pn)
+    assert ovf == bool(povf)
+    # N <= F selects nothing: only the passes over the N rows read rows
+    assert N > F or rows % N == 0
 
 
 def test_hash_dedups_counted_from_rounds_and_invokes():
@@ -624,7 +988,7 @@ def test_walk_windows_around_emulated_launches(label, monkeypatch):
         launches.append(1)
         return tuple(torch.from_numpy(a) for a in (
             sc, masks, states, valid, slots, occ, rounds, inv)) + (
-            torch.zeros(2, dtype=torch.int64),)
+            torch.zeros(wgl_sortwalk.WORK, dtype=torch.int64),)
 
     monkeypatch.setattr(wgl_sortwalk, "launch", fake_launch)
     monkeypatch.setattr(wgl_sortwalk, "window", lambda F, P: 7)
