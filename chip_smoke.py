@@ -44,8 +44,12 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      headline, the adversarial and concurrency-11 histories forced
      dense, the hazelcast batch's four dense groups (batched), the dense
      stream's first three chunks and a rabbitmq-shaped mutex (S = 4,
-     P = 3), each with its final carry equal element for element and its
-     rounds equal; each walk's wall both ways with host syncs and
+     P = 3), each with its final carry equal element for element, its
+     rounds equal and its tier the expected one (a warp a key: the
+     headline, the mutex and the hazelcast groups up to P = 6; a block:
+     the groups at P = 8 and 10, the adversarial walk and the dense
+     stream; a thread-block cluster: the concurrency-11 walk); each
+     walk's wall both ways with host syncs and
      launches, and torch.profiler traces of the headline and the
      hazelcast batch's largest group (both ways on the profile prefix,
      K3 over the whole walk) for the device's busy share; then K3-sort
@@ -1607,7 +1611,9 @@ def phase_batch(dev, models, synth, wgl, wgl_dedup,
             f"{pr['wall_s']:.4f} s, device busy {pr['device_busy_s']:.4f} s "
             f"({100 * pr['busy_share']:.2f}%), {pr['kernel_launches']} "
             f"kernel launches ({pr['kernel_launches'] / BATCH_PROFILE_STEPS:.1f}"
-            f" per step); top {pr['top']}")
+            f" per step), {pr['h2d_copies']} host-to-device copies, of "
+            f"which {pr['h2d_copies'] - pr['k3_launches'] - pr['k3s_launches']}"
+            f" not a window's ends; top {pr['top']}")
     return out
 
 
@@ -1653,7 +1659,9 @@ def profile_walk(walk, n) -> dict:
     device time of every kernel in a torch.profiler trace of a second
     run (kernel durations are device-side, so the profiler's host
     overhead does not inflate them). Kernels run on one stream, so their
-    sum is the device's busy time. The durations are summed from the
+    sum is the device's busy time. `kernel_launches` counts every device
+    operation (kernels, copies, memsets), `h2d_copies` the copies from
+    the host. The durations are summed from the
     trace's raw events: `key_averages()` builds an event tree that costs
     minutes for the sort walk's million events."""
     from torch.autograd import DeviceType
@@ -1682,6 +1690,8 @@ def profile_walk(walk, n) -> dict:
     return {"wall_s": wall, "device_busy_s": busy_s,
             "busy_share": busy_s / wall,
             "kernel_launches": sum(c for c, _ns in by_name.values()),
+            "h2d_copies": sum(c for name, (c, _ns) in by_name.items()
+                              if "HtoD" in name),
             "k3_launches": sum(c for c, _ns in k3),
             "k3_ms": sum(ns for _c, ns in k3) / 1e6,
             "k3s_launches": sum(c for c, _ns in k3s),
@@ -1692,30 +1702,28 @@ def profile_walk(walk, n) -> dict:
 def k3_bound(S, P, keys, launches, steps, completions,
              pair_rounds) -> tuple[float, str]:
     """The least time an H100 could take for a K3 walk on these inputs,
-    and what bounds it: the larger of bytes over the HBM rate and
-    operations over the fp32 rate (the data sheet gives no INT32 rate; an
-    SM issues no more INT32 than fp32 operations a clock).
+    and what bounds it: the larger of bytes over the HBM rate and its
+    integer operations over the INT32 rate.
 
     Bytes, each input read once and each output written once: at each
-    launch every key's carry in and out (table S x 2^P bytes, e, att,
-    count and max_count, three int32 slot words and an occupancy byte a
-    slot) and its slots' next-state rows (int16 P x S), and at each step
-    walked its row (5 int32) and next-state row (int16 S). The table
+    launch every key's carry in and out (table S x 2^P bool bytes, e,
+    att, count and max_count, three int32 slot words and an occupancy
+    byte a slot), and at each step walked its row (5 int32). The table
     stays on chip between passes, so its passes are no bytes here. Left
-    out, which keeps this a floor: the per-step round maxima (4 bytes a
+    out, which keeps this a floor: the per-step round maxima (8 bytes a
     window step) and the launch's scalar sums.
 
-    Operations, 32-bit words of four cells each: a round ORs half a row
-    into its row for each listed (source state, slot) pair, so the walk's
-    pair rounds (K3 counts them: `wgl_walk.PAIR_ROUNDS`) times 2^P / 8
-    ORs; each step's count pass a popcount a word, and each completion a
-    gather a word. For a batch, `steps`, `completions` and `pair_rounds`
-    sum over the keys."""
+    Operations, counted by the cells they cover whatever the layout, 32
+    cells a 32-bit operation: a round ORs half a row into its row for
+    each listed (source state, slot) pair, so the walk's pair rounds (K3
+    counts them: `wgl_walk.PAIR_ROUNDS`) times 2^P / 2 cells; each step's
+    count S x 2^P cells, and each completion's gather as many. For a
+    batch, `steps`, `completions` and `pair_rounds` sum over the keys."""
     C = 1 << P
-    carry = 2 * (S * C + 16 + 13 * P) + 2 * P * S
-    nbytes = launches * keys * carry + steps * (20 + 2 * S)
-    ops = pair_rounds * C / 8 + (steps + completions) * S * C / 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    carry = 2 * (S * C + 16 + 13 * P)
+    nbytes = launches * keys * carry + steps * 20
+    ops = (pair_rounds * C / 2 + (steps + completions) * S * C) / 32
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1760,8 +1768,10 @@ def walk_pair(k3, ke, label, walk3, walke, carry_to_numpy,
     ws = walk_syncs()
 
     def work():
-        return {"pair_rounds": wgl_walk.PAIR_ROUNDS} if mod is wgl_walk \
-            else k3s_work()
+        if mod is not wgl_walk:
+            return k3s_work()
+        return {"pair_rounds": wgl_walk.PAIR_ROUNDS,
+                **{f"tier_{t}": n for t, n in wgl_walk.TIER_LAUNCHES.items()}}
 
     def timed(fn, k):
         r0, d0, s0, l0 = k.rounds, k.dedups, k.syncs, mod.LAUNCHES
@@ -1890,24 +1900,31 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
     adversarial and at-cap histories, the four dense groups of the
     hazelcast batch, the dense stream's first three chunks and a
     rabbitmq-shaped mutex, each walked both ways with its carry equal
-    element for element and its rounds equal, each wall timed both ways
-    with host syncs and launches; torch.profiler traces of the headline
+    element for element, its rounds equal and K3's tier the expected one
+    (`wgl_walk.TIERS`), each wall timed both ways with host syncs and
+    launches; torch.profiler traces of the headline
     and of the hazelcast batch's largest group, both ways on the profile
     prefix and K3 over the whole walk, for the card's busy share."""
+    from jepsen_tpu_torch.checker import wgl_walk
     reg = models.cas_register()
     out = {"walks": {}, "profiles": {}}
 
-    def record(label, row, S, P, steps, completions):
+    def record(label, row, S, P, steps, completions, want_tier):
         bound_ms, bound_by = k3_bound(
             S, P, row.get("keys", 1), row["k3_launches"], steps,
             completions, row["pair_rounds"])
+        tiers = {t for t in wgl_walk.TIERS if row.pop(f"tier_{t}")}
+        if tiers != {want_tier} or wgl_walk.tier(
+                row.get("keys", 1), S, P) != want_tier:
+            raise AssertionError(f"K3 {label}: walked on {tiers}, not on "
+                                 f"the {want_tier} tier")
         row.update(S=S, P=P, steps=steps, completions=completions,
                    launches_per_step=row["k3_launches"] / max(steps, 1),
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, tier=want_tier)
         row.pop("carry")
         out["walks"][label] = row
-        log(f"K3 {label} (S={S}, P={P}, {steps} steps): K3 "
-            f"{row['k3_wall_s']:.4f} s, {row['k3_syncs']} host syncs, "
+        log(f"K3 {label} (S={S}, P={P}, {steps} steps, {want_tier} tier): "
+            f"K3 {row['k3_wall_s']:.4f} s, {row['k3_syncs']} host syncs, "
             f"{row['k3_launches']} launches "
             f"({row['launches_per_step']:.5f} a step); eager "
             f"{row['eager_wall_s']:.4f} s, {row['eager_syncs']} host "
@@ -1926,13 +1943,13 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
 
     # one key: the main path's dense histories and a rabbitmq-shaped mutex
     adv = synth.adversarial_register_history(**ADVERSARIAL)
-    singles = [("headline", reg, head, {}),
-               ("adversarial-dense", reg, adv, {"engine": "dense"}),
+    singles = [("headline", reg, head, {}, "warp"),
+               ("adversarial-dense", reg, adv, {"engine": "dense"}, "block"),
                ("at-cap-dense", reg, synth.adversarial_register_history(
-                   **AT_CAP), {"engine": "dense"}),
+                   **AT_CAP), {"engine": "dense"}, "cluster"),
                ("rabbitmq-mutex", models.mutex(),
-                mutex_history(K3_MUTEX_OPS), {})]
-    for label, model, hist, kw in singles:
+                mutex_history(K3_MUTEX_OPS), {}, "warp")]
+    for label, model, hist, kw, want_tier in singles:
         pl = wgl.plan(model, hist, **kw)
         _lo, S, P = pl.decision.dense
         steps = wgl.build_steps(pl.ops, pl.slots)
@@ -1943,7 +1960,8 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
             lambda k: k.check_chunk(xs, steps.n, k.init_carry(init)),
             lambda k: k.run_range_eager(xs, steps.n, k.init_carry(init)),
             carry_to_numpy)
-        record(label, row, S, P, *done_steps(steps.x, 0, int(row["carry"][0])))
+        record(label, row, S, P, *done_steps(steps.x, 0, int(row["carry"][0])),
+               want_tier)
     if out["walks"]["rabbitmq-mutex"]["S"] != 4 \
             or out["walks"]["rabbitmq-mutex"]["P"] != 3:
         raise AssertionError(f"mutex: {out['walks']['rabbitmq-mutex']}")
@@ -1959,8 +1977,10 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
                                               k.init_carry_batch(init)),
             carry_to_numpy)
         row["keys"] = len(ns)
+        # a warp a key up to 32 words (8 x 2^6 cells), a block above
         record(f"hazelcast P={P} ({len(ns)} rows)", row, k3.S, P,
-               *done_steps(xs.host, 0, row["carry"][0]))
+               *done_steps(xs.host, 0, row["carry"][0]),
+               "warp" if P <= 6 else "block")
 
     # the dense stream's first three chunks, e rebased per chunk
     (s_lo, S, P), chunks = stream_chunks(wgl, streaming, reg, adv, dev,
@@ -1986,7 +2006,7 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
     steps = sum(n for _x, n, _c in chunks)
     comp = sum(int((x[:n, 0] != 0).sum()) for x, n, _c in chunks)
     record(f"dense stream, first {len(chunks)} chunks", row, S, P, steps,
-           comp)
+           comp, "block")
 
     # where the time goes, both ways
     for label, walk3, walke, n_prefix, full in (
@@ -2007,9 +2027,24 @@ def phase_k3(dev, models, synth, wgl, streaming, carry_to_numpy,
                 f"{pr['wall_s']:.4f} s, device busy "
                 f"{pr['device_busy_s']:.4f} s "
                 f"({100 * pr['busy_share']:.2f}%), "
-                f"{pr['kernel_launches']} kernel launches, K3 "
+                f"{pr['kernel_launches']} kernel launches "
+                f"({pr['h2d_copies']} from the host), K3 "
                 f"{pr['k3_launches']} launches in {pr['k3_ms']:.3f} ms; "
                 f"top {pr['top'][:3]}")
+    # a K3 window costs the host a handful of device operations (the
+    # window ends' copy, the counts buffer, the launch, the fetch), and a
+    # batch's initial carries one copy an element (nine)
+    hp = out["profiles"]["headline"]["k3_full"]
+    per_launch = hp["kernel_launches"] / max(hp["k3_launches"], 1)
+    gp = out["profiles"]["hazelcast largest group"]["k3_full"]
+    carry_copies = gp["h2d_copies"] - gp["k3_launches"]
+    log(f"K3 device operations a launch on the headline's whole walk: "
+        f"{per_launch:.2f}; the hazelcast largest group's initial-carry "
+        f"copies: {carry_copies}")
+    if per_launch > 8 or carry_copies > 9:
+        raise AssertionError(f"K3: {per_launch:.2f} device operations a "
+                             f"launch, {carry_copies} initial-carry copies")
+    out["ops_per_launch"], out["carry_copies"] = per_launch, carry_copies
     return out
 
 

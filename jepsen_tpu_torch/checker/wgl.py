@@ -543,10 +543,10 @@ class _Engine:
         key has a step to walk and `cancel` has not fired, `launch(wend,
         n)` launches one window (wend int64 (B,): each key's window end,
         at most `window` steps on; n: the longest window) and returns the
-        new e and count tensors and an int64 tensor of its counts, all
-        read in one guarded fetch, whose counts go to `tally`. False when
-        no key had a step to walk (the caller keeps its carry, as the
-        eager walk does)."""
+        new e and count tensors and an int64 tensor of its counts, or one
+        int64 tensor holding all three in that order, read in one guarded
+        fetch, whose counts go to `tally`. False when no key had a step
+        to walk (the caller keeps its carry, as the eager walk does)."""
         e_h, count_h = (np.asarray(v, np.int64).reshape(B) for v in
                         self.fetch(torch.stack([e, count])))
         stops = np.minimum(np.asarray(stops, np.int64).reshape(B), T)
@@ -555,9 +555,12 @@ class _Engine:
             return False
         while not self._cancelled():
             wend = np.where(active, np.minimum(stops, e_h + window), e_h)
-            e, count, counts = launch(wend, int((wend - e_h).max()))
-            got = np.asarray(self.fetch(torch.cat([
-                e.to(torch.int64), count.to(torch.int64), counts])), np.int64)
+            res = launch(wend, int((wend - e_h).max()))
+            if not isinstance(res, torch.Tensor):
+                e, count, counts = res
+                res = torch.cat([e.to(torch.int64), count.to(torch.int64),
+                                 counts])
+            got = np.asarray(self.fetch(res), np.int64)
             e_h, count_h = got[:B], got[B:2 * B]
             tally(got[2 * B:])
             active = (e_h < stops) & (count_h > 0)
@@ -610,8 +613,12 @@ class _Engine:
     # steps whether any key completes or invokes at this step.
 
     def init_carry_batch(self, init_states) -> tuple:
-        carries = [self.init_carry(int(s)) for s in init_states]
-        return tuple(torch.stack(c) for c in zip(*carries))
+        """The B keys' initial carries, each element with a leading B:
+        built on the host (`_init_carry_host`) and copied to the device
+        once an element, equal element for element to the stacked
+        `init_carry` of each key."""
+        return tuple(_h2d(a, self.device) for a in self._init_carry_host(
+            np.asarray([int(s) for s in init_states], np.int64)))
 
     def digest_batch(self, carry) -> torch.Tensor:
         """One carry digest per key, as an unfetched int32 (B,) tensor."""
@@ -688,6 +695,7 @@ class DenseKernel(_Engine):
                  device):
         if not 0 <= P <= 30:
             raise ValueError(f"dense engine needs 0 <= P <= 30, got {P}")
+        self.model_name = model_name
         self.step = DEVICE_MODELS[model_name].step
         self.s_lo, self.S, self.P, self.C = s_lo, S, P, 1 << P
         self.device = torch.device(device)
@@ -715,6 +723,16 @@ class DenseKernel(_Engine):
                 torch.full((P,), NIL, dtype=torch.int32, device=dev),
                 torch.zeros(P, dtype=torch.bool, device=dev),
                 self._i32(0), self._i32(1), self._i32(1))
+
+    def _init_carry_host(self, init_states: np.ndarray) -> tuple:
+        """`init_carry` of each of B initial states, stacked, as numpy."""
+        B, P = len(init_states), self.P
+        table = np.zeros((B, self.S, self.C), bool)
+        table[np.arange(B), init_states - self.s_lo, 0] = True
+        zeros, ones = np.zeros(B, np.int32), np.ones(B, np.int32)
+        nil = np.full((B, P), NIL, np.int32)
+        return (zeros, table, np.zeros((B, P), np.int32), nil, nil.copy(),
+                np.zeros((B, P), bool), zeros.copy(), ones, ones.copy())
 
     def summarize(self, carry) -> tuple:
         """(ok, death, overflow, max_count, att) on the host. death is
@@ -919,7 +937,9 @@ class DenseKernel(_Engine):
     def _walk_k3(self, x: torch.Tensor, stops, carry):
         """K3 window after window (`_walk_windows`) over a batched carry
         and its (B, T, 5) step matrix, up to `wgl_walk.WINDOW` steps of
-        every key per launch; None when no key has a step to walk."""
+        every key per launch; None when no key has a step to walk. A
+        window is one copy of its ends, one zeroed counts buffer, the
+        launch (which computes its transitions itself) and one fetch."""
         B, T = x.shape[0], x.shape[1]
         e, table, sf, sa, sb, occ, att, count, maxc = carry
         dev = table.device
@@ -930,27 +950,20 @@ class DenseKernel(_Engine):
             table = table.clone()
         slots = torch.stack([sf, sa, sb]).contiguous()
         occ = occ.contiguous()
-        keys = torch.arange(B, device=dev)[:, None]
-        steps = torch.arange(wgl_walk.WINDOW, device=dev)[None, :]
 
         def launch(wend, n):
             nonlocal sc, table, slots, occ
-            rows = x[keys, (sc[0].to(torch.int64)[:, None]
-                            + steps[:, :n]).clamp_(max=T - 1)]  # (B, n, 5)
-            itr = wgl_walk.transition_rows(self.step, self.s_lo, self.S,
-                                           rows[..., 2], rows[..., 3],
-                                           rows[..., 4])
-            str0 = wgl_walk.transition_rows(self.step, self.s_lo, self.S,
-                                            slots[0], slots[1], slots[2])
-            sc, table, slots, occ, rounds, pairs = wgl_walk.launch(
-                x, _h2d(wend.astype(np.int32), dev), itr, str0, sc, table,
-                slots, occ, self.use_attest)
-            return sc[0], sc[2], torch.cat([
-                rounds.sum(dtype=torch.int64)[None], pairs])
+            sc, table, slots, occ, out = wgl_walk.launch(
+                x, _h2d(wend.astype(np.int32), dev), sc, table, slots, occ,
+                model=self.model_name, s_lo=self.s_lo,
+                attest=self.use_attest, steps=n)
+            return out
 
         def tally(got):
-            self.rounds += int(got[0])
-            wgl_walk.count_rounds(int(got[0]), int(got[1]))
+            # got: the pair rounds, then each window step's rounds
+            rounds = int(got[1:].sum())
+            self.rounds += rounds
+            wgl_walk.count_rounds(rounds, int(got[0]))
 
         if not self._walk_windows(e, count, stops, B, T, wgl_walk.WINDOW,
                                   launch, tally):
@@ -1050,6 +1063,19 @@ class SortKernel(_Engine):
                 torch.zeros(P, dtype=torch.bool, device=dev),
                 torch.tensor(False, device=dev),
                 self._i32(0), self._i32(1), self._i32(1))
+
+    def _init_carry_host(self, init_states: np.ndarray) -> tuple:
+        """`init_carry` of each of B initial states, stacked, as numpy."""
+        B, F, P = len(init_states), self.F, self.P
+        valid = np.zeros((B, F), bool)
+        valid[:, 0] = True
+        zeros, ones = np.zeros(B, np.int32), np.ones(B, np.int32)
+        nil = np.full((B, P), NIL, np.int32)
+        return (zeros, np.zeros((B, F, self.W), np.int32),
+                np.repeat(init_states.astype(np.int32)[:, None], F, 1),
+                valid, np.zeros((B, P), np.int32), nil, nil.copy(),
+                np.zeros((B, P), bool), np.zeros(B, bool), zeros.copy(),
+                ones, ones.copy())
 
     def summarize(self, carry) -> tuple:
         """(ok, death, overflow, max_count, att) on the host; death is the

@@ -41,7 +41,7 @@
 //   * slot p < 4: the source columns lie in the same chunk j of the
 //     source row. A byte butterfly on the four words gives "byte i takes
 //     byte i ^ 2^p where bit p of i is set, else 0", the TPU kernel's lane
-//     roll plus iota mask (closure_round.cuh, which K3 shares).
+//     roll plus iota mask (closure_round.cuh).
 // 0/1 bytes stay 0/1 under OR and AND, so there is no per-cell branch and
 // no early exit: every lane of a warp runs the same entry list.
 //

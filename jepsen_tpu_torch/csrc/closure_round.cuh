@@ -1,6 +1,4 @@
-// The closure round's chunk arithmetic, shared by K1 (closure_round.cu)
-// and K3 (dense_walk.cu), which runs the same Jacobi round inside its
-// step walk.
+// The closure round's chunk arithmetic, for K1 (closure_round.cu).
 //
 // A 16-byte chunk (uint4) of a table row holds columns [16j, 16j + 16):
 // byte i of 32-bit word k is column 16j + 4k + i (little-endian), so

@@ -1,4 +1,5 @@
-// The six device models' steps, for K3-sort (sort_walk.cu).
+// The six device models' steps, for K3-sort (sort_walk.cu) and K3
+// (dense_walk.cu).
 //
 // Each is a line-for-line transcription in int32 of the torch step of
 // jepsen_tpu_torch/checker/wgl.py (`_register_step`, `_mutex_step`,

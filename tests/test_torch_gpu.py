@@ -700,8 +700,8 @@ def test_cuda_service_four_streams_match_their_solos():
 
 def _k3_case(name):
     """(model, history, plan options) of a K3 walk: the three models of
-    the suites' single-object checks, and forced-dense tables that take
-    the kernel's grid path (P = 14, 19)."""
+    the suites' single-object checks (the warp tier), and forced-dense
+    tables on the block tier (P = 14) and on a cluster (P = 19)."""
     import chip_smoke
     if name == "register":
         return models.register(), synth.register_history(
@@ -727,6 +727,25 @@ def _same_carry(a, b, where):
         np.testing.assert_array_equal(u, v, err_msg=f"{where} element {i}")
 
 
+# where each walks (`wgl_walk.WARP_MAX_WORDS`: a warp up to a word a lane):
+# the cas register's 8 x 2^7 and the mutex's 4 x 2^3 cells on a warp, the
+# 8 x 2^9 registers, 8 x 2^14 on a block, 8 x 2^19 on a cluster
+_K3_TIER = {"register": "block", "cas-register": "warp",
+            "cas-register-dies": "block", "mutex": "warp",
+            "adversarial-14": "block", "at-cap-19": "cluster"}
+
+
+def _tier_launches():
+    return dict(wgl_walk.TIER_LAUNCHES)
+
+
+def _took(before, tier):
+    """Every K3 launch since `before` walked on `tier`."""
+    now = _tier_launches()
+    moved = {t: now[t] - before[t] for t in now if now[t] != before[t]}
+    assert set(moved) == {tier}, moved
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["register", "cas-register",
                                   "cas-register-dies", "mutex",
@@ -736,7 +755,8 @@ def test_k3_walk_matches_the_eager_walk(name, monkeypatch):
     element for element after every chunk (a carry resuming across
     calls, and across K3's 1,024-step windows inside one call), the
     rounds are exact, and so are the pair rounds K3 reports (the sum of
-    each eager round's listed transitions); K1 never launches."""
+    each eager round's listed transitions); K1 never launches; and the
+    walk took its tier (`_K3_TIER`)."""
     _need_cuda()
     listed = []
     real_round = wgl.closure_round
@@ -755,6 +775,8 @@ def test_k3_walk_matches_the_eager_walk(name, monkeypatch):
     init = model.device_state()
     c3, ce = k3.init_carry(init), ke.init_carry(init)
     launches, pairs = wgl_walk.LAUNCHES, wgl_walk.PAIR_ROUNDS
+    tiers = _tier_launches()
+    assert wgl_walk.tier(1, k3.S, k3.P) == _K3_TIER[name]
     for stop in (steps.n // 3, steps.n):
         k1 = wgl_closure.LAUNCHES
         c3 = k3.check_chunk(xs, stop, c3)
@@ -765,6 +787,7 @@ def test_k3_walk_matches_the_eager_walk(name, monkeypatch):
     assert k3.rounds == ke.rounds == len(listed) > 0
     assert wgl_walk.PAIR_ROUNDS - pairs == sum(listed)
     assert wgl_walk.LAUNCHES > launches
+    _took(tiers, _K3_TIER[name])
     # a read to start each call, one at each window's end
     assert k3.syncs == 2 + wgl_walk.LAUNCHES - launches
     assert k3.syncs < ke.syncs
@@ -774,17 +797,19 @@ def test_k3_walk_matches_the_eager_walk(name, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,conc,n", [(64, 4, 300), (3, 6, 200)])
+@pytest.mark.parametrize("B,conc,n", [(64, 4, 300), (3, 6, 200),
+                                      (2, 11, 200), (48, 3, 300)])
 def test_k3_batched_walk_matches_the_eager_lockstep_walk(B, conc, n):
     """check_chunk_batch on CUDA is one K3 launch per window for every
     key: keys of different stops, some dying mid-walk, each with the
-    eager lockstep walk's carry and the same round total. (64, P <= 10)
-    keeps the tables in shared memory; (3, P = 14) takes the global
-    path."""
+    eager lockstep walk's carry and the same round total. (48, 8 x 2^7)
+    walks a warp a key, four keys a block; (64, 8 x 2^9) a block a key;
+    (3, P = 14), which took an off-chip path before the tiers, a block a
+    key; (2, P = 19) a grid of two clusters."""
     _need_cuda()
     model = models.cas_register()
-    if conc == 4:
-        hists = [synth.register_history(n + 13 * (i % 9), concurrency=4,
+    if conc <= 4:
+        hists = [synth.register_history(n + 13 * (i % 9), concurrency=conc,
                                         values=5, crash_rate=0.005,
                                         seed=1000 + i) for i in range(B)]
         for i in (3, 17, 40):
@@ -805,6 +830,7 @@ def test_k3_batched_walk_matches_the_eager_lockstep_walk(B, conc, n):
     init = [model.device_state()] * B
     c3, ce = k3.init_carry_batch(init), ke.init_carry_batch(init)
     launches = wgl_walk.LAUNCHES
+    tiers = _tier_launches()
     for stop in (int(ns.max()) // 2, int(ns.max())):
         st = np.minimum(ns, stop)
         c3 = k3.check_chunk_batch(xs, st, c3)
@@ -813,7 +839,8 @@ def test_k3_batched_walk_matches_the_eager_lockstep_walk(B, conc, n):
         _same_carry(c3, ce, f"batch to {stop}")
     assert k3.rounds == ke.rounds > 0
     assert k3.syncs == 2 + wgl_walk.LAUNCHES - launches
-    if conc == 4:
+    _took(tiers, {3: "warp", 4: "block", 6: "block", 11: "cluster"}[conc])
+    if conc <= 4:
         assert (carry_to_numpy(c3)[7] == 0).sum() == 3
     # a block of keys with no step to walk (a sharded rank's padding)
     # comes back as it was, with no launch and one read
@@ -823,16 +850,23 @@ def test_k3_batched_walk_matches_the_eager_lockstep_walk(B, conc, n):
 
 
 @pytest.mark.gpu
-def test_k3_stream_chunks_resume_like_the_eager_walk():
+@pytest.mark.parametrize("slots", [None, 16])
+def test_k3_stream_chunks_resume_like_the_eager_walk(slots):
     """check_stream_chunk on CUDA (K3, e rebased per chunk) against the
-    eager walk over the same chunks."""
+    eager walk over the same chunks: at the history's own slots, and at
+    the dense stream's 16 (P = 16, the block tier)."""
     _need_cuda()
     h = synth.adversarial_register_history(600, concurrency=5,
                                            crashed_writes=6,
                                            front_load=True, seed=81)
     pl = wgl.plan(models.cas_register(), h, engine="dense")
-    k3, ke = pl.kernel("cuda", 256), pl.kernel("cuda", 256)
-    steps = wgl.build_steps(pl.ops, pl.slots)
+    if slots is None:
+        k3, ke = pl.kernel("cuda", 256), pl.kernel("cuda", 256)
+    else:   # the stream's table: its slots, whatever the history needs
+        s_lo, S, _p = pl.decision.dense
+        k3, ke = (wgl.DenseKernel(pl.model_name, s_lo, S, slots, "cuda")
+                  for _ in range(2))
+    steps = wgl.build_steps(pl.ops, k3.P)
     init = models.cas_register().device_state()
     c3, ce = k3.init_carry(init), ke.init_carry(init)
     chunk = 256
@@ -851,6 +885,8 @@ def test_k3_stream_chunks_resume_like_the_eager_walk():
     assert k3.rounds == ke.rounds > 0
     assert k3.syncs == len(range(0, steps.n, chunk)) + (
         wgl_walk.LAUNCHES - launches)
+    if slots == 16:
+        assert k3.P == 16 and wgl_walk.tier(1, k3.S, 16) == "block"
 
 
 @pytest.mark.gpu
@@ -881,12 +917,47 @@ def test_k3_refused_launch_raises_and_does_not_fall_back(monkeypatch):
     with pytest.raises(ValueError):      # a table on another device
         wgl_walk.launch(
             xs.dev[None], torch.zeros(1, dtype=torch.int32, device="cuda"),
-            torch.zeros((1, 4, k.S), dtype=torch.int16, device="cuda"),
-            torch.zeros((1, k.P, k.S), dtype=torch.int16, device="cuda"),
             torch.zeros((4, 1), dtype=torch.int32, device="cuda"),
             carry[1][None].cpu(),
             torch.zeros((3, 1, k.P), dtype=torch.int32, device="cuda"),
-            carry[5][None], True)
+            carry[5][None], model="cas-register", s_lo=k.s_lo, attest=True,
+            steps=4)
+
+
+@pytest.mark.gpu
+def test_k3_refused_cluster_launch_raises_and_does_not_fall_back(
+        monkeypatch):
+    """A cluster the card refuses (the C entry's error code, here set in
+    its place) raises KernelLaunchError from the walk: no launch is
+    counted, and nothing falls back to the eager walk, another tier or
+    the CPU."""
+    _need_cuda()
+    model, hist, kw = _k3_case("at-cap-19")
+    pl = wgl.plan(model, hist, **kw)
+    k = pl.kernel("cuda", 256)
+    assert wgl_walk.tier(1, k.S, k.P) == "cluster"
+    steps = wgl.build_steps(pl.ops, pl.slots)
+    xs = wgl.stage_steps(steps.x, "cuda")
+    carry = k.init_carry(model.device_state())
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("fell back to the eager walk")
+
+    real_fn, plan_fn, err = wgl_walk._kernel()
+    calls = []
+
+    def refused(*a):
+        calls.append(a)
+        return 701   # cudaErrorLaunchOutOfResources: the cluster won't fit
+
+    monkeypatch.setattr(wgl.DenseKernel, "run_range_eager", no_fallback)
+    monkeypatch.setattr(wgl_walk, "_kernel", lambda: (refused, plan_fn, err))
+    before, tiers = wgl_walk.LAUNCHES, _tier_launches()
+    with pytest.raises(_platform.KernelLaunchError, match="701"):
+        k.check_chunk(xs, steps.n, carry)
+    assert len(calls) == 1 and wgl_walk.LAUNCHES == before
+    assert _tier_launches() == tiers
+    assert real_fn is not refused
 
 
 # -- K3-sort: the sort step walk against the eager walk on the card -----------
