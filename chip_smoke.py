@@ -84,14 +84,23 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      worker process from the end of phase 1 on), and trace
      the first 300 lockstep steps of each batch's largest group;
   7. the Elle phase: the batched SCC classifier on random 0/1 buckets
-     (e = 8 to 1,024) against its CPU path and its numpy mirror, timed;
-     the north-star list-append history (100,000 txns), valid with no
-     classifier call, then with 64 injected G1c cycles, equal to the CPU
-     path's result; the 10,000-txn rw-register history, plain and with
-     the realtime and process graphs; three disjoint 4,000-node rings
-     (G0, G-single, G2-item) in one 4,096-wide bucket, timed beside its
-     bound, and 1,000-node rings against the CPU path; the G1c history
-     again under an injected OOM (one retry, the same result);
+     (e = 8 to 2,048) through K4 (one K4-small launch a bucket up to
+     e = 256, K4-product's chain of bf16 tensor-core squarings above)
+     against its CPU path, its numpy mirror and its plain chain on the
+     card, every residue 0, K4 and the plain chain timed in turns (both
+     K4 kernels at e = 256 and 512), the plain chain's device operations
+     from a profiler trace, torch.bmm in bf16 of one product (the
+     library yardstick) and the bound; one K4-product squaring of the
+     rings' (4, 4,096) stack against the plain step; then, with K4's
+     launch counts set to 0 just before and read just after (both K4
+     kernels must launch): the north-star list-append history (100,000
+     txns), valid with no classifier call, then with 64 injected G1c
+     cycles, equal to the CPU path's result; the 10,000-txn rw-register
+     history, plain and with the realtime and process graphs; three
+     disjoint 4,000-node rings (G0, G-single, G2-item) in one 4,096-wide
+     bucket, K4 and the plain chain timed beside the bound, and
+     1,000-node rings against the CPU path; the G1c history again under
+     an injected OOM (one retry, the same result);
   8. the streaming-and-tier phase, five runs at full size: the
      adversarial history streamed on the dense engine (16 slots, K3 at
      (8, 16)); a register history with a phantom read streamed op by op
@@ -127,9 +136,10 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      phase 6's verdicts, the JAX package's group plan, K3 launched),
      of its counter batch (K3-sort launched) and of the hazelcast batch again
      under an injected OOM (the split), list_append.check of phase 7's
-     G1c history over the mesh (equal to phase 7's result), and the
-     closure of a 4,096-node ring with and without the mesh, every
-     collective on CUDA tensors; then four gloo ranks sharing the card,
+     G1c history over the mesh (equal to phase 7's result, classified
+     by K4-small), and the closure of a 4,096-node ring with and without
+     the mesh (12 K4-product launches each), every collective on CUDA
+     tensors; then four gloo ranks sharing the card,
      each building both kernels afresh into one directory at once and
      walking its block of the hazelcast batch through K3 (every rank's
      result equal to the one-rank run's); dryrun_multichip(4) on the
@@ -168,9 +178,9 @@ the CUDA toolkit. Phases, in order; any failure raises and exits non-zero:
      and then (one version back); the monotonic run must end invalid
      with G-single-realtime and the sequential one with
      G-single-process, each after at least one classifier call on the
-     card and none of K1, K2 or K3, with the classifier's call count and
-     every kernel's launch count set to 0 just before each run and read
-     just after; each workload result is held, whole, against the CPU
+     card (a K4 launch a bucket) and none of K1, K2 or K3, with the
+     classifier's call count and every kernel's launch count set to 0
+     just before each run and read just after; each workload result is held, whole, against the CPU
      path's check of the run's stored history in a worker process;
  14. the suites: the etcd suite's register test map (5 nodes,
      concurrency 10, 11,000 invocations at 500 ops per key, the
@@ -247,6 +257,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # outside the tensor cores, FMA = 2 ops
+BF16_OPS_PER_S = 989e12         # dense, on the tensor cores
 # 32-bit integer operations (the data sheet gives no rate): 132 SMs of 64
 # INT32 lanes each (NVIDIA's H100 architecture whitepaper) at the 1.98 GHz
 # that the float32 peak's 132 x 128 lanes x 2 ops imply
@@ -345,6 +356,11 @@ K2_MATRIX = [(512, 256, "stage"), (2304, 256, "stage"),
 # bench sections 3_elle_wr_10k and addgraphs_wr_10k); three disjoint
 # rings per size (a pure ww ring, one rw edge, two rw edges)
 ELLE_BUCKETS = [(8, 64), (64, 16), (256, 8), (1024, 2)]
+# K4 is held against the plain chain at ELLE_BUCKETS and on both
+# sides of K4-small's line (k4.SMALL_MAX_E = 256)
+ELLE_K4_BUCKETS = ELLE_BUCKETS + [(512, 4), (2048, 1)]
+# one K4-product squaring timed alone, at the 4,000-node rings' bucket
+ELLE_SQUARING = (4, 4096)
 ELLE_APPEND_TXNS, ELLE_G1C = 100_000, 64
 ELLE_WR_TXNS = 10_000
 ELLE_RING, ELLE_RING_SMALL = 4_000, 1_000
@@ -606,6 +622,9 @@ def zero_launches() -> None:
     the walk kernels ran, to 0."""
     from jepsen_tpu_torch.checker import (wgl_closure, wgl_dedup,
                                           wgl_sortwalk, wgl_walk)
+    from jepsen_tpu_torch.checker.elle import k4
+    k4.LAUNCHES = dict.fromkeys(k4.KERNELS, 0)
+    k4.HELPER_LAUNCHES = k4.MEMSETS = 0
     wgl_closure.LAUNCHES = wgl_dedup.LAUNCHES = 0
     wgl_walk.LAUNCHES = wgl_walk.ROUNDS = 0
     wgl_sortwalk.LAUNCHES = wgl_sortwalk.ROUNDS = wgl_sortwalk.DEDUPS = 0
@@ -617,18 +636,40 @@ def zero_launches() -> None:
 def launch_counts() -> dict:
     """The launch counts since `zero_launches`: K1's and K2's, K3's (the
     dense walk) with the closure rounds it ran, which stand for the dense
-    walks' rounds (K1's launches before K3 took the walk), and K3-sort's
+    walks' rounds (K1's launches before K3 took the walk), K3-sort's
     (the sort walk) with the stage-B rounds and hash dedups it ran, which
     stand for the sort walks' (K2's launches before K3-sort took the
-    walk)."""
+    walk), and K4's (the Elle classifier and closure: K4-small,
+    K4-product, the product chain's helpers and its workspace's zero
+    fills)."""
     from jepsen_tpu_torch.checker import (wgl_closure, wgl_dedup,
                                           wgl_sortwalk, wgl_walk)
-    return {"k1_launches": wgl_closure.LAUNCHES,
+    from jepsen_tpu_torch.checker.elle import k4
+    return {"k4_small_launches": k4.LAUNCHES["small"],
+            "k4_product_launches": k4.LAUNCHES["product"],
+            "k4_helper_launches": k4.HELPER_LAUNCHES,
+            "k4_memsets": k4.MEMSETS,
+            "k1_launches": wgl_closure.LAUNCHES,
             "k2_launches": wgl_dedup.LAUNCHES,
             "k3_launches": wgl_walk.LAUNCHES, "k3_rounds": wgl_walk.ROUNDS,
             "k3s_launches": wgl_sortwalk.LAUNCHES,
             "k3s_rounds": wgl_sortwalk.ROUNDS,
             "k3s_dedups": wgl_sortwalk.DEDUPS}
+
+
+class K4Uncounted:
+    """Launches inside it (K4 timed or held against its plain version)
+    leave K4's counts as they were before it."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.checker.elle import k4
+        self.k4 = k4
+        self.saved = dict(k4.LAUNCHES), k4.HELPER_LAUNCHES, k4.MEMSETS
+        return self
+
+    def __exit__(self, *exc):
+        (self.k4.LAUNCHES, self.k4.HELPER_LAUNCHES,
+         self.k4.MEMSETS) = self.saved
 
 
 def walk_counts(rec) -> tuple:
@@ -2378,32 +2419,85 @@ def elle_bucket(e, b, rng, density=0.4):
 def elle_bound(kernels, e, b) -> dict:
     """The least time the card could take for one classifier call on a
     (b, e, e) bucket: the larger of its products' operations over the
-    float32 rate outside the tensor cores (the products run in float32,
-    TF32 being off by default) and its bytes (three float32 stacks read
-    once; four bool flags and an int64 residue per block written) over
-    HBM bandwidth. A block takes 3 * ceil(log2 e) squarings and three
-    more products, 2 e^3 operations each; the residues and
-    elementwise work are O(e^2) a product and left out."""
+    bf16 tensor-core rate (every operand is 0/1 and every count an
+    integer <= e <= 4,096, so bf16 operands with float32 accumulation are
+    exact) and its bytes (three float32 stacks read once; four bool flags
+    and an int64 residue per block written) over HBM bandwidth. A block
+    takes 3 * ceil(log2 e) squarings and three more products, 2 e^3
+    operations each; the residues and elementwise work are O(e^2) a
+    product and left out."""
     products = 3 * kernels._steps(e) + 3
     ops = b * products * 2 * e ** 3
     nbytes = 3 * b * e * e * 4 + 12 * b
-    t_o, t_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_o, t_b = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=max(t_o, t_b) * 1e3,
                 bound_by="operations" if t_o >= t_b else "bytes",
                 products_per_block=products, ops=ops, bytes=nbytes)
 
 
-def elle_time(kernels, stacks, dev, iters) -> tuple[float, float]:
-    """Card time of one classifier call on a bucket by CUDA events, and
-    the largest residue of that call (0, or the products were wrong)."""
+def squaring_bound(b, e) -> dict:
+    """The least time for one K4-product squaring of a (b, e, e) stack:
+    2 b e^3 operations at the bf16 rate, against the bytes of the bf16
+    stack read once, the next one written once and the two int32 column
+    sums written."""
+    ops = 2 * b * e ** 3
+    nbytes = 2 * b * e * e * 2 + 2 * b * e * 4
+    t_o, t_b = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_o, t_b) * 1e3,
+                bound_by="operations" if t_o >= t_b else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def device_ops(fn) -> dict:
+    """The device operations (kernels, copies, memsets) one call of fn
+    makes, from a torch.profiler trace of a second call, and their
+    summed device ms; the count by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    ns = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            by_name[ev.name()[:48]] += 1
+            ns += ev.duration_ns()
+    return {"ops": sum(by_name.values()), "device_ms": ns / 1e6,
+            "by_name": dict(by_name.most_common(8))}
+
+
+def elle_time(kernels, k4, stacks, dev, iters, plain_iters) -> dict:
+    """Card time of one classifier call on a bucket by CUDA events, K4
+    and the plain chain in turns (plain, K4, K4, plain), after holding
+    K4's flags equal to the plain chain's; and the largest residue of
+    either (0, or a count was wrong)."""
     e = stacks[0].shape[-1]
     args = [torch.from_numpy(x).to(dev) for x in stacks]
     steps = kernels._steps(e)
-    *_flags, res = kernels._flags_batch(*args, steps)
-    worst = int(res.abs().max().item())
-    ms = time_ms(lambda: kernels._flags_batch(*args, steps), iters,
-                 warmup=1)
-    return ms, worst
+
+    def fast():
+        return k4.classify(*args, steps)
+
+    def plain():
+        return kernels._flags_batch(*args, steps)
+
+    flags, res = fast()
+    *pflags, pres = plain()
+    if not torch.equal(flags, torch.stack(pflags, 1).to(torch.int32)):
+        raise AssertionError(f"elle e={e}: K4's flags differ from the plain "
+                             f"chain's on the card")
+    worst = max(int(res.abs().max().item()), int(pres.abs().max().item()))
+    p1 = time_ms(plain, plain_iters, warmup=1)
+    k1 = time_ms(fast, iters, warmup=1)
+    k2 = time_ms(fast, iters, warmup=0)
+    p2 = time_ms(plain, plain_iters, warmup=0)
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, residue=worst,
+                turns_ms=[p1, k1, k2, p2])
 
 
 def elle_rings(n) -> tuple[int, dict, list]:
@@ -2471,44 +2565,136 @@ class ElleRecorder:
         self.kernels.certificates = self.real_certs
 
 
-def phase_elle_classifier(dev, kernels) -> list:
-    """Step 1: random buckets on the card against the CPU path and the
-    numpy mirror, flags identical and residue 0, timed."""
+def phase_elle_classifier(dev, kernels, k4) -> list:
+    """Step 1: random buckets through `_classify_batches` on the card
+    (K4: one K4-small launch a bucket up to k4.SMALL_MAX_E, K4-product's
+    chain above), flags identical to the CPU path's, the numpy mirror's
+    and the plain chain's on the card, every residue 0; K4 and the plain
+    chain timed in turns, K4's launches, helper launches and zero fills
+    a call from its counters, the plain chain's device operations from a
+    profiler trace, and torch.bmm in bf16 for one product at the shape
+    (the library call)."""
     rng = np.random.default_rng(SEED + 8)
     rows = []
-    for e, b in ELLE_BUCKETS:
+    for e, b in ELLE_K4_BUCKETS:
         buckets = {e: elle_bucket(e, b, rng)}
-        before = kernels.LAUNCHES
+        steps = kernels._steps(e)
+        before, k_before = kernels.LAUNCHES, dict(k4.LAUNCHES)
+        h_before, m_before = k4.HELPER_LAUNCHES, k4.MEMSETS
         got = kernels._classify_batches(buckets, device=dev)[e]
-        if kernels.LAUNCHES != before + 1:
-            raise AssertionError(f"elle bucket e={e}: a retry happened")
+        route = k4.route(e)
+        launched = {k: k4.LAUNCHES[k] - k_before[k] for k in k4.KERNELS}
+        helpers = k4.HELPER_LAUNCHES - h_before
+        memsets = k4.MEMSETS - m_before
+        small = route == "small"
+        want = ({"small": 1 if small else 0,
+                 "product": 0 if small else 3 * steps + 3},
+                # four stagings, a residue a squaring and the pair test
+                0 if small else 4 + 3 * steps + 1, 0 if small else 1)
+        if kernels.LAUNCHES != before + 1 \
+                or (launched, helpers, memsets) != want:
+            raise AssertionError(f"elle bucket e={e}: {launched} K4 "
+                                 f"launches, {helpers} helper launches, "
+                                 f"{memsets} zero fills: a retry or "
+                                 f"another route")
         t = time.perf_counter()
         cpu = kernels._classify_batches(buckets, device="cpu")[e]
         cpu_s = time.perf_counter() - t
         mirror = kernels._classify_batches_host(buckets)[e]
-        for name, g, c, m in zip(ELLE_FLAGS, got, cpu, mirror):
-            if not (np.array_equal(g, c) and np.array_equal(g, m)):
+        args = [torch.from_numpy(x).to(dev) for x in buckets[e]]
+        *plain, _r = kernels._flags_batch(*args, steps)
+        plain = [f.cpu().numpy() for f in plain]
+        for name, g, c, m, p in zip(ELLE_FLAGS, got, cpu, mirror, plain):
+            if not (np.array_equal(g, c) and np.array_equal(g, m)
+                    and np.array_equal(g, p)):
                 raise AssertionError(f"elle bucket e={e} B={b}: {name} "
-                                     f"differs (cuda {g}, cpu {c}, "
-                                     f"mirror {m})")
-        ms, worst = elle_time(kernels, buckets[e], dev, 20)
-        if worst:
-            raise AssertionError(f"elle bucket e={e}: residue {worst}")
-        row = dict(e=e, B=b, ms=ms, cpu_s=cpu_s, residue=worst,
+                                     f"differs (K4 {g}, cpu {c}, mirror "
+                                     f"{m}, plain on the card {p})")
+        iters = 20 if e <= 1024 else 5
+        tm = elle_time(kernels, k4, buckets[e], dev, iters,
+                       max(iters // 4, 3))
+        if tm["residue"]:
+            raise AssertionError(f"elle bucket e={e}: residue "
+                                 f"{tm['residue']}")
+        a16 = args[0].to(torch.bfloat16)
+        library_ms = time_ms(lambda: torch.bmm(a16, a16), iters, warmup=1)
+        plain_ops = device_ops(lambda: kernels._flags_batch(*args, steps))
+        row = dict(e=e, B=b, route=route, ms=tm["ms"],
+                   plain_ms=tm["plain_ms"], turns_ms=tm["turns_ms"],
+                   cpu_s=cpu_s, residue=0, launches=launched,
+                   helper_launches=helpers, memsets=memsets,
+                   library_ms=library_ms,
+                   plain_device_ops=plain_ops["ops"],
+                   plain_device_ms=plain_ops["device_ms"],
+                   plain_top=plain_ops["by_name"],
                    flags_set=[int(f.sum()) for f in got],
                    **elle_bound(kernels, e, b))
         rows.append(row)
-        log(f"elle classifier e={e} B={b}: flags identical on CUDA, the "
-            f"CPU path and the numpy mirror (set per flag "
-            f"{row['flags_set']}), residue 0; card {ms:.6f} ms a call, "
-            f"bound {row['bound_ms']:.6f} ms by {row['bound_by']}; CPU "
-            f"path {cpu_s:.3f} s")
+        log(f"elle classifier e={e} B={b}: flags identical for K4 "
+            f"({route}: {launched}, {helpers} helper launches, {memsets} "
+            f"zero fills), the CPU path, the numpy mirror and the plain "
+            f"chain on the card (set per flag {row['flags_set']}), "
+            f"residues 0; K4 {row['ms']:.6f} ms a call, plain chain "
+            f"{row['plain_ms']:.6f} ms ({plain_ops['ops']} device ops, "
+            f"{plain_ops['device_ms']:.6f} ms on the device), torch.bmm "
+            f"bf16 one product {library_ms:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}; CPU path "
+            f"{cpu_s:.3f} s")
     return rows
 
 
-def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
-    """Steps 2-6 of the Elle phase (step 1: phase_elle_classifier)."""
-    out = {"buckets": phase_elle_classifier(dev, kernels)}
+def phase_elle_squaring(dev, k4) -> dict:
+    """One K4-product squaring alone at ELLE_SQUARING (the rings' bucket)
+    on a random sparse stack, against the plain chain's squaring
+    (torch.bmm in float32, add, clamp) and torch.bmm in bf16, in turns;
+    the next stack and both column sums held exact against the plain
+    step."""
+    b, e = ELLE_SQUARING
+    rng = np.random.default_rng(SEED + 19)
+    a = torch.from_numpy((rng.random((b, e, e)) < 2.0 / e)
+                         .astype(np.float32)).to(dev)
+    a16 = a.to(torch.bfloat16)
+    stats = torch.zeros((2, b, e), dtype=torch.int32, device=dev)
+    nxt = k4.product(a16, a16, a16, stats=stats)
+    p = torch.bmm(a, a)
+    want = p.add(a).clamp_(max=1.0)
+    lhs = p.sum(dim=1, dtype=torch.float64).to(torch.int64)
+    if not (torch.equal(nxt.float(), want)
+            and torch.equal(stats[0].long(), lhs)
+            and torch.equal(stats[1].long(), want.sum(dim=1).long())):
+        raise AssertionError("K4-product squaring differs from the plain "
+                             "step")
+    del p, want, lhs
+    stats.zero_()
+
+    def plain():
+        return torch.bmm(a, a).add_(a).clamp_(max=1.0)
+
+    p1 = time_ms(plain, 3, warmup=1)
+    k1 = time_ms(lambda: k4.product(a16, a16, a16, stats=stats), 10,
+                 warmup=1)
+    k2 = time_ms(lambda: k4.product(a16, a16, a16, stats=stats), 10,
+                 warmup=0)
+    p2 = time_ms(plain, 3, warmup=0)
+    library_ms = time_ms(lambda: torch.bmm(a16, a16), 10, warmup=1)
+    out = dict(B=b, e=e, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               turns_ms=[p1, k1, k2, p2], library_ms=library_ms,
+               max_abs_err=0.0, **squaring_bound(b, e))
+    log(f"elle K4-product squaring (B, e) = ({b}, {e}): the next stack "
+        f"and both column sums exact against the plain step; K4 "
+        f"{out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, torch.bmm "
+        f"bf16 {library_ms:.6f} ms, bound {out['bound_ms']:.6f} ms by "
+        f"{out['bound_by']} (turns {out['turns_ms']})")
+    return out
+
+
+def phase_elle(dev, synth, kernels, k4, list_append, wr, platform) -> dict:
+    """Steps 2-6 of the Elle phase (step 1: phase_elle_classifier and
+    phase_elle_squaring). K4's launches are set to 0 just before step 2
+    and read just after step 5: the Elle path's K4 launches."""
+    out = {"buckets": phase_elle_classifier(dev, kernels, k4),
+           "squaring": phase_elle_squaring(dev, k4)}
+    zero_launches()
 
     # 2. the north-star list-append history: valid, no classifier call
     t = time.perf_counter()
@@ -2598,11 +2784,13 @@ def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
                 or not all(res[k] for k in ELLE_FLAGS):
             raise AssertionError(f"rings n={n}: flags {got}, "
                                  f"{kernels.LAUNCHES} classifier calls")
-        ms, worst = elle_time(kernels, stacks, dev, 3)
-        if worst:
-            raise AssertionError(f"rings n={n}: residue {worst}")
+        with K4Uncounted():
+            tm = elle_time(kernels, k4, stacks, dev, 3, 2)
+        if tm["residue"]:
+            raise AssertionError(f"rings n={n}: residue {tm['residue']}")
         row = dict(nodes=n, bucket=list(stacks[0].shape), wall_s=wall,
-                   ms=ms, peak_gb=peak_gb, residue=worst,
+                   ms=tm["ms"], plain_ms=tm["plain_ms"],
+                   turns_ms=tm["turns_ms"], peak_gb=peak_gb, residue=0,
                    **elle_bound(kernels, e, stacks[0].shape[0]))
         if n == ELLE_RING_SMALL:
             t = time.perf_counter()
@@ -2613,13 +2801,22 @@ def phase_elle(dev, synth, kernels, list_append, wr, platform) -> dict:
         out["rings"][n] = row
         log(f"elle rings 3 x {n} nodes: bucket [B, e, e] {row['bucket']}, "
             f"per-ring flags (G0, G1c, G-single, G2-item) {by_ring}, "
-            f"residue 0; analyze_edges wall {wall:.3f} s, card "
-            f"{ms:.3f} ms a classifier call, bound {row['bound_ms']:.3f} ms "
+            f"residue 0; analyze_edges wall {wall:.3f} s, K4 "
+            f"{row['ms']:.3f} ms a classifier call, plain chain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
             f"by {row['bound_by']} ({row['ops'] / 1e12:.3f} T operations, "
             f"{row['products_per_block']} products a block), peak "
             f"{peak_gb:.3f} GiB"
             + (f"; equal to the CPU path ({row['cpu_s']:.3f} s)"
                if "cpu_s" in row else ""))
+
+    out["k4_launches"] = {k: v for k, v in launch_counts().items()
+                          if k.startswith("k4_")}
+    if not (out["k4_launches"]["k4_small_launches"] > 0
+            and out["k4_launches"]["k4_product_launches"] > 0):
+        raise AssertionError(f"the Elle path missed a K4 kernel: "
+                             f"{out['k4_launches']}")
+    log(f"elle K4 launches over steps 2-5: {out['k4_launches']}")
 
     # 6. an injected OOM on step 3: one retry, the same result
     os.environ[platform.FAULT_INJECT_ENV] = "oom@elle:1"
@@ -3595,8 +3792,10 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
         log(f"sharded {label}: wall {rec['wall_s']:.3f} s, K3 launches "
             f"{rec['k3_launches']}, K3-sort launches {rec['k3s_launches']}, "
             f"K2 launches {rec['k2_launches']}, "
-            f"classifier calls {rec['classifier_calls']}, collectives "
-            f"{rec['collectives']}")
+            f"classifier calls {rec['classifier_calls']}, K4 launches "
+            f"(small, product, helpers) {rec['k4_small_launches']}, "
+            f"{rec['k4_product_launches']}, {rec['k4_helper_launches']}, "
+            f"collectives {rec['collectives']}")
         return r, rec
 
     def sharded(model, hists):
@@ -3640,25 +3839,34 @@ def sharded_world1(mesh, reg, hz, counter, cnt, want_hz, want_cnt, dev, wgl,
 
     g, rec = run("list-append + G1c over 1 NCCL rank",
                  lambda: list_append.check(elle["g1c_history"], mesh=mesh))
-    if g != elle["g1c_result"] or rec["classifier_calls"] != 1:
+    if g != elle["g1c_result"] or rec["classifier_calls"] != 1 \
+            or rec["k4_small_launches"] < 1:
         raise AssertionError("sharded Elle: the result differs from the "
-                             "Elle phase's")
+                             "Elle phase's, or K4 did not classify it")
     out["elle"] = rec
 
     adj = ring_adjacency(SHARDED_RING)
+    steps = kernels._steps(SHARDED_RING)
     t = time.perf_counter()
-    plain = kernels.transitive_closure(adj, device=dev)
-    plain_s = time.perf_counter() - t
+    unsharded, nomesh = run(f"transitive_closure of a {SHARDED_RING}-node "
+                            f"ring without the mesh",
+                            lambda: kernels.transitive_closure(adj,
+                                                               device=dev))
+    nomesh_s = time.perf_counter() - t
     closed, rec = run(f"transitive_closure of a {SHARDED_RING}-node ring",
                       lambda: kernels.transitive_closure(adj, mesh=mesh))
-    if not (np.array_equal(closed, plain) and closed.all()):
-        raise AssertionError("sharded transitive_closure differs")
-    out["closure"] = dict(rec, plain_s=plain_s)
+    if not (np.array_equal(closed, unsharded) and closed.all()) or \
+            rec["k4_product_launches"] != steps or \
+            nomesh["k4_product_launches"] != steps:
+        raise AssertionError(f"sharded transitive_closure differs, or did "
+                             f"not take {steps} K4-product launches")
+    out["closure"] = dict(rec, plain_s=nomesh_s, nomesh=nomesh)
     log(f"sharded: per_key equal to the batch phase's, the group plan the "
         f"JAX package's {[(g['slots'], g['keys']) for g in SHARDED_GROUPS]}, "
         f"the OOM split, the Elle result equal to the Elle phase's, the "
-        f"ring's closure equal without the mesh ({plain_s:.3f} s); all "
-        f"collectives on {dev.type} tensors: {dict(mesh.calls)}")
+        f"ring's closure equal without the mesh ({nomesh_s:.3f} s), "
+        f"{steps} K4-product launches each way; all collectives on "
+        f"{dev.type} tensors: {dict(mesh.calls)}")
     return out
 
 
@@ -4380,7 +4588,9 @@ def phase_workloads(dev, elle_kernels, pool) -> dict:
                 f"{row['classifier_s']:.3f} s (buckets e: [B, e, e] "
                 f"{buckets}), host certificates "
                 f"{row['certificates_s']:.3f} s, K1 {row['k1_launches']}, "
-                f"K2 {row['k2_launches']}, K3 {row['k3_launches']}")
+                f"K2 {row['k2_launches']}, K3 {row['k3_launches']}, K4 "
+                f"(small, product) {row['k4_small_launches']}, "
+                f"{row['k4_product_launches']}")
             if res["valid?"] is not False or w["valid?"] is not False or \
                     WORKLOAD_ANOMALY[kind] not in w.get("anomaly-types", ()):
                 raise AssertionError(f"{kind} run: {res['valid?']}, "
@@ -4389,10 +4599,13 @@ def phase_workloads(dev, elle_kernels, pool) -> dict:
                     {o["f"] for o in nem} != {"start", "stop"}:
                 raise AssertionError(f"{kind} run: {n_ops} ops, nemesis "
                                      f"{sorted({o['f'] for o in nem})}")
+            k4_calls = sum(len(bk) for bk in buckets)
             if row["classifier_calls"] < 1 or row["k1_launches"] or \
                     row["k2_launches"] or row["k3_launches"] or \
                     row["k3s_launches"] or any(
-                        int(e) > 4096 for bk in buckets for e in bk):
+                        int(e) > 4096 for bk in buckets for e in bk) or \
+                    row["k4_small_launches"] + row["k4_product_launches"] \
+                    < k4_calls:
                 raise AssertionError(f"{kind} run: classifier calls "
                                      f"{row['classifier_calls']} {buckets}, "
                                      f"K1/K2/K3 {row['k1_launches']}/"
@@ -4996,6 +5209,7 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
                                           wgl, wgl_closure, wgl_dedup,
                                           wgl_sortwalk, wgl_walk)
+    from jepsen_tpu_torch.checker.elle import k4 as elle_k4
     from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
     from jepsen_tpu_torch.checker.elle import list_append, wr
     from jepsen_tpu_torch.checker.linear import linearizable
@@ -5120,7 +5334,8 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
     phase_done("batch path")
 
     # -- phase 7: Elle ------------------------------------------------------------
-    elle = phase_elle(dev, synth, elle_kernels, list_append, wr, _platform)
+    elle = phase_elle(dev, synth, elle_kernels, elle_k4, list_append, wr,
+                      _platform)
     phase_done("elle")
 
     # -- phase 8: streaming, the tier and the race ----------------------------
@@ -5315,6 +5530,47 @@ def run_phases(args, dev, name, smi, phase_s, phase_done, pool, cpu_dense,
             "online", "abort", "cli-test", "cli-analyze")),
         "suite_launches": suites["hazelcast"]["k3s_launches"],
         "walks": k3s["walks"]})
+    # K4, the Elle classifier and closure: K4-small's numbers are
+    # one classifier call on the (8, 64) bucket (one launch), K4-product's
+    # one squaring of the rings' (4, 4096) stack; launches over the Elle
+    # phase's history checks (steps 2-5), then the other phases'. Flags,
+    # counts and residues are compared exactly, so max_abs_err is 0
+    eb = next(r for r in elle["buckets"] if (r["e"], r["B"]) == (8, 64))
+    sq, rings = elle["squaring"], elle["rings"][ELLE_RING]
+    wk = (run_path["workloads"]["monotonic"],
+          run_path["workloads"]["sequential"])
+    w1 = sharded["world1"]
+    kernels.append({
+        "name": "elle_small", "route": "cuda", "source": elle_k4.SOURCE,
+        "replaces": elle_k4.REPLACES["small"],
+        "launches": elle["k4_launches"]["k4_small_launches"],
+        "max_abs_err": 0.0, "ms": eb["ms"], "plain_ms": eb["plain_ms"],
+        "bound_ms": eb["bound_ms"], "bound_by": eb["bound_by"],
+        # torch.bmm in bf16 of one of the call's products
+        "library_ms": eb["library_ms"], "shape": [eb["B"], eb["e"]],
+        "small_max_e": elle_k4.SMALL_MAX_E,
+        "sharded_launches": w1["elle"]["k4_small_launches"],
+        "workload_launches": sum(r["k4_small_launches"] for r in wk),
+        "buckets": [{k: r[k] for k in (
+            "e", "B", "route", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "launches", "helper_launches", "memsets",
+            "plain_device_ops")}
+            for r in elle["buckets"]]})
+    kernels.append({
+        "name": "elle_product", "route": "cuda", "source": elle_k4.SOURCE,
+        "replaces": elle_k4.REPLACES["product"],
+        "launches": elle["k4_launches"]["k4_product_launches"],
+        "helper_launches": elle["k4_launches"]["k4_helper_launches"],
+        "memsets": elle["k4_launches"]["k4_memsets"],
+        "max_abs_err": 0.0, "ms": sq["ms"], "plain_ms": sq["plain_ms"],
+        "bound_ms": sq["bound_ms"], "bound_by": sq["bound_by"],
+        # torch.bmm in bf16: the same product without the epilogue
+        "library_ms": sq["library_ms"], "shape": [sq["B"], sq["e"]],
+        "rings_call_ms": rings["ms"], "rings_plain_call_ms":
+        rings["plain_ms"], "rings_bound_ms": rings["bound_ms"],
+        "sharded_launches": w1["closure"]["k4_product_launches"]
+        + w1["closure"]["nomesh"]["k4_product_launches"],
+        "workload_launches": sum(r["k4_product_launches"] for r in wk)})
     # batched: the hazelcast batch's largest group (64 rows of 8 x 2^6)
     hb = max((w for w in k3["walks"].values() if "keys" in w),
              key=lambda w: w["keys"])

@@ -18,8 +18,10 @@ sub-problem's structure lives:
      need polynomial closure computations to classify the Adya anomaly
      (G0 / G1c / G-single / G2-item): boolean matrix products. SCC
      blocks are bucketed to power-of-two sizes e, batched into (B, e, e)
-     stacks and classified together (`_flags_batch`, `torch.bmm` for the
-     products, as the JAX package leaves its products to XLA).
+     stacks and classified together: on the card by K4 (`k4.classify`,
+     hand-written CUDA: one launch a bucket up to e = 256, bf16
+     tensor-core squarings above), on the CPU by `_flags_batch`, K4's
+     plain version (`torch.bmm` for the products).
   3. **Certificates (host).** BFS path reconstruction for the
      human-readable anomaly cycles, restricted to nontrivial SCCs.
 
@@ -61,6 +63,7 @@ from ..._platform import (CorruptDeviceResult, attest_enabled,
                           classify_backend_error, guarded_fetch,
                           maybe_corrupt, maybe_inject_fault)
 from .. import abft
+from . import k4
 
 log = logging.getLogger(__name__)
 
@@ -250,7 +253,9 @@ def _flags_batch(ww: torch.Tensor, wr: torch.Tensor, rw: torch.Tensor,
     """Classify a batch of SCC subgraphs at once: (B, e, e) float32 0/1
     ww/wr/rw blocks -> four (B,) bool anomaly flags (G0, G1c, G-single,
     G2-item) and a (B,) int64 ABFT residue, all unfetched. The JAX
-    package's `_flags_batch_fn`, with vmap's batch axis written out.
+    package's `_flags_batch_fn`, with vmap's batch axis written out: K4's
+    plain version (`k4.classify` runs it on CPU tensors; on the card it
+    runs when called by name).
 
     The G-single/G2 split avoids both masking and double-counting: with
     E = the reflexive ww|wr closure, H1 = E.rw.E is "reachable using
@@ -341,8 +346,7 @@ def _classify_batches(buckets: dict, device=None, mesh=None) -> dict:
                     digests = ([abft.digest_device(x) for x in args]
                                if attest_on else [])
                     LAUNCHES += 1
-                    *flags, res = _flags_batch(*args, steps)
-                    flags = torch.stack(flags, 1).to(torch.int32)
+                    flags, res = k4.classify(*args, steps)
                     f, res, *dig = guarded_fetch(
                         lambda: [t.cpu().numpy()
                                  for t in (flags, res, *digests)],
@@ -740,19 +744,23 @@ def transitive_closure(adj: np.ndarray, mesh=None,
     squaring (log2(n) products of 0/1 matrices, exact on any matmul
     precision). device and mesh as in `analyze_edges`: with a mesh the
     padded matrix is sharded by rows, and each squaring gathers every
-    rank's rows A and computes this rank's rows of min(A + A_r A, 1)."""
+    rank's rows A and computes this rank's rows of min(A + A_r A, 1)
+    (`k4.square_rows`: K4-product on the card, in bf16; `torch.mm` in
+    float32 on the CPU). The padded width is a multiple of 8 and of the
+    axis size (K4-product's rows are read 16 bytes at a time)."""
     mesh, dev = parallel.resolve(mesh, device)
     mesh = mesh or parallel.local_mesh(dev)
     n = len(adj)
     if n == 0:
         return np.zeros((0, 0), bool)
-    e = -(-_bucket(n, lo=128) // mesh.size) * mesh.size
+    align = math.lcm(8, mesh.size)
+    e = -(-_bucket(n, lo=128) // align) * align
     padded = np.zeros((e, e), np.float32)
     padded[:n, :n] = adj
-    a = torch.from_numpy(padded[mesh.block(e)]).to(dev)
+    a = k4.closure_operand(torch.from_numpy(padded[mesh.block(e)]).to(dev))
     for _ in range(_steps(n)):
         full = parallel.all_gather_rows(mesh, a)
-        a = torch.mm(a, full).add_(a).clamp_(max=1.0)
+        a = k4.square_rows(a, full)
     full = parallel.all_gather_rows(mesh, a)
     return guarded_fetch(lambda: (full > 0).cpu().numpy(),
                          site="elle closure")[:n, :n]

@@ -99,8 +99,10 @@ def test_one_worker_history_equals_the_jax_run_op_for_op(tmp_path, seed):
 
 
 def _keyed_client(liar_key=None):
-    """One atom register per key; `liar_key`'s reads return a value no
-    one wrote."""
+    """One atom register per key; every read of `liar_key` returns a value
+    no one wrote (99), written or not: at concurrency 10 the interleaving
+    varies with the host's timing, and the key's register may stay
+    unwritten through all of its reads."""
 
     class KeyedAtom(tclient.Client):
         def __init__(self):
@@ -121,8 +123,7 @@ def _keyed_client(liar_key=None):
             else:
                 seen = cell.read()
                 out["type"] = "ok"
-                out["value"] = tind.ktuple(
-                    k, 99 if k == liar_key and seen is not None else seen)
+                out["value"] = tind.ktuple(k, 99 if k == liar_key else seen)
             return out
 
         def reusable(self, test):

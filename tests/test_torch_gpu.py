@@ -23,6 +23,7 @@ from jepsen_tpu_torch.carry import carry_from_numpy, carry_to_numpy
 from jepsen_tpu_torch.checker import (linear, screen, streaming, synth,
                                       wgl, wgl_closure, wgl_dedup,
                                       wgl_sortwalk, wgl_walk)
+from jepsen_tpu_torch.checker.elle import k4
 from jepsen_tpu_torch.checker.elle import kernels as elle_kernels
 from jepsen_tpu_torch.checker.elle import list_append as elle_append
 from jepsen_tpu_torch.checker.wgl_closure import (closure_round,
@@ -1226,3 +1227,203 @@ def test_k3s_refused_launch_raises_and_does_not_fall_back(monkeypatch):
             c[1].cpu(), c[2], c[3], torch.stack([c[4], c[5], c[6]]), c[7],
             model="cas-register", route="hash", s_lo=k.s_lo,
             sb_bits=k.sb_bits, attest=True, steps=4)
+
+
+# -- K4: the Elle classifier and transitive closure ---------------------------
+
+# every route's buckets: K4-small's warp teams (e <= 32) and block teams
+# (64-256), K4-product's chain (512-2,048, and at 256 called by name)
+_K4_BUCKETS = [(8, 64, "small"), (16, 32, "small"), (32, 8, "small"),
+               (64, 16, "small"), (128, 4, "small"), (256, 8, "small"),
+               (256, 8, "product"), (512, 4, "product"),
+               (1024, 2, "product"), (2048, 1, "product")]
+
+
+def _k4_counts():
+    return dict(k4.LAUNCHES), k4.HELPER_LAUNCHES, k4.MEMSETS
+
+
+def _k4_on(kernel, args, steps):
+    """K4 by `classify` where `kernel` is the bucket's route, else the
+    product chain by name."""
+    b, e = args[0].shape[:2]
+    if k4.route(e) == kernel:
+        return k4.classify(*args, steps)
+    assert kernel == "product"
+    return k4._classify_product(*args, steps, b, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,b,kernel", _K4_BUCKETS)
+def test_k4_classifier_matches_the_plain_version(e, b, kernel):
+    """K4's flags equal the plain chain's on the card and on the CPU, with
+    every residue 0, on random blocks and one ring of each kind (zero
+    padding blocks included)."""
+    _need_cuda()
+    ww, wr, rw = _elle_bucket(e, b, np.random.default_rng(e + b), 1.2)
+    n = min(e, 200)
+    for s, rw_at in zip(range(min(b, 3)), ((), (n // 3,), (1, n // 2))):
+        for m in (ww, wr, rw):
+            m[s] = 0.0
+        for k in range(n):
+            (rw if k in rw_at else ww)[s, k, (k + 1) % n] = 1.0
+    if b > 3:
+        for m in (ww, wr, rw):
+            m[-1] = 0.0
+    steps = elle_kernels._steps(e)
+    cpu = [torch.from_numpy(x) for x in (ww, wr, rw)]
+    args = [x.cuda() for x in cpu]
+    before = _k4_counts()
+    flags, res = _k4_on(kernel, args, steps)
+    torch.cuda.synchronize()
+    after = _k4_counts()
+    want_flags, want_res = k4.classify(*cpu, steps)
+    *plain, plain_res = elle_kernels._flags_batch(*args, steps)
+    assert torch.equal(flags.cpu(), want_flags)
+    assert torch.equal(torch.stack(plain, 1).to(torch.int32).cpu(),
+                       want_flags)
+    assert res.cpu().tolist() == want_res.tolist() == \
+        plain_res.cpu().tolist() == [0] * b
+    assert want_flags[0].tolist()[:2] == [1, 1]            # the ww ring
+    if b > 1:
+        assert want_flags[1].tolist()[2] == 1               # one rw
+    if b > 3:
+        assert want_flags[-1].tolist() == [0, 0, 0, 0]      # padding
+    if kernel == "small":
+        assert after == ({"small": before[0]["small"] + 1,
+                          "product": before[0]["product"]}, *before[1:])
+    else:
+        assert after[0]["small"] == before[0]["small"]
+        assert after[0]["product"] - before[0]["product"] == 3 * steps + 3
+        # four stagings, a residue a squaring and the pair test
+        assert after[1] - before[1] == 4 + 3 * steps + 1
+        assert after[2] - before[2] == 1        # one zeroed workspace
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["small", "product"])
+def test_k4_takes_more_blocks_than_a_grid_dimension(kernel):
+    """A bucket of 65,536 blocks (past a grid's 65,535 in y and z): both
+    K4 routes equal the plain chain, the last blocks included."""
+    _need_cuda()
+    e, b = 8, 65536
+    ww, wr, rw = _elle_bucket(e, b, np.random.default_rng(11), 1.2)
+    for m in (ww, wr, rw):
+        m[-2:] = 0.0
+    ww[-1, np.arange(e), (np.arange(e) + 1) % e] = 1.0      # G0, G1c
+    ww[-2, np.arange(e - 1), np.arange(1, e)] = 1.0
+    rw[-2, e - 1, 0] = 1.0                                   # G-single
+    steps = elle_kernels._steps(e)
+    args = [torch.from_numpy(x).cuda() for x in (ww, wr, rw)]
+    flags, res = _k4_on(kernel, args, steps)
+    *plain, plain_res = elle_kernels._flags_batch(*args, steps)
+    want = torch.stack(plain, 1).to(torch.int32)
+    assert torch.equal(flags, want)
+    assert int(res.abs().max()) == int(plain_res.abs().max()) == 0
+    assert want[-1].tolist() == [1, 1, 0, 0]
+    assert want[-2].tolist() == [0, 0, 1, 0]
+
+
+@pytest.mark.gpu
+def test_k4_small_bucket_is_one_launch_through_the_classifier():
+    _need_cuda()
+    buckets = {8: _elle_bucket(8, 64, np.random.default_rng(1))}
+    before = _k4_counts()
+    got = elle_kernels._classify_batches(buckets, device="cuda")
+    assert _k4_counts() == ({"small": before[0]["small"] + 1,
+                             "product": before[0]["product"]}, *before[1:])
+    want = elle_kernels._classify_batches_host(buckets)
+    for g, w in zip(got[8], want[8]):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_k4_leaves_bmm_and_mm_alone(monkeypatch):
+    """On CUDA the classifier and the closure call neither torch.bmm nor
+    torch.mm (nor cuBLAS through them): only K4 and its helpers."""
+    _need_cuda()
+    real_bmm, real_mm = torch.bmm, torch.mm
+
+    def guard(real):
+        def call(a, b, *rest, **kw):
+            if a.is_cuda or b.is_cuda:
+                raise AssertionError("a CUDA product outside K4")
+            return real(a, b, *rest, **kw)
+        return call
+
+    monkeypatch.setattr(torch, "bmm", guard(real_bmm))
+    monkeypatch.setattr(torch, "mm", guard(real_mm))
+    rng = np.random.default_rng(5)
+    for e, b in ((8, 4), (256, 2), (512, 2), (1024, 1)):
+        buckets = {e: _elle_bucket(e, b, rng)}
+        got = elle_kernels._classify_batches(buckets, device="cuda")
+        want = elle_kernels._classify_batches_host(buckets)
+        for g, w in zip(got[e], want[e]):
+            assert np.array_equal(g, w)
+    ring = np.zeros((1000, 1000), bool)
+    ring[np.arange(1000), (np.arange(1000) + 1) % 1000] = True
+    before = k4.LAUNCHES["product"]
+    closed = elle_kernels.transitive_closure(ring, device="cuda")
+    assert closed.all()
+    assert k4.LAUNCHES["product"] - before == elle_kernels._steps(1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,e,density", [(512, 512, 0.02), (128, 4096, 0.001),
+                                         (64, 1024, 1.0), (40, 136, 0.3)])
+def test_k4_product_squaring_matches_torch_mm(m, e, density):
+    """One K4-product squaring of a row block against float64 counts: the
+    next rows, and both column sums, exact."""
+    _need_cuda()
+    rng = np.random.default_rng(m + e)
+    a = (rng.random((e, e)) < density).astype(np.float32)
+    full = torch.from_numpy(a).cuda().to(torch.bfloat16)
+    rows = full[:m].contiguous()
+    stats = torch.zeros((2, 1, e), dtype=torch.int32, device="cuda")
+    got = k4.product(rows, full, rows, stats=stats)
+    counts = torch.from_numpy(a[:m].astype(np.float64) @ a.astype(np.float64))
+    want = ((counts + torch.from_numpy(a[:m]).double()) > 0)
+    assert torch.equal(got.cpu() > 0, want)
+    assert stats[0, 0].cpu().tolist() == counts.sum(0).long().tolist()
+    assert stats[1, 0].cpu().tolist() == want.sum(0).tolist()
+    assert torch.equal(k4.square_rows(rows, full).cpu() > 0, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [100, 1000, 4096])
+def test_k4_transitive_closure_matches_the_cpu(n):
+    _need_cuda()
+    rng = np.random.default_rng(n)
+    adj = rng.random((n, n)) < 1.0 / n
+    adj[np.arange(n), (np.arange(n) + 7) % n] = rng.random(n) < 0.9
+    got = elle_kernels.transitive_closure(adj, device="cuda")
+    want = elle_kernels.transitive_closure(adj, device="cpu")
+    assert got.dtype == want.dtype == np.bool_ and np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_k4_refused_launch_raises_and_does_not_fall_back(monkeypatch):
+    _need_cuda()
+    lib = k4._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def jt_elle_small(*a):
+            return 1                    # cudaErrorInvalidValue
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("fell back to the plain chain")
+
+    monkeypatch.setattr(k4, "_lib", lambda: Refusing())
+    monkeypatch.setattr(elle_kernels, "_flags_batch", no_fallback)
+    args = [torch.zeros((2, 8, 8), device="cuda") for _ in range(3)]
+    before = _k4_counts()
+    with pytest.raises(_platform.KernelLaunchError):
+        k4.classify(*args, 3)
+    assert _k4_counts() == before
+    with pytest.raises(ValueError):     # K not a multiple of 8
+        k4.product(*(torch.zeros((12, 12), dtype=torch.bfloat16,
+                                 device="cuda"),) * 2)
